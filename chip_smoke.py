@@ -7,23 +7,44 @@ Phases, each printing one line (any failed phase exits non-zero):
   1. device   the card's name, the device count, and nvidia-smi's name and
               power limit
   2. build    nvcc builds every kernel of ``vid2player3d_torch/csrc`` for
-              sm_90a (into ``build/kernels/``)
+              sm_90a (into ``build/kernels/``), all sources in parallel
   3. K1       the fused clip+Adam kernel against its plain PyTorch version on
               the card, at the 16 full-width ImitatorNet leaf shapes, 4 steps,
               with f32 and with bf16 moments; its time per optimizer step
               beside its HBM bound, the plain version's time and
               `torch.optim.Adam(fused=True)` as a library yardstick
-  4. parity   a small imitation epoch (4 envs, f32) on the card against the
+  4. K2       moe_linear against its plain version at the MVAE decoder's three
+              full-width layers (E = 6; 320->256, 288->256, 288->290) at
+              B = 10,240 and 1,001, its backward against autograd at B = 256;
+              time per decode (3 launches) eager and as a CUDA-graph replay
+              beside the f32 bound, the plain version's, and one cuBLAS GEMM
+              per layer of the same FLOPs (no blend) as a library yardstick
+  5. K3       fk_chain against its plain version at N = 10,240, 256 and 1;
+              time eager and as a graph replay beside the HBM bound
+  6. parity   a small imitation epoch (4 envs, f32) on the card against the
               same epoch on the CPU with the same draws
-  5. main     the slice's main path at full width: synthetic motion lib (8
+  7. main     the imitation path at full width: synthetic motion lib (8
               motions x 300 frames) -> HumanoidImEnv (4096 envs, 2 substeps)
               -> ImitationPPO (horizon 32, minibatch 512, 6 mini-epochs,
-              fused_optimizer="on"), two `train_epoch`s, with the kernels'
-              launch counters set to 0 just before and read just after
-  6. profile torch.profiler over a short epoch at the same widths and env
-              count: device busy and idle share, device events per env step
-              and per optimizer step, the costliest device kernels
-  7. kernels  one JSON line over the ported kernels
+              fused_optimizer="on"), two `train_epoch`s, K1's launch counter
+              set to 0 just before and read just after
+  8. tennis parity  a small tennis epoch (4 envs, horizon 4, f32) on the card
+              against the same epoch on the CPU with the same draws
+  9. tennis main    the tennis path at federer_train_stage_1's sizes: random
+              full-width MVAE (hidden 256, 6 experts) and pi_low
+              (734->1024->1024->512->75), a 4096-candidate ball pool,
+              TennisEnv (10,240 envs, 2 substeps, reach reward, 256 candidate
+              resets) -> V2PPPO (horizon 64, minibatch 16,384, 6 mini-epochs:
+              240 optimizer steps per epoch), two `train_epoch`s, the K2 and
+              K3 launch counters set to 0 just before and read just after
+  10. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
+              envs, 6 substeps, wrist reaction force, ball-body contact,
+              return_w_estimate) with the same networks
+  11. profile torch.profiler over a short imitation epoch and a short tennis
+              rollout: device busy and idle share, device events per step,
+              the costliest device kernels, K2's and K3's device share and
+              the estimate_out span's share
+  12. kernels one JSON line over the ported kernels
 The last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository around it: with no card, or run from
@@ -48,6 +69,7 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
 NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 2
 K1_CHECK_STEPS = 4
+SPANS = ("estimate_out",)   # record_function spans on the main path
 K1_TIMED_STEPS = 200
 
 
@@ -309,9 +331,20 @@ def main_phase(dev, card: str):
 # ---------------------------------------------------------------------------
 
 def _device_events(prof):
+    """The device kernels and copies of a profile; the device-side ranges of
+    `record_function` spans are left out (they are not device work)."""
     import torch
 
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in SPANS]
+
+
+def _device_spans(prof, name):
+    """The device-side time ranges of the `record_function` span `name`."""
+    import torch
+
+    return [e.time_range for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name == name]
 
 
 def profile_phase(dev, card: str):
@@ -362,6 +395,426 @@ def profile_phase(dev, card: str):
         rollout_wall_s_per_env_step=r["wall_s"] / horizon, **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 4: K2 against its plain version, and its times
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = ((320, 256), (288, 256), (288, 290))   # the decoder at full width
+MOE_EXPERTS = 6
+TENNIS_ENVS, TENNIS_HORIZON, TENNIS_MINIBATCH, TENNIS_MINI_EPOCHS = 10240, 64, 16384, 6
+TENNIS_EPOCHS = 2
+STAGE2_ENVS, STAGE2_STEPS = 15360, 8
+KERNEL_TIMED = 50
+
+
+def _moe_layer_inputs(dev, batch, d_in, d_out, gen):
+    import torch
+
+    x = torch.randn(batch, d_in, generator=gen, device=dev)
+    coeff = torch.softmax(torch.randn(batch, MOE_EXPERTS, generator=gen, device=dev), -1)
+    lim = (6.0 / (MOE_EXPERTS * d_in)) ** 0.5          # the decoder's he-uniform init
+    w = (torch.rand(MOE_EXPERTS, d_in, d_out, generator=gen, device=dev) * 2 - 1) * lim
+    b = torch.randn(MOE_EXPERTS, d_out, generator=gen, device=dev) * 0.1
+    return x, coeff, w, b
+
+
+def _graph_ms(fn, iters: int = KERNEL_TIMED) -> float:
+    """Device time of `fn` replayed from a CUDA graph (no host launch cost)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def k2_phase(dev, card: str):
+    import torch
+
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = 1e-4   # ~2000 f32 products per output summed in another order, fused
+    errs = {}
+    for batch in (TENNIS_ENVS, 1001):
+        for d_in, d_out in MOE_LAYERS:
+            x, coeff, w, b = _moe_layer_inputs(dev, batch, d_in, d_out, gen)
+            got = MOE.moe_linear(x, coeff, w, b)
+            want = MOE.moe_linear_ref(x, coeff, w, b)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            errs[f"B{batch}_{d_in}x{d_out}"] = err
+            if not err <= tol * max(1.0, scale):
+                fail(f"K2 disagrees with its plain version at B={batch} {d_in}x{d_out}: {err}")
+    # the autograd.Function's backward against autograd of the plain forward
+    bwd_err = 0.0
+    for d_in, d_out in MOE_LAYERS:
+        leaves = _moe_layer_inputs(dev, 256, d_in, d_out, gen)
+        g = torch.randn(256, d_out, generator=gen, device=dev)
+        lk = [t.clone().requires_grad_(True) for t in leaves]
+        lp = [t.clone().requires_grad_(True) for t in leaves]
+        gk = torch.autograd.grad(MOE.moe_linear(*lk), lk, g)
+        gp = torch.autograd.grad(MOE.moe_linear_ref(*lp), lp, g)
+        for a, c in zip(gk, gp):
+            e = float((a - c).abs().max())
+            bwd_err = max(bwd_err, e)
+            if not e <= 1e-3 * max(1.0, float(c.abs().max())):
+                fail(f"K2 backward disagrees with autograd at {d_in}x{d_out}: {e}")
+
+    layers = [_moe_layer_inputs(dev, TENNIS_ENVS, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
+    # the library yardstick: x @ W reshaped to (in, 6*out), one cuBLAS GEMM
+    # per layer with the same FLOPs and no blend
+    wide = [(x, w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()) for x, _, w, _ in layers]
+
+    def decode():
+        return [MOE.moe_linear(*a) for a in layers]
+
+    def plain():
+        return [MOE.moe_linear_ref(*a) for a in layers]
+
+    def library():
+        return [x @ w2 for x, w2 in wide]
+
+    before = MOE.moe_linear.launches
+    ms, plain_ms, library_ms = cuda_ms(decode, KERNEL_TIMED), cuda_ms(plain, KERNEL_TIMED), \
+        cuda_ms(library, KERNEL_TIMED)
+    graph_ms, plain_graph_ms = _graph_ms(decode), _graph_ms(plain)
+    MOE.moe_linear.launches = before    # timing launches are not the main path's
+    flops = sum(2 * MOE_EXPERTS * TENNIS_ENVS * i * o for i, o in MOE_LAYERS)
+    nbytes = 4 * sum(TENNIS_ENVS * i + TENNIS_ENVS * MOE_EXPERTS + MOE_EXPERTS * i * o
+                     + MOE_EXPERTS * o + TENNIS_ENVS * o for i, o in MOE_LAYERS)
+    rate = hbm_rate(card)
+    bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
+    row = dict(max_abs_err=max(errs.values()), tol=tol, backward_max_abs_err=bwd_err,
+               ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+               library_ms=library_ms, bound_ms=bound_ms, flops=flops, bytes=nbytes,
+               bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations")
+    say("K2", card=card, unit="one MVAE decode: 3 launches at B=10240", errs=errs,
+        library="x @ W.reshape(in, 6*out): one cuBLAS f32 GEMM per layer, same FLOPs, "
+                "no blend",
+        achieved_tflops=flops / (graph_ms * 1e-3) / 1e12, **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5: K3 against its plain version, and its times
+# ---------------------------------------------------------------------------
+
+def k3_phase(dev, card: str):
+    import torch
+
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.physics.asset import mujoco_parents
+
+    parents = tuple(int(p) for p in mujoco_parents())
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(n):
+        rot = torch.eye(3, device=dev).expand(n, 24, 3, 3) \
+            + 0.05 * torch.randn(n, 24, 3, 3, generator=gen, device=dev)
+        return (rot.contiguous(), torch.randn(n, 24, 3, generator=gen, device=dev) * 0.1,
+                torch.randn(n, 3, generator=gen, device=dev))
+
+    errs = {}
+    for n in (TENNIS_ENVS, 256, 1):
+        args = inputs(n)
+        pos, rm = FK.fk_chain(*args, parents)
+        wpos, wrm = FK._fk_plain(*args, parents)
+        torch.cuda.synchronize()
+        errs[f"N{n}"] = max(float((pos - wpos).abs().max()), float((rm - wrm).abs().max()))
+    # same products and sums in the same order, no FMA: bit for bit
+    tol = 0.0
+    if max(errs.values()) > tol:
+        fail(f"K3 disagrees with its plain version: {errs}")
+    args = inputs(TENNIS_ENVS)
+    before = FK.fk_chain.launches
+    ms = cuda_ms(lambda: FK.fk_chain(*args, parents), KERNEL_TIMED * 4)
+    plain_ms = cuda_ms(lambda: FK._fk_plain(*args, parents), KERNEL_TIMED)
+    graph_ms = _graph_ms(lambda: FK.fk_chain(*args, parents), KERNEL_TIMED * 4)
+    plain_graph_ms = _graph_ms(lambda: FK._fk_plain(*args, parents))
+    FK.fk_chain.launches = before
+    per_env = 24 * 9 + 24 * 3 + 3 + 24 * 3 + 24 * 9      # floats read + written
+    nbytes = 4 * per_env * TENNIS_ENVS
+    flops = TENNIS_ENVS * 23 * (9 * 5 + 3 * 6)            # 3x3 @ 3x3 and 3x3 @ 3 + add
+    rate = hbm_rate(card)
+    bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
+    row = dict(max_abs_err=max(errs.values()), tol=tol, ms=ms, graph_ms=graph_ms,
+               plain_ms=plain_ms, plain_graph_ms=plain_graph_ms, library_ms=None,
+               bound_ms=bound_ms, bytes=nbytes, flops=flops,
+               bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations")
+    say("K3", card=card, unit="one FK of N=10240 envs, 24 joints", errs=errs,
+        library="none: no single PyTorch call computes FK", **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the tennis path's pieces
+# ---------------------------------------------------------------------------
+
+def _init_frames():
+    """64 synthetic MVAE init frames, as the CLI makes them without a trained
+    MVAE (seed 0, x0.05, root height 0.95)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ft = (rng.standard_normal((64, 288)) * 0.05).astype(np.float32)
+    ft[:, 2] = 0.95
+    return ft
+
+
+def _tennis_env(dev, env_cfg, hidden, experts, gen=None):
+    """Random MVAE spec + random full-width pi_low (seed 0) -> TennisEnv on
+    `dev`."""
+    import torch
+
+    from vid2player3d_torch.envs import TennisEnv
+    from vid2player3d_torch.learn import FrozenImitator
+    from vid2player3d_torch.learn import running_norm as RN
+    from vid2player3d_torch.learn.networks import ImitatorNet
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    spec = P.make_random_spec(0, hidden=hidden, experts=experts, device=dev)
+    net = ImitatorNet(num_actions=75, generator=torch.Generator().manual_seed(0)).to(dev)
+    pi_low = FrozenImitator(net=net, obs_norm=RN.RunningNormState.create(734, dev))
+    if gen is None:
+        gen = TennisBallGenerator(num_candidates=4096, seed=0, device=dev)
+    return TennisEnv(env_cfg, spec, _init_frames(), ball_generator=gen, pi_low=pi_low,
+                     device=dev)
+
+
+def _tennis_draws(rng, n, horizon, mini_epochs, pool, k, num_actions, n_init=64):
+    """Explicit draws for a tennis epoch (discrete targets), so two devices
+    run the same epoch."""
+    import numpy as np
+
+    def reset(m):
+        return {"init_idx": rng.integers(0, n_init, m), "root_xy_u": rng.random((m, 2)),
+                "ball_idx": rng.integers(0, pool, m), "target_u": rng.random(m),
+                "tt": rng.integers(-5, 5, m)}
+
+    win = max(1, pool // 8)
+    env = [dict(reset=reset(k if 0 < k < n else n), rw_noise=rng.standard_normal((n, 32)),
+                ball_idx=rng.integers(0, pool, n),
+                near_jitter=rng.integers(-win // 2, win // 2 + 1, n),
+                target_u=rng.random(n), tt=rng.integers(-5, 5, n))
+           for _ in range(horizon)]
+    return reset(n), {"noise": rng.standard_normal((horizon, n, num_actions)).astype(np.float32),
+                 "perms": np.stack([rng.permutation(n * horizon) for _ in range(mini_epochs)]),
+                 "env": env}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: a small tennis epoch on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def tennis_parity_phase(dev):
+    import numpy as np
+
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    n, t, mb, me = 4, 4, 8, 2
+    env_cfg = TennisConfig(num_envs=n, substeps=2, max_episode_length=40,
+                           reset_reaction_nframes=6, reward_type="reach",
+                           use_random_ball_target="discrete", reset_candidates=2)
+    v2p_cfg = V2PConfig(horizon=t, minibatch_size=mb, mini_epochs=me, actor_units=(64, 32),
+                        critic_units=(64, 32), compute_dtype="f32", lr_schedule="adaptive")
+    pool = TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
+    reset_draws, draws = _tennis_draws(np.random.default_rng(0), n, t, me, pool.pool_size, 2,
+                                       35, n_init=64)
+    metrics = {}
+    for d in ("cpu", dev):
+        gen = TennisBallGenerator.from_arrays(pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                              pool.launch_vspin, device=d)
+        agent = V2PPPO(_tennis_env(d, env_cfg, hidden=64, experts=3, gen=gen), v2p_cfg,
+                       seed=7, device=d)
+        ts = agent.init_state(reset_draws=reset_draws)
+        _, m = agent.train_epoch(ts, draws=draws)
+        metrics[str(d)] = {k: float(v) for k, v in m.items()}
+    ref, got = metrics["cpu"], metrics[str(dev)]
+    worst = {}
+    for k in ref:
+        err = abs(got[k] - ref[k])
+        worst[k] = err
+        if not err <= PARITY_ATOL.get(k, 1e-5) + 1e-4 * abs(ref[k]):
+            fail(f"card and CPU tennis epochs disagree on {k}: {got[k]} vs {ref[k]}")
+    say("tennis_parity", envs=n, horizon=t, metric_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the tennis main path
+# ---------------------------------------------------------------------------
+
+def tennis_main_phase(dev, card: str):
+    import math
+
+    import torch
+
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    t0 = time.perf_counter()
+    env_cfg = TennisConfig(num_envs=TENNIS_ENVS, substeps=2, max_episode_length=600,
+                           reward_type="reach", use_random_ball_target="discrete",
+                           reset_reaction_nframes=70, reset_candidates=256)
+    agent = V2PPPO(_tennis_env(dev, env_cfg, hidden=256, experts=6), V2PConfig(
+        horizon=TENNIS_HORIZON, minibatch_size=TENNIS_MINIBATCH, mini_epochs=TENNIS_MINI_EPOCHS,
+        learning_rate=1e-4, sigma_init=-0.69, bounds_loss_coef=10.0, critic_coef=5.0,
+        grad_norm=50.0), seed=7, device=dev)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_per_epoch = agent.num_minibatches * TENNIS_MINI_EPOCHS
+
+    torch.cuda.reset_peak_memory_stats()
+    MOE.moe_linear.launches = FK.fk_chain.launches = FA.leaf_update.launches = 0
+    epoch_s, rows = [], []
+    for _ in range(TENNIS_EPOCHS):
+        t0 = time.perf_counter()
+        ts, m = agent.train_epoch(ts)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in m.items()})
+    k2, k3, k1 = MOE.moe_linear.launches, FK.fk_chain.launches, FA.leaf_update.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    env_steps = TENNIS_EPOCHS * TENNIS_HORIZON
+    if k2 != 3 * env_steps:
+        fail(f"K2 launched {k2} times on the tennis path, expected {3 * env_steps}")
+    if k3 != 2 * env_steps:
+        fail(f"K3 launched {k3} times on the tennis path, expected {2 * env_steps}")
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"tennis epoch {i}: non-finite metrics {bad}")
+        if r["grad_skip"] != 0.0:
+            fail(f"tennis epoch {i}: grad_skip {r['grad_skip']}")
+    if int(ts.opt_state.count) != TENNIS_EPOCHS * steps_per_epoch:
+        fail(f"optimizer count {int(ts.opt_state.count)}")
+
+    # the rollout alone (policy forward + env step), for env-steps/s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, _, _ = agent.rollout(ts)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(traj["obs"]).all()):
+        fail("tennis rollout obs not finite")
+
+    keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
+            "done_rate", "reward_mean", "c_loss", "kl", "grad_skip")
+    say("tennis_main", card=card, nvidia_smi=nvidia_smi(), envs=TENNIS_ENVS,
+        horizon=TENNIS_HORIZON, substeps=2, minibatch=TENNIS_MINIBATCH,
+        mini_epochs=TENNIS_MINI_EPOCHS, epochs=TENNIS_EPOCHS, cut="none",
+        compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts, 288->290",
+        ball_pool=agent.env.gen.pool_size, setup_s=setup_s, epoch_s=epoch_s,
+        rollout_s=rollout_s, rollout_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / rollout_s,
+        epoch_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / epoch_s[-1],
+        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k3_launches=k3,
+        k1_launches=k1, peak_mem_gib=peak_gib,
+        metrics=[{k: r[k] for k in keep} for r in rows])
+    return agent, ts, {"moe_linear": k2, "fk_chain": k3}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the stage-2 env
+# ---------------------------------------------------------------------------
+
+def stage2_phase(dev, card: str, agent, ts):
+    import torch
+
+    from vid2player3d_torch.envs import TennisConfig
+
+    t0 = time.perf_counter()
+    env = _tennis_env(dev, TennisConfig(
+        num_envs=STAGE2_ENVS, substeps=6, max_episode_length=300, reward_type="return_w_estimate",
+        use_random_ball_target="discrete", reset_reaction_nframes=70, reset_candidates=256,
+        ball_reaction_force=True, ball_body_contact=True), hidden=256, experts=6,
+        gen=agent.env.gen)
+    state, obs = env.reset_all()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_s = []
+    finite = True
+    with torch.no_grad():
+        for _ in range(STAGE2_STEPS):
+            t0 = time.perf_counter()
+            mu, _ = agent._forward(ts.params, ts.obs_norm, obs)
+            state, out = env.step(state, mu)
+            obs = out.obs
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(out.obs).all())
+    if not finite:
+        fail("stage-2 obs not finite")
+    say("stage2", card=card, envs=STAGE2_ENVS, substeps=6, steps=STAGE2_STEPS,
+        obs_finite=finite, setup_s=setup_s, ms_per_step=[s * 1e3 for s in step_s],
+        env_steps_per_s=STAGE2_ENVS * (STAGE2_STEPS - 1) / sum(step_s[1:]))
+
+
+# ---------------------------------------------------------------------------
+# phase 11 (tennis part): where the tennis rollout's time goes
+# ---------------------------------------------------------------------------
+
+def tennis_profile_phase(dev, card: str, agent, ts):
+    """A tennis rollout of horizon 2 at the main path's sizes, profiled after
+    the main path's warm-up: device busy and idle share, device events per env
+    step, the costliest kernels, K2's and K3's device share, and the share of
+    the estimate_out span (host wall and the device time of its kernels)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    horizon = 2
+    short = dataclasses.replace(agent.cfg, horizon=horizon)
+    cfg0 = agent.cfg
+    agent.cfg = short
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            agent.rollout(ts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        agent.cfg = cfg0
+    evs = _device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in evs) * 1e-6
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    k2_s = sum(v for k, v in by_name.items() if "moe_linear_kernel" in k)
+    k3_s = sum(v for k, v in by_name.items() if "fk_chain_kernel" in k)
+    # the span's host wall time, and the device time of the kernels that ran
+    # inside its device-side ranges
+    est_wall = sum(e.cpu_time_total for e in prof.events()
+                   if e.name == "estimate_out" and e.device_type != torch.autograd.DeviceType.CUDA
+                   ) * 1e-6
+    spans = _device_spans(prof, "estimate_out")
+    est_dev = sum(e.time_range.elapsed_us() for e in evs
+                  if any(r.start <= e.time_range.start < r.end for r in spans)) * 1e-6
+    say("tennis_profile", card=card, envs=TENNIS_ENVS, horizon=horizon, wall_s=wall,
+        wall_s_per_env_step=wall / horizon,
+        device_busy_s=busy if evs else "not measured",
+        device_idle_share=(1.0 - busy / wall) if evs else "not measured",
+        device_events_per_env_step=len(evs) / horizon,
+        k2_device_share=k2_s / busy if busy else "not measured",
+        k3_device_share=k3_s / busy if busy else "not measured",
+        estimate_out_wall_share=est_wall / wall,
+        estimate_out_device_share=est_dev / busy if busy and spans else "not measured",
+        top_device_s={k[:60]: v for k, v in top})
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "vid2player3d_torch")):
         fail(f"no vid2player3d_torch package beside {__file__}")
@@ -387,22 +840,40 @@ def main() -> None:
         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln] for k, v in logs.items()})
 
     k1 = k1_phase(dev, card)
+    k2 = k2_phase(dev, card)
+    k3 = k3_phase(dev, card)
     parity_phase(dev)
-    launches = main_phase(dev, card)
+    k1_launches = main_phase(dev, card)
+    tennis_parity_phase(dev)
+    agent, ts, tennis_launches = tennis_main_phase(dev, card)
+    stage2_phase(dev, card, agent, ts)
     profile_phase(dev, card)
+    tennis_profile_phase(dev, card, agent, ts)
 
     row = k1["bf16"]   # the main path's moment type on the card
-    kernels = [{"name": "fused_clip_adam", "route": "cuda",
-                "source": "vid2player3d_torch/csrc/fused_adam.cu",
-                "replaces": "vid2player3d_tpu/ops/fused_adam.py:66",
-                "launches": launches, "max_abs_err": row["max_abs_err"],
-                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "unit": "one optimizer step over the 16 ImitatorNet leaves, bf16 moments",
-                "graph_ms": row["graph_ms"], "plain_graph_ms": row["plain_graph_ms"],
-                "f32_moments": {k: k1["f32"][k] for k in
-                                ("max_abs_err", "ms", "plain_ms", "bound_ms", "graph_ms",
-                                 "plain_graph_ms")}}]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [
+        {"name": "fused_clip_adam", "route": "cuda",
+         "source": "vid2player3d_torch/csrc/fused_adam.cu",
+         "replaces": "vid2player3d_tpu/ops/fused_adam.py:66", "launches": k1_launches,
+         **{k: row[k] for k in keys},
+         "unit": "one optimizer step over the 16 ImitatorNet leaves, bf16 moments",
+         "graph_ms": row["graph_ms"], "plain_graph_ms": row["plain_graph_ms"],
+         "f32_moments": {k: k1["f32"][k] for k in
+                         ("max_abs_err", "ms", "plain_ms", "bound_ms", "graph_ms",
+                          "plain_graph_ms")}},
+        {"name": "moe_linear", "route": "cuda", "source": "vid2player3d_torch/csrc/moe_linear.cu",
+         "replaces": "vid2player3d_tpu/ops/moe_linear.py:71",
+         "launches": tennis_launches["moe_linear"], **{k: k2[k] for k in keys},
+         "unit": "one MVAE decode (3 launches) at B=10240", "graph_ms": k2["graph_ms"],
+         "plain_graph_ms": k2["plain_graph_ms"],
+         "backward_max_abs_err": k2["backward_max_abs_err"]},
+        {"name": "fk_chain", "route": "cuda", "source": "vid2player3d_torch/csrc/fk_chain.cu",
+         "replaces": "vid2player3d_tpu/ops/fk.py:77",
+         "launches": tennis_launches["fk_chain"], **{k: k3[k] for k in keys},
+         "unit": "one FK at N=10240", "graph_ms": k3["graph_ms"],
+         "plain_graph_ms": k3["plain_graph_ms"]},
+    ]
     say("total", seconds=time.perf_counter() - t_start)
     print("nvidia-smi: " + nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

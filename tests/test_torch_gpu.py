@@ -1,4 +1,5 @@
-"""The port's kernels against their plain PyTorch versions on the card.
+"""The port's kernels (K1 fused clip+Adam, K2 moe_linear, K3 fk_chain)
+against their plain PyTorch versions on the card.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -10,7 +11,9 @@ so it also runs on a machine that has only the port's requirements:
 import pytest
 import torch
 
+from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
+from vid2player3d_torch.ops import moe_linear as MOE
 
 pytestmark = pytest.mark.gpu
 
@@ -19,6 +22,8 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # the plain versions' products in full f32, as the kernels compute them
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -80,3 +85,117 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         FA.leaf_update(p, *(torch.zeros(8, dtype=torch.float16, device=cuda),) * 2,
                        torch.zeros(8, device=cuda), s)
+
+
+# -- K2 ---------------------------------------------------------------------
+
+# the MVAE decoder's three layers at full width: (in, out) with E = 6
+MOE_LAYERS = ((320, 256), (288, 256), (288, 290))
+
+
+def _moe_inputs(dev, batch, d_in, d_out, experts=6, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, d_in, generator=gen, device=dev)
+    coeff = torch.softmax(torch.randn(batch, experts, generator=gen, device=dev), -1)
+    lim = (6.0 / d_in) ** 0.5            # he_uniform, as the decoder's init
+    w = (torch.rand(experts, d_in, d_out, generator=gen, device=dev) * 2 - 1) * lim
+    b = torch.randn(experts, d_out, generator=gen, device=dev) * 0.1
+    return x, coeff, w, b
+
+
+@pytest.mark.parametrize("layer", MOE_LAYERS, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("batch", (1, 255, 10240))
+def test_k2_kernel_matches_plain(cuda, batch, layer):
+    """Kernel against the plain apply-then-blend version, one launch per
+    call. Both sum ~2000 f32 products per output (|out| ~ 3) in another
+    order, and the kernel fuses each product into its sum: they agree to a
+    few f32 ulps of the sums' size, held to 1e-4."""
+    x, coeff, w, b = _moe_inputs(cuda, batch, *layer)
+    before = MOE.moe_linear.launches
+    got = MOE.moe_linear(x, coeff, w, b)
+    torch.cuda.synchronize()
+    assert MOE.moe_linear.launches == before + 1
+    want = MOE.moe_linear_ref(x, coeff, w, b)
+    assert got.shape == (batch, layer[1])
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layer", MOE_LAYERS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k2_backward_matches_autograd(cuda, layer):
+    """The autograd.Function's backward (the plain `_moe_bwd`) against
+    autograd of the plain forward at B = 256. dw and db sum over the batch
+    (|dw| up to ~30): held to 1e-3 absolute, 1e-4 relative."""
+    x, coeff, w, b = _moe_inputs(cuda, 256, *layer, seed=1)
+    g = torch.randn(256, layer[1], generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    leaves_k = [t.clone().requires_grad_(True) for t in (x, coeff, w, b)]
+    leaves_p = [t.clone().requires_grad_(True) for t in (x, coeff, w, b)]
+    got = torch.autograd.grad(MOE.moe_linear(*leaves_k), leaves_k, g)
+    want = torch.autograd.grad(MOE.moe_linear_ref(*leaves_p), leaves_p, g)
+    for name, a, c in zip(("dx", "dcoeff", "dw", "db"), got, want):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4, msg=name)
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    x, coeff, w, b = _moe_inputs(cuda, 8, 16, 8)
+    before = MOE.moe_linear.launches
+    with pytest.raises(TypeError):
+        MOE.moe_linear(x.double(), coeff, w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(x.t().contiguous().t(), coeff, w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(x, coeff[:, :3], w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(x, coeff, w, b.cpu())
+    assert MOE.moe_linear.launches == before
+
+
+# -- K3 ---------------------------------------------------------------------
+
+def _fk_inputs(dev, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rot = torch.eye(3, device=dev).expand(n, 24, 3, 3) \
+        + 0.05 * torch.randn(n, 24, 3, 3, generator=gen, device=dev)
+    off = torch.randn(n, 24, 3, generator=gen, device=dev) * 0.1
+    root = torch.randn(n, 3, generator=gen, device=dev)
+    return rot.contiguous(), off, root
+
+
+def _parents(tree):
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.physics.asset import mujoco_parents
+
+    return tuple(int(p) for p in (mujoco_parents() if tree == "mujoco" else S.SMPL_PARENTS))
+
+
+@pytest.mark.parametrize("tree", ("mujoco", "smpl"))
+@pytest.mark.parametrize("n", (1, 256, 10240))
+def test_k3_kernel_matches_plain(cuda, n, tree):
+    """Kernel against the plain SoA chain, one launch per call at every N.
+    Both round each product and each sum alone, in the same order (the
+    kernel is built with -fmad=false): they agree bit for bit."""
+    rot, off, root = _fk_inputs(cuda, n)
+    parents = _parents(tree)
+    before = FK.fk_chain.launches
+    pos, rm = FK.fk_chain(rot, off, root, parents)
+    torch.cuda.synchronize()
+    assert FK.fk_chain.launches == before + 1
+    want_pos, want_rm = FK._fk_plain(rot, off, root, parents)
+    torch.testing.assert_close(pos, want_pos, atol=0.0, rtol=0.0)
+    torch.testing.assert_close(rm, want_rm, atol=0.0, rtol=0.0)
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    rot, off, root = _fk_inputs(cuda, 4)
+    parents = _parents("mujoco")
+    before = FK.fk_chain.launches
+    with pytest.raises(RuntimeError, match="gradient"):
+        FK.fk_chain(rot.requires_grad_(True), off, root, parents)
+    rot = rot.detach()
+    with pytest.raises(TypeError):
+        FK.fk_chain(rot.double(), off, root, parents)
+    with pytest.raises(ValueError):
+        FK.fk_chain(rot, off[:, :23], root, parents)
+    with pytest.raises(ValueError):
+        FK.fk_chain(rot, off, root, (-1,) + (5,) * 23)
+    assert FK.fk_chain.launches == before

@@ -1,6 +1,7 @@
 """The port's package rules: it imports nothing of JAX, its entry points never
-drop to the CPU on their own, and its K1 wrapper takes the plain version only
-for CPU tensors (a CUDA tensor launches the kernel or raises).
+drop to the CPU on their own, and its kernel wrappers (K1 fused clip+Adam, K2
+moe_linear, K3 fk_chain) take their plain versions only for CPU tensors (a
+CUDA tensor launches the kernel or raises).
 """
 
 import os
@@ -14,9 +15,13 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
-from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
-from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv, TennisConfig, TennisEnv
+from vid2player3d_torch.learn import FrozenImitator, ImitationPPO, PPOConfig, V2PConfig, V2PPPO
+from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
+from vid2player3d_torch.ops import moe_linear as MOE
+from vid2player3d_torch.tennis import player as P
+from vid2player3d_torch.tennis.ball import TennisBallGenerator
 
 torch.set_num_threads(1)
 
@@ -127,3 +132,111 @@ def test_k1_wrapper_plain_on_cpu_and_checks():
         FA.leaf_update(p2, *(t.reshape(4, 4) for t in _leaf(16)[1:4]), s)
     with pytest.raises(ValueError):
         FA.leaf_update(*(t.to("meta") for t in _leaf(8)))
+
+
+# -- the tennis slice ----------------------------------------------------------
+
+def _tennis_env(num_envs=2, **kw):
+    spec = P.make_random_spec(0, hidden=16, experts=2, device="cpu")
+    feats = np.zeros((4, P.FRAME_SIZE), np.float32)
+    feats[:, 2] = 0.95
+    gen = TennisBallGenerator(num_candidates=64, seed=0, device="cpu")
+    return spec, feats, gen, TennisEnv(TennisConfig(num_envs=num_envs, substeps=1, **kw), spec,
+                                       feats, ball_generator=gen, device="cpu")
+
+
+def test_tennis_entry_points_need_a_device_without_cuda():
+    """With no CUDA device, the tennis entry points called without `device=`
+    raise instead of running on the CPU: the MVAE spec, the ball pool, the
+    frozen π_low, the env and the learner."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points default to it")
+    spec, feats, gen, env = _tennis_env()
+    for make in (lambda: P.make_random_spec(0, hidden=16, experts=2),
+                 lambda: TennisBallGenerator(num_candidates=16),
+                 lambda: FrozenImitator.zeros(),
+                 lambda: TennisEnv(TennisConfig(num_envs=2), spec, feats, ball_generator=gen),
+                 lambda: V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, actor_units=(8,),
+                                 critic_units=(8,)), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [{"num_policies": 2}, {"mesh": object()},
+                                {"minibatch_per_chip": True}],
+                         ids=["num_policies", "mesh", "minibatch_per_chip"])
+def test_v2p_unported_options_raise(kw):
+    """Lane-routed policies, a mesh and per-chip minibatches are not ported:
+    asking for any of them raises."""
+    _, _, _, env = _tennis_env()
+    cfg_kw = {k: v for k, v in kw.items() if k != "mesh"}
+    with pytest.raises(NotImplementedError):
+        V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, **cfg_kw), mesh=kw.get("mesh"),
+               device="cpu")
+
+
+def test_tennis_unported_options_raise():
+    """Domain randomization, the two-hand backhand, dual rallies and the
+    native ball backend are not ported: asking for them raises."""
+    spec, feats, gen, _ = _tennis_env()
+    for kw in ({"rand_specs": (object(),)}, {"two_hand_backhand": True}):
+        with pytest.raises(NotImplementedError):
+            _tennis_env(**kw)
+    with pytest.raises(NotImplementedError):
+        TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen,
+                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        TennisBallGenerator(num_candidates=16, backend="native", device="cpu")
+
+
+def test_k2_k3_wrappers_raise_on_cuda_tensor_without_card():
+    """A CUDA tensor goes to the kernel: with no card (CUDA-typed fake
+    tensors) the K2 and K3 wrappers raise and do not fall back to their plain
+    versions; no launch is counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the kernels would launch")
+    before = (MOE.moe_linear.launches, FK.fk_chain.launches)
+    with FakeTensorMode():
+        x = torch.zeros(4, 8, device="cuda")
+        coeff = torch.zeros(4, 3, device="cuda")
+        w = torch.zeros(3, 8, 5, device="cuda")
+        b = torch.zeros(3, 5, device="cuda")
+        rot = torch.zeros(2, 24, 3, 3, device="cuda")
+        off = torch.zeros(2, 24, 3, device="cuda")
+        root = torch.zeros(2, 3, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MOE.moe_linear(x, coeff, w, b)
+    parents = tuple([-1] + list(range(23)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FK.fk_chain(rot, off, root, parents)
+    assert (MOE.moe_linear.launches, FK.fk_chain.launches) == before
+
+
+def test_k2_k3_wrappers_plain_on_cpu_and_checks():
+    """CPU tensors take the plain versions (no launch counted); bad dtypes,
+    shapes, layouts and devices raise."""
+    before = (MOE.moe_linear.launches, FK.fk_chain.launches)
+    x, coeff = torch.ones(4, 8), torch.full((4, 3), 1.0 / 3.0)
+    w, b = torch.ones(3, 8, 5), torch.ones(3, 5)
+    torch.testing.assert_close(MOE.moe_linear(x, coeff, w, b), torch.full((4, 5), 9.0))
+    with pytest.raises(TypeError):
+        MOE.moe_linear(x.double(), coeff, w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(x, coeff[:, :2], w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(torch.ones(8, 4).t(), coeff, w, b)
+    with pytest.raises(ValueError):
+        MOE.moe_linear(x, coeff, w, b.to("meta"))
+    chain = tuple([-1] + list(range(23)))
+    rot = torch.eye(3).expand(2, 24, 3, 3).contiguous()
+    off = torch.zeros(2, 24, 3)
+    off[:, 1:, 0] = 1.0
+    pos, rm = FK.fk_chain(rot, off, torch.zeros(2, 3), chain)
+    torch.testing.assert_close(pos[:, :, 0], torch.arange(24.0).expand(2, 24))
+    torch.testing.assert_close(rm, rot)
+    with pytest.raises(ValueError):
+        FK.fk_chain(rot, off[:, :23], torch.zeros(2, 3), chain)
+    with pytest.raises(TypeError):
+        FK.fk_chain(rot.double(), off, torch.zeros(2, 3), chain)
+    assert (MOE.moe_linear.launches, FK.fk_chain.launches) == before

@@ -1,1 +1,2 @@
 from .humanoid_im import EnvState, HumanoidImConfig, HumanoidImEnv, StepOutput  # noqa: F401
+from .tennis import TennisConfig, TennisEnv, TennisState  # noqa: F401

@@ -3,7 +3,8 @@
 `ImitatorNet`: separate actor/critic MLPs [1024, 1024, 512] over the 734-dim
 imitation obs, a continuous mu head (fixed log-sigma lives in the learner)
 and a value head; the residual action (mu += target dof) is applied by the
-caller.
+caller. `V2PNet`, the high-level tennis policy, is the same module with
+(1024, 512) trunks over the 257-dim tennis obs.
 
 Parameters are float32. With `dtype=torch.bfloat16` the trunk layers cast
 both their input and their weight to bf16 before the product, as a flax
@@ -75,3 +76,4 @@ class ActorCritic(nn.Module):
 
 
 ImitatorNet = ActorCritic
+V2PNet = ActorCritic

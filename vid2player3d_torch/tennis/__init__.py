@@ -1,0 +1,1 @@
+"""Tennis pieces of the hierarchical task: court, racket, ball, MVAE player."""

@@ -7,12 +7,15 @@ The JAX package saves a pytree to one `.npz` with slash-joined key paths
 
 The flax tree maps onto the port's `ActorCritic` state dict:
 `actor_mlp/Dense_{0,1,2}` → `actor_mlp.{0,1,2}`, `mu`, `critic_mlp/...`,
-`value`; a Dense kernel (in, out) is a Linear weight (out, in). Load only:
-the port writes no checkpoints of its own yet.
+`value`; a Dense kernel (in, out) is a Linear weight (out, in). The MVAE's
+flax tree, a JAX `TennisState` and a JAX ball pool map onto the port's
+`PoseMixtureVAE`, `TennisState` and `TennisBallGenerator`. Load only: the
+port writes no checkpoints of its own yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Tuple
 
@@ -96,3 +99,68 @@ def env_state_from_jax(arrays: Dict[str, np.ndarray], device="cpu") -> EnvState:
                     reset_buf=t("reset_buf", torch.int32),
                     terminate_buf=t("terminate_buf", torch.int32),
                     motion_times=t("motion_times"))
+
+
+# -- the tennis slice ----------------------------------------------------------
+
+_MVAE_DENSE = re.compile(r"(encoder|decoder)/(\w+)/(kernel|bias)$")
+_MVAE_MOE = re.compile(r"decoder/(moe\d+)/(w|b)$")
+
+
+def mvae_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The port's PoseMixtureVAE state dict from flattened flax params
+    (`[params/]encoder/fc1/kernel`, `decoder/moe0/w`, ...): a Dense kernel
+    (in, out) becomes a Linear weight (out, in); a MoE layer's `w` (E, in,
+    out) and `b` (E, out) are taken as they are."""
+    out = {}
+    for key, arr in flat.items():
+        m = _MVAE_MOE.search(key)
+        if m:
+            out[f"decoder.{m.group(1)}.{m.group(2)}"] = torch.from_numpy(
+                np.array(arr, dtype=np.float32, order="C"))
+            continue
+        m = _MVAE_DENSE.search(key)
+        if m:
+            is_kernel = m.group(3) == "kernel"
+            out[f"{m.group(1)}.{m.group(2)}.{'weight' if is_kernel else 'bias'}"] = \
+                torch.from_numpy(np.array(arr.T if is_kernel else arr, dtype=np.float32,
+                                          order="C"))
+    return out
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, dtype=torch.bool, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+def tennis_state_from_jax(arrays: Dict[str, np.ndarray], device="cpu"):
+    """TennisState from the JAX `TennisState` fields as numpy arrays, keyed
+    like the checkpoints: `mvae/<field>` (MVAEPlayerState), `sim/<field>`
+    (ArticulationState) and `<field>`; the JAX state's `key` is not part of
+    the port's state and is ignored."""
+    from ..envs.tennis import TennisState
+    from ..tennis.player import MVAEPlayerState
+
+    def build(cls, prefix):
+        return cls(**{f.name: _tensor(arrays[prefix + f.name], device)
+                      for f in dataclasses.fields(cls)})
+
+    top = {f.name: _tensor(arrays[f.name], device) for f in dataclasses.fields(TennisState)
+           if f.name not in ("mvae", "sim")}
+    return TennisState(mvae=build(MVAEPlayerState, "mvae/"),
+                       sim=build(ArticulationState, "sim/"), **top)
+
+
+def ball_pool_from_jax(gen, device="cpu"):
+    """The port's TennisBallGenerator over the same pool as a JAX-package
+    generator (any object with `traj_pool`, `launch_pos`, `launch_vel` and
+    `launch_vspin` arrays)."""
+    from ..tennis.ball import TennisBallGenerator
+
+    return TennisBallGenerator.from_arrays(
+        np.asarray(gen.traj_pool), np.asarray(gen.launch_pos), np.asarray(gen.launch_vel),
+        np.asarray(gen.launch_vspin), device=device)

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the conversion
+of fed random draws."""
 
 from __future__ import annotations
 
@@ -17,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def as_draw(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A random draw handed in by the caller (numpy array or tensor) as a
+    tensor of `dtype` on `device`; numpy input is copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(x, dtype=dtype, device=device)
