@@ -8,17 +8,22 @@ Phases, each printing one line (any failed phase exits non-zero):
               power limit
   2. build    nvcc builds every kernel of ``vid2player3d_torch/csrc`` for
               sm_90a (into ``build/kernels/``), all sources in parallel
-  3. K1       the fused clip+Adam kernel against its plain PyTorch version on
-              the card, at the 16 full-width ImitatorNet leaf shapes, 4 steps,
-              with f32 and with bf16 moments; its time per optimizer step
-              beside its HBM bound, the plain version's time and
-              `torch.optim.Adam(fused=True)` as a library yardstick
+  3. K1       the fused clip+Adam step at the 16 full-width ImitatorNet
+              leaves, 4 steps, f32 and bf16 moments: the multi-tensor update
+              bit for bit with its plain version under the same scalars, the
+              norm kernel's scalars against `adam_scalars` (relative 1e-6),
+              the step count exact, 2 launches per step; times (eager and
+              graph) of the step, the update and the norm beside their HBM
+              bounds, the plain versions' and `torch.optim.Adam(fused=True)`'s
+              (eager and graph), and the wrapper's host cost per step
   4. K2       moe_linear against its plain version at the MVAE decoder's three
               full-width layers (E = 6; 320->256, 288->256, 288->290) at
-              B = 10,240 and 1,001, its backward against autograd at B = 256;
-              time per decode (3 launches) eager and as a CUDA-graph replay
-              beside the f32 bound, the plain version's, and one cuBLAS GEMM
-              per layer of the same FLOPs (no blend) as a library yardstick
+              B = 10,240, 1,001, 255 and 1, its prep kernel bit for bit with
+              the plain TF32 split, its backward against autograd at B = 256;
+              its tiling; time per decode (3 prep + 3 GEMM launches) eager and
+              as a CUDA-graph replay beside the 3xTF32 and f32 SIMT bounds, the
+              plain version's, and one cuBLAS GEMM per layer of the same FLOPs
+              (no blend, eager and graph) as a library yardstick
   5. K3       fk_chain against its plain version at N = 10,240, 256 and 1;
               time eager and as a graph replay beside the HBM bound
   6. parity   a small imitation epoch (4 envs, f32) on the card against the
@@ -26,8 +31,8 @@ Phases, each printing one line (any failed phase exits non-zero):
   7. main     the imitation path at full width: synthetic motion lib (8
               motions x 300 frames) -> HumanoidImEnv (4096 envs, 2 substeps)
               -> ImitationPPO (horizon 32, minibatch 512, 6 mini-epochs,
-              fused_optimizer="on"), two `train_epoch`s, K1's launch counter
-              set to 0 just before and read just after
+              fused_optimizer="on"), two `train_epoch`s, K1's two launch
+              counters set to 0 just before and read just after
   8. tennis parity  a small tennis epoch (4 envs, horizon 4, f32) on the card
               against the same epoch on the CPU with the same draws
   9. tennis main    the tennis path at federer_train_stage_1's sizes: random
@@ -35,8 +40,9 @@ Phases, each printing one line (any failed phase exits non-zero):
               (734->1024->1024->512->75), a 4096-candidate ball pool,
               TennisEnv (10,240 envs, 2 substeps, reach reward, 256 candidate
               resets) -> V2PPPO (horizon 64, minibatch 16,384, 6 mini-epochs:
-              240 optimizer steps per epoch), two `train_epoch`s, the K2 and
-              K3 launch counters set to 0 just before and read just after
+              240 optimizer steps per epoch), two `train_epoch`s, the K2 (prep
+              and GEMM) and K3 launch counters set to 0 just before and read
+              just after
   10. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
               envs, 6 substeps, wrist reaction force, ball-body contact,
               return_w_estimate) with the same networks
@@ -66,6 +72,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
                    ("H100", 3.35e12))
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 tensor cores, dense
 
 NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 2
 K1_CHECK_STEPS = 4
@@ -118,6 +125,18 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 # phase 3: K1 against its plain version, and its times
 # ---------------------------------------------------------------------------
 
+def _graph_ms(fn, iters: int = 50) -> float:
+    """Device time of `fn` replayed from a CUDA graph (no host launch cost)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
 def k1_phase(dev, card: str):
     import torch
 
@@ -131,6 +150,7 @@ def k1_phase(dev, card: str):
         fail(f"ImitatorNet has {len(leaves)} leaves / {n_params} params")
     gen = torch.Generator(device=dev).manual_seed(1)
     rate = hbm_rate(card)
+    lr = torch.tensor(2e-5, device=dev)      # on the device, as the learner keeps it
     rows = {}
     for mdt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         # identical starting states for the kernel and the plain version
@@ -141,13 +161,18 @@ def k1_phase(dev, card: str):
         mp = [m.clone() for m in mk]
         vp = [v.clone() for v in vk]
         count = torch.zeros((), dtype=torch.int32, device=dev)
+        count_k = count.clone()
+        scalar_err, counts = 0.0, []
         for step in range(K1_CHECK_STEPS):
             # global norm ~220 (clip active) on even steps, ~22 (no clip) on odd
             scale = 0.1 if step % 2 == 0 else 0.01
             grads = [torch.randn(p.shape, generator=gen, device=dev) * scale for p in leaves]
-            scalars, count = FA.adam_scalars(grads, count, 2e-5, 50.0)
-            for a in zip(pk, mk, vk, grads):
-                FA.leaf_update(*a, scalars)
+            scalars, count = FA.adam_scalars(grads, count, lr, 50.0)
+            s_k, count_k = FA.global_norm_scalars(grads, count_k, lr, 50.0)
+            scalar_err = max(scalar_err, float(((s_k - scalars).abs() / scalars.abs()).max()))
+            counts.append((int(count_k), int(count)))
+            # the update under the plain scalars: its arithmetic alone
+            FA.update_leaves(pk, mk, vk, grads, scalars)
             for a in zip(pp, mp, vp, grads):
                 FA._leaf_plain(*a, scalars, 0.9, 0.999, 1e-8)
         torch.cuda.synchronize()
@@ -156,58 +181,89 @@ def k1_phase(dev, card: str):
                     for a, b in zip(mk + vk, mp + vp))
         # both sides do the same f32 operations in the same order (the kernel
         # is built without FMA contraction; sqrt and division are IEEE-rounded
-        # on both), so they agree to the last bit: 1e-7 only guards the check
-        tol = 1e-7
-        if not (err_p <= tol and err_m <= tol):
-            fail(f"K1 {tag} disagrees with its plain version: p {err_p}, moments {err_m}")
+        # on both), so they agree to the last bit
+        if not (err_p == 0.0 and err_m == 0.0):
+            fail(f"K1 {tag} update disagrees with its plain version: p {err_p}, moments {err_m}")
+        # the norm kernel sums in f64, the plain version in f32 trees
+        scalar_tol = 1e-6
+        if not scalar_err <= scalar_tol:
+            fail(f"K1 {tag} norm scalars off by {scalar_err} relative")
+        if any(a != b for a, b in counts):
+            fail(f"K1 {tag} step counts {counts}")
 
         g = grads
-        kernel_ms = cuda_ms(lambda: [FA.leaf_update(*a, scalars)
-                                     for a in zip(pk, mk, vk, g)], K1_TIMED_STEPS)
-        plain_ms = cuda_ms(lambda: [FA._leaf_plain(*a, scalars, 0.9, 0.999, 1e-8)
-                                    for a in zip(pp, mp, vp, g)], K1_TIMED_STEPS)
-        step_ms = cuda_ms(lambda: FA.fused_clip_adam_apply(pk, mk, vk, g, count, 2e-5, 50.0),
-                          K1_TIMED_STEPS)
-        # the same 16 launches replayed from a CUDA graph: the device's time
-        # without the host's per-launch cost
-        graphs = []
-        for fn in (lambda: [FA.leaf_update(*a, scalars) for a in zip(pk, mk, vk, g)],
-                   lambda: [FA._leaf_plain(*a, scalars, 0.9, 0.999, 1e-8)
-                            for a in zip(pp, mp, vp, g)]):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                fn()
-            graphs.append(cuda_ms(graph.replay, K1_TIMED_STEPS))
+        before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
+        FA.fused_clip_adam_apply(pk, mk, vk, g, count_k, lr, 50.0)
+        per_step = (FA.leaf_update.launches - before[0],
+                    FA.global_norm_scalars.launches - before[1])
+        if per_step != (1, 1):
+            fail(f"K1 launched (update, norm) {per_step} times for one optimizer step")
+
+        def step():
+            FA.fused_clip_adam_apply(pk, mk, vk, g, count_k, lr, 50.0)
+
+        def update():
+            FA.update_leaves(pk, mk, vk, g, scalars)
+
+        def norm():
+            FA.global_norm_scalars(g, count_k, lr, 50.0)
+
+        def plain_update():
+            for a in zip(pp, mp, vp, g):
+                FA._leaf_plain(*a, scalars, 0.9, 0.999, 1e-8)
+
+        def plain_norm():
+            FA.adam_scalars(g, count, lr, 50.0)
+
+        def plain_step():
+            s, _ = FA.adam_scalars(g, count, lr, 50.0)
+            for a in zip(pp, mp, vp, g):
+                FA._leaf_plain(*a, s, 0.9, 0.999, 1e-8)
+
+        times = {}
+        for name, fn in (("step", step), ("update", update), ("norm", norm),
+                         ("plain_step", plain_step), ("plain_update", plain_update),
+                         ("plain_norm", plain_norm)):
+            times[name] = cuda_ms(fn, K1_TIMED_STEPS)
+            times[name + "_graph"] = _graph_ms(fn, K1_TIMED_STEPS)
+        # the wrapper's host cost alone: calls enqueued without a sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K1_TIMED_STEPS):
+            step()
+        host_ms = (time.perf_counter() - t0) / K1_TIMED_STEPS * 1e3
+        torch.cuda.synchronize()
+        FA.leaf_update.launches, FA.global_norm_scalars.launches = before
+
         ms_bytes = torch.finfo(mdt).bits // 8
-        nbytes = n_params * (4 + 4 + 4 + 2 * 2 * ms_bytes)   # p rw, g r, m v rw
+        update_bytes = n_params * (4 + 4 + 4 + 2 * 2 * ms_bytes)   # p rw, g r, m v rw
+        norm_bytes = n_params * 4                                   # g r
         flops = n_params * 15
-        bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
-        rows[tag] = dict(max_abs_err=max(err_p, err_m), err_p=err_p, err_moments=err_m,
-                         tol=tol, ms=kernel_ms, plain_ms=plain_ms, step_with_norm_ms=step_ms,
-                         graph_ms=graphs[0], plain_graph_ms=graphs[1],
-                         bound_ms=bound_ms, bytes=nbytes,
-                         bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S
-                         else "operations")
+        rows[tag] = dict(
+            err_p=err_p, err_moments=err_m, scalar_rel_err=scalar_err, scalar_tol=scalar_tol,
+            launches_per_step=per_step, host_ms_per_step=host_ms, **times,
+            update_bound_ms=max(update_bytes / rate, flops / F32_FLOPS_PER_S) * 1e3,
+            step_bound_ms=(update_bytes + norm_bytes) / rate * 1e3,
+            norm_bound_ms=norm_bytes / rate * 1e3,
+            update_bytes=update_bytes, norm_bytes=norm_bytes)
 
     # library yardstick: one fused Adam step over the same f32 leaves (no
-    # clip scale, f32 moments)
-    lp = [p.clone().requires_grad_(True) for p in leaves]
-    for p in lp:
-        p.grad = torch.randn(p.shape, generator=gen, device=dev) * 0.01
-    opt = torch.optim.Adam(lp, lr=2e-5, eps=1e-8, fused=True)
-    library_ms = cuda_ms(opt.step, K1_TIMED_STEPS)
-    for tag in rows:
-        rows[tag]["library_ms"] = library_ms
+    # clip scale, f32 moments), eager, and captured in a graph (capturable)
+    lib = {}
+    for capturable in (False, True):
+        lp = [p.clone().requires_grad_(True) for p in leaves]
+        for p in lp:
+            p.grad = torch.randn(p.shape, generator=gen, device=dev) * 0.01
+        opt = torch.optim.Adam(lp, lr=2e-5, eps=1e-8, fused=True, capturable=capturable)
+        if capturable:
+            lib["library_graph_ms"] = _graph_ms(opt.step, K1_TIMED_STEPS)
+        else:
+            lib["library_ms"] = cuda_ms(opt.step, K1_TIMED_STEPS)
+    for tag, r in rows.items():
+        r.update(lib)
         say("K1", moments=tag, card=card, n_params=n_params, leaves=16,
-            launches_per_step=16, tol=rows[tag]["tol"], max_abs_err=rows[tag]["max_abs_err"],
-            err_p=rows[tag]["err_p"], err_moments=rows[tag]["err_moments"],
-            kernel_ms_per_step=rows[tag]["ms"], plain_ms_per_step=rows[tag]["plain_ms"],
-            step_with_norm_ms=rows[tag]["step_with_norm_ms"],
-            graph_replay_ms=rows[tag]["graph_ms"], plain_graph_replay_ms=rows[tag]["plain_graph_ms"],
-            bound_ms=rows[tag]["bound_ms"], bound_bytes=rows[tag]["bytes"],
-            hbm_bytes_per_s=rate,
-            library_ms=library_ms,
-            library="torch.optim.Adam(fused=True).step(), f32 moments, no clip scale")
+            library="torch.optim.Adam(fused=True).step(), f32 moments, no clip scale",
+            hbm_bytes_per_s=rate, **r)
     return rows
 
 
@@ -283,7 +339,7 @@ def main_phase(dev, card: str):
     steps_per_epoch = agent.num_minibatches * MINI_EPOCHS
 
     torch.cuda.reset_peak_memory_stats()
-    FA.leaf_update.launches = 0
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
     epoch_s, rows = [], []
     for _ in range(EPOCHS):
         t0 = time.perf_counter()
@@ -291,12 +347,13 @@ def main_phase(dev, card: str):
         torch.cuda.synchronize()
         epoch_s.append(time.perf_counter() - t0)
         rows.append({k: float(v) for k, v in m.items()})
-    launches = FA.leaf_update.launches
+    launches = {"update": FA.leaf_update.launches, "norm": FA.global_norm_scalars.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    expected = EPOCHS * steps_per_epoch * leaves
-    if launches != expected:
-        fail(f"K1 launched {launches} times on the main path, expected {expected}")
+    # one norm and one update launch per optimizer step (up to 64 leaves)
+    expected = EPOCHS * steps_per_epoch * -(-leaves // 64)
+    if launches != {"update": expected, "norm": expected}:
+        fail(f"K1 launched {launches} times on the main path, expected {expected} each")
     for i, r in enumerate(rows):
         bad = [k for k, v in r.items() if not math.isfinite(v)]
         if bad:
@@ -418,27 +475,17 @@ def _moe_layer_inputs(dev, batch, d_in, d_out, gen):
     return x, coeff, w, b
 
 
-def _graph_ms(fn, iters: int = KERNEL_TIMED) -> float:
-    """Device time of `fn` replayed from a CUDA graph (no host launch cost)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, iters)
-
-
 def k2_phase(dev, card: str):
     import torch
 
     from vid2player3d_torch.ops import moe_linear as MOE
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    tol = 1e-4   # ~2000 f32 products per output summed in another order, fused
+    # 3xTF32 keeps f32-grade products; the tensor cores' f32 sums and the
+    # plain version's (cuBLAS, blend after the product) differ by rounding
+    tol = 1e-4
     errs = {}
-    for batch in (TENNIS_ENVS, 1001):
+    for batch in (TENNIS_ENVS, 1001, 255, 1):
         for d_in, d_out in MOE_LAYERS:
             x, coeff, w, b = _moe_layer_inputs(dev, batch, d_in, d_out, gen)
             got = MOE.moe_linear(x, coeff, w, b)
@@ -449,6 +496,15 @@ def k2_phase(dev, card: str):
             errs[f"B{batch}_{d_in}x{d_out}"] = err
             if not err <= tol * max(1.0, scale):
                 fail(f"K2 disagrees with its plain version at B={batch} {d_in}x{d_out}: {err}")
+    # the prep kernel against its plain version: the same rounding, bit for bit
+    split_err = 0.0
+    for d_in, d_out in MOE_LAYERS:
+        _, _, w, b = _moe_layer_inputs(dev, 1, d_in, d_out, gen)
+        got = MOE.split_weights(w, b)
+        want = MOE._split_plain(w, b, MOE.padded_in(d_in, MOE_EXPERTS))
+        split_err = max([split_err] + [float((a - c).abs().max()) for a, c in zip(got, want)])
+    if split_err != 0.0:
+        fail(f"K2's prep kernel disagrees with its plain version: {split_err}")
     # the autograd.Function's backward against autograd of the plain forward
     bwd_err = 0.0
     for d_in, d_out in MOE_LAYERS:
@@ -463,39 +519,58 @@ def k2_phase(dev, card: str):
             bwd_err = max(bwd_err, e)
             if not e <= 1e-3 * max(1.0, float(c.abs().max())):
                 fail(f"K2 backward disagrees with autograd at {d_in}x{d_out}: {e}")
+    tilings = {f"out{o}": MOE.tiling(o) for o in sorted({o for _, o in MOE_LAYERS})}
+    for t in tilings.values():
+        if t["ctas_per_sm"] < 1:
+            fail(f"K2's tiling does not fit an SM: {t}")
 
     layers = [_moe_layer_inputs(dev, TENNIS_ENVS, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
     # the library yardstick: x @ W reshaped to (in, 6*out), one cuBLAS GEMM
     # per layer with the same FLOPs and no blend
     wide = [(x, w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()) for x, _, w, _ in layers]
-
-    def decode():
-        return [MOE.moe_linear(*a) for a in layers]
-
-    def plain():
-        return [MOE.moe_linear_ref(*a) for a in layers]
-
-    def library():
-        return [x @ w2 for x, w2 in wide]
-
-    before = MOE.moe_linear.launches
-    ms, plain_ms, library_ms = cuda_ms(decode, KERNEL_TIMED), cuda_ms(plain, KERNEL_TIMED), \
-        cuda_ms(library, KERNEL_TIMED)
-    graph_ms, plain_graph_ms = _graph_ms(decode), _graph_ms(plain)
-    MOE.moe_linear.launches = before    # timing launches are not the main path's
+    fns = {
+        "decode": lambda: [MOE.moe_linear(*a) for a in layers],
+        "plain": lambda: [MOE.moe_linear_ref(*a) for a in layers],
+        "library": lambda: [x @ w2 for x, w2 in wide],
+        "split": lambda: [MOE.split_weights(a[2], a[3]) for a in layers],
+        "plain_split": lambda: [MOE._split_plain(a[2], a[3], MOE.padded_in(a[2].shape[1],
+                                                                           MOE_EXPERTS))
+                                for a in layers],
+    }
+    before = (MOE.moe_linear.launches, MOE.split_weights.launches)
+    times = {}
+    for name, fn in fns.items():
+        times[name + "_ms"] = cuda_ms(fn, KERNEL_TIMED)
+        times[name + "_graph_ms"] = _graph_ms(fn, KERNEL_TIMED)
+    # timing launches are not the main path's
+    MOE.moe_linear.launches, MOE.split_weights.launches = before
     flops = sum(2 * MOE_EXPERTS * TENNIS_ENVS * i * o for i, o in MOE_LAYERS)
     nbytes = 4 * sum(TENNIS_ENVS * i + TENNIS_ENVS * MOE_EXPERTS + MOE_EXPERTS * i * o
                      + MOE_EXPERTS * o + TENNIS_ENVS * o for i, o in MOE_LAYERS)
+    # W and bias read, hi and lo written
+    split_bytes = 4 * 3 * sum(MOE_EXPERTS * (i + 1) * o for i, o in MOE_LAYERS)
     rate = hbm_rate(card)
-    bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
-    row = dict(max_abs_err=max(errs.values()), tol=tol, backward_max_abs_err=bwd_err,
-               ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
-               library_ms=library_ms, bound_ms=bound_ms, flops=flops, bytes=nbytes,
-               bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations")
-    say("K2", card=card, unit="one MVAE decode: 3 launches at B=10240", errs=errs,
+    tf32_bound_ms = max(nbytes / rate, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    f32_bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
+    graph_ms = times["decode_graph_ms"]
+    row = dict(max_abs_err=max(errs.values()), tol=tol, split_max_abs_err=split_err,
+               backward_max_abs_err=bwd_err, ms=times["decode_ms"], graph_ms=graph_ms,
+               plain_ms=times["plain_ms"], plain_graph_ms=times["plain_graph_ms"],
+               library_ms=times["library_ms"], library_graph_ms=times["library_graph_ms"],
+               split_ms=times["split_ms"], split_graph_ms=times["split_graph_ms"],
+               plain_split_ms=times["plain_split_ms"],
+               plain_split_graph_ms=times["plain_split_graph_ms"],
+               bound_ms=tf32_bound_ms, f32_simt_bound_ms=f32_bound_ms,
+               split_bound_ms=split_bytes / rate * 1e3, flops=flops, bytes=nbytes,
+               split_bytes=split_bytes, bound_by="operations" if 3 * flops / TF32_FLOPS_PER_S
+               >= nbytes / rate else "bytes")
+    say("K2", card=card, unit="one MVAE decode at B=10240: 3 prep + 3 GEMM launches", errs=errs,
         library="x @ W.reshape(in, 6*out): one cuBLAS f32 GEMM per layer, same FLOPs, "
                 "no blend",
-        achieved_tflops=flops / (graph_ms * 1e-3) / 1e12, **row)
+        tiling=tilings, achieved_tflops=flops / (graph_ms * 1e-3) / 1e12,
+        issued_tf32_tflops=3 * flops / (graph_ms * 1e-3) / 1e12,
+        share_of_3xtf32_bound=tf32_bound_ms / graph_ms,
+        share_of_f32_simt_bound=f32_bound_ms / graph_ms, **row)
     return row
 
 
@@ -675,7 +750,8 @@ def tennis_main_phase(dev, card: str):
     steps_per_epoch = agent.num_minibatches * TENNIS_MINI_EPOCHS
 
     torch.cuda.reset_peak_memory_stats()
-    MOE.moe_linear.launches = FK.fk_chain.launches = FA.leaf_update.launches = 0
+    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
     epoch_s, rows = [], []
     for _ in range(TENNIS_EPOCHS):
         t0 = time.perf_counter()
@@ -683,12 +759,14 @@ def tennis_main_phase(dev, card: str):
         torch.cuda.synchronize()
         epoch_s.append(time.perf_counter() - t0)
         rows.append({k: float(v) for k, v in m.items()})
-    k2, k3, k1 = MOE.moe_linear.launches, FK.fk_chain.launches, FA.leaf_update.launches
+    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
+    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     env_steps = TENNIS_EPOCHS * TENNIS_HORIZON
-    if k2 != 3 * env_steps:
-        fail(f"K2 launched {k2} times on the tennis path, expected {3 * env_steps}")
+    if k2 != 3 * env_steps or k2_prep != 3 * env_steps:
+        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the tennis path, expected "
+             f"{3 * env_steps} each")
     if k3 != 2 * env_steps:
         fail(f"K3 launched {k3} times on the tennis path, expected {2 * env_steps}")
     for i, r in enumerate(rows):
@@ -718,10 +796,11 @@ def tennis_main_phase(dev, card: str):
         ball_pool=agent.env.gen.pool_size, setup_s=setup_s, epoch_s=epoch_s,
         rollout_s=rollout_s, rollout_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / rollout_s,
         epoch_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / epoch_s[-1],
-        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k3_launches=k3,
+        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
+        k3_launches=k3,
         k1_launches=k1, peak_mem_gib=peak_gib,
         metrics=[{k: r[k] for k in keep} for r in rows])
-    return agent, ts, {"moe_linear": k2, "fk_chain": k3}
+    return agent, ts, {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -793,7 +872,8 @@ def tennis_profile_phase(dev, card: str, agent, ts):
     for e in evs:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    k2_s = sum(v for k, v in by_name.items() if "moe_linear_kernel" in k)
+    k2_s = sum(v for k, v in by_name.items()
+               if "moe_linear_kernel" in k or "moe_split_w_kernel" in k)
     k3_s = sum(v for k, v in by_name.items() if "fk_chain_kernel" in k)
     # the span's host wall time, and the device time of the kernels that ran
     # inside its device-side ranges
@@ -850,27 +930,51 @@ def main() -> None:
     profile_phase(dev, card)
     tennis_profile_phase(dev, card, agent, ts)
 
-    row = k1["bf16"]   # the main path's moment type on the card
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
+    k1_common = {"route": "cuda", "source": "vid2player3d_torch/csrc/fused_adam.cu",
+                 "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
     kernels = [
-        {"name": "fused_clip_adam", "route": "cuda",
-         "source": "vid2player3d_torch/csrc/fused_adam.cu",
-         "replaces": "vid2player3d_tpu/ops/fused_adam.py:66", "launches": k1_launches,
-         **{k: row[k] for k in keys},
-         "unit": "one optimizer step over the 16 ImitatorNet leaves, bf16 moments",
-         "graph_ms": row["graph_ms"], "plain_graph_ms": row["plain_graph_ms"],
-         "f32_moments": {k: k1["f32"][k] for k in
-                         ("max_abs_err", "ms", "plain_ms", "bound_ms", "graph_ms",
-                          "plain_graph_ms")}},
+        {"name": "fused_adam_norm", **k1_common, "launches": k1_launches["norm"],
+         "max_abs_err": b16["scalar_rel_err"], "ms": b16["norm"], "plain_ms": b16["plain_norm"],
+         "bound_ms": b16["norm_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "unit": "the global norm and scalars of one ImitatorNet step (16 leaves); "
+                 "max_abs_err is the scalars' largest relative error",
+         "graph_ms": b16["norm_graph"], "plain_graph_ms": b16["plain_norm_graph"]},
+        {"name": "fused_adam_update", **k1_common, "launches": k1_launches["update"],
+         "max_abs_err": max(b16["err_p"], b16["err_moments"]), "ms": b16["update"],
+         "plain_ms": b16["plain_update"], "bound_ms": b16["update_bound_ms"], "bound_by": "bytes",
+         "library_ms": b16["library_ms"],
+         "unit": "the update of one ImitatorNet step (16 leaves), bf16 moments; library: "
+                 "torch.optim.Adam(fused=True), f32 moments",
+         "graph_ms": b16["update_graph"], "plain_graph_ms": b16["plain_update_graph"],
+         "library_graph_ms": b16["library_graph_ms"], "step_ms": b16["step"],
+         "step_graph_ms": b16["step_graph"], "step_bound_ms": b16["step_bound_ms"],
+         "host_ms_per_step": b16["host_ms_per_step"],
+         "f32_moments": {k: f32[k] for k in ("err_p", "err_moments", "update", "update_graph",
+                                             "step", "step_graph", "update_bound_ms",
+                                             "step_bound_ms")}},
+        {"name": "moe_split_w", "route": "cuda",
+         "source": "vid2player3d_torch/csrc/moe_linear.cu",
+         "replaces": "vid2player3d_tpu/ops/moe_linear.py:71",
+         "launches": tennis_launches["moe_split_w"], "max_abs_err": k2["split_max_abs_err"],
+         "ms": k2["split_ms"], "plain_ms": k2["plain_split_ms"], "bound_ms": k2["split_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "unit": "K2's prep: the TF32 split of the decoder's three W and biases, transposed",
+         "graph_ms": k2["split_graph_ms"], "plain_graph_ms": k2["plain_split_graph_ms"]},
         {"name": "moe_linear", "route": "cuda", "source": "vid2player3d_torch/csrc/moe_linear.cu",
          "replaces": "vid2player3d_tpu/ops/moe_linear.py:71",
-         "launches": tennis_launches["moe_linear"], **{k: k2[k] for k in keys},
-         "unit": "one MVAE decode (3 launches) at B=10240", "graph_ms": k2["graph_ms"],
-         "plain_graph_ms": k2["plain_graph_ms"],
+         "launches": tennis_launches["moe_linear"],
+         **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+         "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240; bound: 3xTF32",
+         "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
+         "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
          "backward_max_abs_err": k2["backward_max_abs_err"]},
         {"name": "fk_chain", "route": "cuda", "source": "vid2player3d_torch/csrc/fk_chain.cu",
          "replaces": "vid2player3d_tpu/ops/fk.py:77",
-         "launches": tennis_launches["fk_chain"], **{k: k3[k] for k in keys},
+         "launches": tennis_launches["fk_chain"],
+         **{k: k3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
          "unit": "one FK at N=10240", "graph_ms": k3["graph_ms"],
          "plain_graph_ms": k3["plain_graph_ms"]},
     ]

@@ -1,5 +1,6 @@
-"""The port's kernels (K1 fused clip+Adam, K2 moe_linear, K3 fk_chain)
-against their plain PyTorch versions on the card.
+"""The port's kernels (K1 fused clip+Adam: norm and multi-tensor update; K2
+moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
+versions on the card.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -59,21 +60,84 @@ def test_k1_kernel_matches_plain(cuda, n, moments):
 
 
 def test_k1_apply_counts_one_launch_per_leaf(cuda):
-    """`fused_clip_adam_apply` launches the kernel once per leaf and keeps
-    the count on the device."""
+    """`fused_clip_adam_apply` is two launches per optimizer step whatever
+    the number of leaves (up to 64): one norm, one update; it keeps the count
+    on the device."""
     shapes = ((1024, 734), (1024,), (75, 512), (75,))
     ps = [torch.zeros(s, device=cuda) for s in shapes]
     ms = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
     vs = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
     gs = [torch.ones_like(p) for p in ps]
-    before = FA.leaf_update.launches
+    before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
     count = FA.fused_clip_adam_apply(ps, ms, vs, gs, torch.zeros((), dtype=torch.int32,
                                                                  device=cuda), 1e-3, 50.0)
-    assert FA.leaf_update.launches == before + len(shapes)
+    assert (FA.leaf_update.launches, FA.global_norm_scalars.launches) == \
+        (before[0] + 1, before[1] + 1)
     assert count.device.type == "cuda" and int(count) == 1
     # clip scale 50/|g| < 1, first step: every param moves by -lr
     for p in ps:
         torch.testing.assert_close(p, torch.full_like(p, -1e-3), rtol=1e-5, atol=0.0)
+
+
+def _multi_leaves(cuda, sizes, moments, offset=0, seed=0):
+    """Leaves of `sizes`; with `offset`, each param is a slice at that
+    element offset of a longer buffer, so its base is not 16-byte aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ps = [(torch.randn(n + offset, generator=gen, device=cuda) * 0.05)[offset:] for n in sizes]
+    ms = [torch.zeros(n, dtype=moments, device=cuda) for n in sizes]
+    vs = [torch.zeros(n, dtype=moments, device=cuda) for n in sizes]
+    return ps, ms, vs, gen
+
+
+# ragged leaf sizes around the vector width and the 4096-element tile, one
+# leaf of 1,000 tiles and one past it; a misaligned copy of the small ones;
+# more leaves than the 64 a launch's table holds
+MULTI = {"sizes": ((1, 75, 1023, 1024, 4_096_001), 0),
+         "misaligned": ((1, 75, 1023, 1024, 4097), 1),
+         "over_capacity": ((5,) * 70 + (3000,) * 10, 0)}
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(MULTI))
+def test_k1_multi_tensor_matches_plain(cuda, case, moments):
+    """Four steps of the multi-tensor update under the plain scalars, bit
+    for bit with `_leaf_plain` per leaf; the norm kernel's scalars within
+    1e-6 relative of `adam_scalars` and its count exact; one launch of each
+    per 64 leaves."""
+    sizes, offset = MULTI[case]
+    pk, mk, vk, gen = _multi_leaves(cuda, sizes, moments, offset)
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (pk, mk, vk))
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    count_k = count.clone()
+    lr = torch.tensor(1e-3, device=cuda)
+    chunks = -(-len(sizes) // 64)
+    before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
+    for step in range(4):
+        gs = [torch.randn(n, generator=gen, device=cuda) * (3.0 if step % 2 == 0 else 0.01)
+              for n in sizes]
+        scalars, count = FA.adam_scalars(gs, count, lr, 1.0)
+        s_k, count_k = FA.global_norm_scalars(gs, count_k, lr, 1.0)
+        torch.testing.assert_close(s_k, scalars, atol=0.0, rtol=1e-6)
+        assert int(count_k) == int(count) == step + 1
+        FA.update_leaves(pk, mk, vk, gs, scalars)
+        for a in zip(pp, mp, vp, gs):
+            FA._leaf_plain(*a, scalars, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert (FA.leaf_update.launches, FA.global_norm_scalars.launches) == \
+        (before[0] + 4 * chunks, before[1] + 4 * chunks)
+    for a, b in zip(pk + mk + vk, pp + mp + vp):
+        torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
+
+
+def test_k1_norm_is_deterministic(cuda):
+    """Ten norm passes over the same grads give the same scalars to the
+    last bit: fixed partial slots summed in a fixed order, no float atomics."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gs = [torch.randn(n, generator=gen, device=cuda) for n in (1, 75, 734 * 1024, 4_096_001)]
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    outs = [FA.global_norm_scalars(gs, count, 1e-3, 1.0)[0].clone() for _ in range(10)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], atol=0.0, rtol=0.0)
 
 
 def test_k1_rejects_what_it_does_not_take(cuda):
@@ -106,18 +170,48 @@ def _moe_inputs(dev, batch, d_in, d_out, experts=6, seed=0):
 @pytest.mark.parametrize("layer", MOE_LAYERS, ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("batch", (1, 255, 10240))
 def test_k2_kernel_matches_plain(cuda, batch, layer):
-    """Kernel against the plain apply-then-blend version, one launch per
-    call. Both sum ~2000 f32 products per output (|out| ~ 3) in another
-    order, and the kernel fuses each product into its sum: they agree to a
-    few f32 ulps of the sums' size, held to 1e-4."""
+    """Kernel against the plain apply-then-blend version, one prep and one
+    GEMM launch per call. Both sum ~2000 products per output (|out| ~ 3) in
+    another order; the kernel's products are 3xTF32 (f32-grade) summed by the
+    tensor cores: they agree to ~1e-5 of the sums' size, held to 1e-4."""
     x, coeff, w, b = _moe_inputs(cuda, batch, *layer)
-    before = MOE.moe_linear.launches
+    before = (MOE.moe_linear.launches, MOE.split_weights.launches)
     got = MOE.moe_linear(x, coeff, w, b)
     torch.cuda.synchronize()
-    assert MOE.moe_linear.launches == before + 1
+    assert (MOE.moe_linear.launches, MOE.split_weights.launches) == \
+        (before[0] + 1, before[1] + 1)
     want = MOE.moe_linear_ref(x, coeff, w, b)
     assert got.shape == (batch, layer[1])
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+# narrow widths: `in` no multiple of the 32-float K tile (37: nor of 4, so
+# the wrapper pads x), `out` under one tile and one past it
+NARROW = ((40, 24), (37, 130))
+
+
+@pytest.mark.parametrize("layer", NARROW, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k2_narrow_in_matches_plain(cuda, layer):
+    """Per-expert K tiles that end inside a tile (TMA's zero fill) and a
+    padded `in`, at B = 255, held to 1e-4 as the full-width layers."""
+    x, coeff, w, b = _moe_inputs(cuda, 255, *layer, seed=3)
+    got = MOE.moe_linear(x, coeff, w, b)
+    want = MOE.moe_linear_ref(x, coeff, w, b)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layer", MOE_LAYERS + NARROW, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k2_prep_matches_plain(cuda, layer):
+    """The prep kernel (TF32 split of W and the bias, transposed, padded) bit
+    for bit with its plain version: `cvt.rna` and the emulated rounding
+    agree."""
+    _, _, w, b = _moe_inputs(cuda, 1, *layer, seed=4)
+    before = MOE.split_weights.launches
+    got = MOE.split_weights(w, b)
+    assert MOE.split_weights.launches == before + 1
+    want = MOE._split_plain(w, b, MOE.padded_in(layer[0], w.shape[0]))
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, atol=0.0, rtol=0.0)
 
 
 @pytest.mark.parametrize("layer", MOE_LAYERS, ids=lambda s: f"{s[0]}x{s[1]}")

@@ -31,6 +31,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # PyTorch versions the kernels are checked against
               "-fmad=false"]
 
+# flags for one source only: K2 finds libcuda's cuTensorMapEncodeTiled with
+# dlopen (older glibc keeps dlopen in libdl)
+SOURCE_FLAGS = {"moe_linear": ["-ldl"]}
+
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -61,7 +65,7 @@ def build_kernels() -> Dict[str, str]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[src.stem] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src), *SOURCE_FLAGS.get(src.stem, [])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
     failed = []
