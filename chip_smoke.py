@@ -24,8 +24,14 @@ Phases, each printing one line (any failed phase exits non-zero):
               as a CUDA-graph replay beside the 3xTF32 and f32 SIMT bounds, the
               plain version's, and one cuBLAS GEMM per layer of the same FLOPs
               (no blend, eager and graph) as a library yardstick
-  5. K3       fk_chain against its plain version at N = 10,240, 256 and 1;
-              time eager and as a graph replay beside the HBM bound
+  5. K3       fk_chain bit for bit with its plain version at N = 1, 255, 256,
+              257, 10,240 and 15,360 (MuJoCo tree), 10,240 (SMPL tree) and on
+              views 4 bytes past a 16-byte boundary, one launch per call;
+              the MuJoCo tree on its straight-line build;
+              times at N = 10,240, 15,360 and 256, eager and as a graph
+              replay, warm (one input set again and again) and cold (input
+              and output sets over 4x the L2, taken in turn), the cold time
+              beside the HBM bound, and the wrapper's host cost per call
   6. parity   a small imitation epoch (4 envs, f32) on the card against the
               same epoch on the CPU with the same draws
   7. main     the imitation path at full width: synthetic motion lib (8
@@ -45,7 +51,9 @@ Phases, each printing one line (any failed phase exits non-zero):
               just after
   10. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
               envs, 6 substeps, wrist reaction force, ball-body contact,
-              return_w_estimate) with the same networks
+              return_w_estimate) with the same networks; K3's counter set to
+              0 before its `reset_all` (1 launch) and read after the steps
+              (2 launches each: the step's FK targets and the candidate reset)
   11. profile torch.profiler over a short imitation epoch and a short tennis
               rollout: device busy and idle share, device events per step,
               the costliest device kernels, K2's and K3's device share and
@@ -578,13 +586,23 @@ def k2_phase(dev, card: str):
 # phase 5: K3 against its plain version, and its times
 # ---------------------------------------------------------------------------
 
+K3_TIMED_NS = (TENNIS_ENVS, STAGE2_ENVS, 256)   # the stage-1 and stage-2 steps, the candidates
+K3_COLD_BYTES = 200e6     # a cold rotation's inputs and outputs: 4x the 50 MB L2
+K3_TIMED = 200
+
+
 def k3_phase(dev, card: str):
+    import math
+
     import torch
 
+    from vid2player3d_torch.core import smpl as S
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.physics.asset import mujoco_parents
 
-    parents = tuple(int(p) for p in mujoco_parents())
+    trees = {"mujoco": tuple(int(p) for p in mujoco_parents()),
+             "smpl": tuple(int(p) for p in S.SMPL_PARENTS)}
+    parents = trees["mujoco"]
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def inputs(n):
@@ -593,35 +611,89 @@ def k3_phase(dev, card: str):
         return (rot.contiguous(), torch.randn(n, 24, 3, generator=gen, device=dev) * 0.1,
                 torch.randn(n, 3, generator=gen, device=dev))
 
+    def offset_view(t, floats=1):
+        """`t` as a contiguous view 4 bytes past a 16-byte boundary."""
+        view = torch.empty(t.numel() + floats, device=dev)[floats:].view(t.shape)
+        return view.copy_(t)
+
+    cases = [(f"mujoco_N{n}", trees["mujoco"], inputs(n))
+             for n in (1, 255, 256, 257, TENNIS_ENVS, STAGE2_ENVS)]
+    cases.append((f"smpl_N{TENNIS_ENVS}", trees["smpl"], inputs(TENNIS_ENVS)))
+    cases.append(("mujoco_N257_offset_4B", trees["mujoco"], [offset_view(t) for t in inputs(257)]))
     errs = {}
-    for n in (TENNIS_ENVS, 256, 1):
-        args = inputs(n)
-        pos, rm = FK.fk_chain(*args, parents)
-        wpos, wrm = FK._fk_plain(*args, parents)
+    before = FK.fk_chain.launches
+    for name, tree, args in cases:
+        pos, rm = FK.fk_chain(*args, tree)
+        wpos, wrm = FK._fk_plain(*args, tree)
         torch.cuda.synchronize()
-        errs[f"N{n}"] = max(float((pos - wpos).abs().max()), float((rm - wrm).abs().max()))
+        errs[name] = max(float((pos - wpos).abs().max()), float((rm - wrm).abs().max()))
+    if FK.fk_chain.launches - before != len(cases):
+        fail(f"K3 launched {FK.fk_chain.launches - before} times for {len(cases)} calls")
+    del cases
     # same products and sums in the same order, no FMA: bit for bit
     tol = 0.0
     if max(errs.values()) > tol:
         fail(f"K3 disagrees with its plain version: {errs}")
-    args = inputs(TENNIS_ENVS)
-    before = FK.fk_chain.launches
-    ms = cuda_ms(lambda: FK.fk_chain(*args, parents), KERNEL_TIMED * 4)
-    plain_ms = cuda_ms(lambda: FK._fk_plain(*args, parents), KERNEL_TIMED)
-    graph_ms = _graph_ms(lambda: FK.fk_chain(*args, parents), KERNEL_TIMED * 4)
-    plain_graph_ms = _graph_ms(lambda: FK._fk_plain(*args, parents))
-    FK.fk_chain.launches = before
-    per_env = 24 * 9 + 24 * 3 + 3 + 24 * 3 + 24 * 9      # floats read + written
-    nbytes = 4 * per_env * TENNIS_ENVS
-    flops = TENNIS_ENVS * 23 * (9 * 5 + 3 * 6)            # 3x3 @ 3x3 and 3x3 @ 3 + add
+    # the tennis path's tree takes the kernel's straight-line MuJoCo build
+    builds = {name: FK.kernel_tree(tree) for name, tree in trees.items()}
+    if builds != {"mujoco": 1, "smpl": 0}:
+        fail(f"K3 builds of the humanoid trees: {builds}")
+
     rate = hbm_rate(card)
-    bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
-    row = dict(max_abs_err=max(errs.values()), tol=tol, ms=ms, graph_ms=graph_ms,
-               plain_ms=plain_ms, plain_graph_ms=plain_graph_ms, library_ms=None,
-               bound_ms=bound_ms, bytes=nbytes, flops=flops,
-               bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations")
-    say("K3", card=card, unit="one FK of N=10240 envs, 24 joints", errs=errs,
-        library="none: no single PyTorch call computes FK", **row)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_env = 24 * 9 + 24 * 3 + 3 + 24 * 3 + 24 * 9      # floats read + written
+    per_n = {}
+    for n in K3_TIMED_NS:
+        nbytes = 4 * per_env * n
+        flops = n * 23 * (9 * 5 + 3 * 6)                  # 3x3 @ 3x3 and 3x3 @ 3 + add
+        # cold: input sets taken in turn, each call writing fresh outputs,
+        # together 4x the L2, so every call reads and writes device memory
+        sets = max(4, math.ceil(K3_COLD_BYTES / nbytes))
+        ins = [inputs(n) for _ in range(sets)]
+        outs = [None] * sets
+        turn = [0]
+
+        def cold():
+            k = turn[0] % sets
+            turn[0] += 1
+            outs[k] = FK.fk_chain(*ins[k], parents)
+
+        def warm():
+            FK.fk_chain(*ins[0], parents)
+
+        calls = sets * math.ceil(K3_TIMED / sets)
+        row = dict(
+            launch_shape=FK.launch_shape(n, 24, sms), cold_sets=sets, cold_bytes=sets * nbytes,
+            warm_ms=cuda_ms(warm, K3_TIMED), warm_graph_ms=_graph_ms(warm, K3_TIMED),
+            ms=cuda_ms(cold, calls),
+            graph_ms=_graph_ms(lambda: [FK.fk_chain(*a, parents) for a in ins],
+                               math.ceil(K3_TIMED / sets)) / sets,
+            bound_ms=max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3, bytes=nbytes,
+            flops=flops,
+            bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations")
+        # the wrapper's host cost alone: calls enqueued without a sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K3_TIMED):
+            warm()
+        row["host_ms_per_call"] = (time.perf_counter() - t0) / K3_TIMED * 1e3
+        torch.cuda.synchronize()
+        row["share_of_bound"] = row["bound_ms"] / row["graph_ms"]
+        # a cold time under the bound would mean the rotation stayed in L2
+        row["cold_under_bound"] = row["graph_ms"] < row["bound_ms"]
+        if n == TENNIS_ENVS:
+            row["plain_ms"] = cuda_ms(lambda: FK._fk_plain(*ins[0], parents), KERNEL_TIMED)
+            row["plain_graph_ms"] = _graph_ms(lambda: FK._fk_plain(*ins[0], parents))
+        per_n[f"N{n}"] = row
+        del ins, outs
+    # timing launches are not the main path's
+    FK.fk_chain.launches = before
+    row = dict(per_n[f"N{TENNIS_ENVS}"], max_abs_err=max(errs.values()), tol=tol,
+               library_ms=None)
+    say("K3", card=card, unit="one FK of N envs, 24 joints; ms / graph_ms cold (input and "
+        "output sets over 4x the L2 taken in turn), warm_* one set again and again",
+        errs=errs, builds=builds, library="none: no single PyTorch call computes FK",
+        per_n=per_n)
     return row
 
 
@@ -811,6 +883,7 @@ def stage2_phase(dev, card: str, agent, ts):
     import torch
 
     from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.ops import fk as FK
 
     t0 = time.perf_counter()
     env = _tennis_env(dev, TennisConfig(
@@ -818,6 +891,7 @@ def stage2_phase(dev, card: str, agent, ts):
         use_random_ball_target="discrete", reset_reaction_nframes=70, reset_candidates=256,
         ball_reaction_force=True, ball_body_contact=True), hidden=256, experts=6,
         gen=agent.env.gen)
+    FK.fk_chain.launches = 0
     state, obs = env.reset_all()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -834,8 +908,12 @@ def stage2_phase(dev, card: str, agent, ts):
             finite = finite and bool(torch.isfinite(out.obs).all())
     if not finite:
         fail("stage-2 obs not finite")
+    k3 = FK.fk_chain.launches
+    if k3 != 1 + 2 * STAGE2_STEPS:
+        fail(f"K3 launched {k3} times in the stage-2 reset and {STAGE2_STEPS} steps, expected "
+             f"{1 + 2 * STAGE2_STEPS}")
     say("stage2", card=card, envs=STAGE2_ENVS, substeps=6, steps=STAGE2_STEPS,
-        obs_finite=finite, setup_s=setup_s, ms_per_step=[s * 1e3 for s in step_s],
+        obs_finite=finite, setup_s=setup_s, k3_launches=k3, ms_per_step=[s * 1e3 for s in step_s],
         env_steps_per_s=STAGE2_ENVS * (STAGE2_STEPS - 1) / sum(step_s[1:]))
 
 
@@ -975,8 +1053,11 @@ def main() -> None:
          "launches": tennis_launches["fk_chain"],
          **{k: k3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "unit": "one FK at N=10240", "graph_ms": k3["graph_ms"],
-         "plain_graph_ms": k3["plain_graph_ms"]},
+         "unit": "one FK at N=10240; ms and graph_ms with cold inputs (sets over 4x the L2 "
+                 "in turn), warm_ms and warm_graph_ms one set again and again",
+         "graph_ms": k3["graph_ms"], "warm_ms": k3["warm_ms"],
+         "warm_graph_ms": k3["warm_graph_ms"], "plain_graph_ms": k3["plain_graph_ms"],
+         "host_ms_per_call": k3["host_ms_per_call"], "share_of_bound": k3["share_of_bound"]},
     ]
     say("total", seconds=time.perf_counter() - t_start)
     print("nvidia-smi: " + nvidia_smi(), flush=True)

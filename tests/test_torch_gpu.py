@@ -262,14 +262,10 @@ def _parents(tree):
     return tuple(int(p) for p in (mujoco_parents() if tree == "mujoco" else S.SMPL_PARENTS))
 
 
-@pytest.mark.parametrize("tree", ("mujoco", "smpl"))
-@pytest.mark.parametrize("n", (1, 256, 10240))
-def test_k3_kernel_matches_plain(cuda, n, tree):
-    """Kernel against the plain SoA chain, one launch per call at every N.
-    Both round each product and each sum alone, in the same order (the
-    kernel is built with -fmad=false): they agree bit for bit."""
-    rot, off, root = _fk_inputs(cuda, n)
-    parents = _parents(tree)
+def _k3_check(rot, off, root, parents):
+    """One launch, bit for bit with the plain SoA chain: both round each
+    product and each sum alone, in the same order (the kernel is built with
+    -fmad=false)."""
     before = FK.fk_chain.launches
     pos, rm = FK.fk_chain(rot, off, root, parents)
     torch.cuda.synchronize()
@@ -277,6 +273,87 @@ def test_k3_kernel_matches_plain(cuda, n, tree):
     want_pos, want_rm = FK._fk_plain(rot, off, root, parents)
     torch.testing.assert_close(pos, want_pos, atol=0.0, rtol=0.0)
     torch.testing.assert_close(rm, want_rm, atol=0.0, rtol=0.0)
+
+
+@pytest.mark.parametrize("tree", ("mujoco", "smpl"))
+@pytest.mark.parametrize("n", (1, 255, 256, 257, 10239, 10240, 15360))
+def test_k3_kernel_matches_plain(cuda, n, tree):
+    """Kernel against the plain SoA chain, one launch per call at every N:
+    one env per CTA (1 to 257), the tennis path's 10,240 and 15,360 (runs
+    of 20 and 30 envs, ragged last chunks), and 10,239 (a ragged last run)."""
+    _k3_check(*_fk_inputs(cuda, n), _parents(tree))
+
+
+@pytest.mark.parametrize("floats", (1, 3))
+@pytest.mark.parametrize("n", (257, 10240))
+def test_k3_offset_views_match_plain(cuda, n, floats):
+    """Inputs that are contiguous views `floats` words into longer buffers
+    (base addresses 4 or 12 bytes past a 16-byte boundary) go in as they
+    are, bit for bit with the plain version."""
+    rot, off, root = _fk_inputs(cuda, n, seed=1)
+    views = []
+    for t in (rot, off, root):
+        buf = torch.zeros(t.numel() + floats, device=cuda)
+        view = buf[floats:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4 * floats
+        views.append(view)
+    _k3_check(*views, _parents("smpl"))
+
+
+@pytest.mark.parametrize("joints", (1, 7, 24, 32))
+def test_k3_any_tree_matches_plain(cuda, joints):
+    """Random trees (parents[j] < j, few of them the previous joint) of 1, 7,
+    24 and 32 joints at N = 1,001, all through the kernel's loop build: rows
+    of no multiple of 16 bytes (4-byte copies), 24 joints in another tree
+    than the built-in ones, the largest slabs."""
+    gen = torch.Generator().manual_seed(joints)
+    parents = (-1,) + tuple(int(torch.randint(0, j, (), generator=gen))
+                            for j in range(1, joints))
+    g = torch.Generator(device=cuda).manual_seed(joints)
+    rot = torch.eye(3, device=cuda) + 0.3 * torch.randn(1001, joints, 3, 3, generator=g,
+                                                        device=cuda)
+    off = torch.randn(1001, joints, 3, generator=g, device=cuda)
+    assert FK.kernel_tree(parents) == 0
+    _k3_check(rot, off, torch.randn(1001, 3, generator=g, device=cuda), parents)
+
+
+def test_k3_builds_of_the_humanoid_trees(cuda):
+    """The MuJoCo-order tree (the tennis path's) takes the kernel's
+    straight-line build; the SMPL-order tree and a chain of 24 joints take
+    its loop."""
+    assert FK.kernel_tree(_parents("mujoco")) == 1
+    assert FK.kernel_tree(_parents("smpl")) == 0
+    assert FK.kernel_tree((-1,) + tuple(range(23))) == 0
+
+
+def test_k3_is_deterministic(cuda):
+    """Ten calls on the same inputs agree to the last bit."""
+    args = _fk_inputs(cuda, 10240, seed=2)
+    parents = _parents("mujoco")
+    outs = [FK.fk_chain(*args, parents) for _ in range(10)]
+    for pos, rm in outs[1:]:
+        torch.testing.assert_close(pos, outs[0][0], atol=0.0, rtol=0.0)
+        torch.testing.assert_close(rm, outs[0][1], atol=0.0, rtol=0.0)
+
+
+def test_k3_library_refuses_a_shape_it_does_not_lay_out(cuda):
+    """The C entry checks the launch shape against its own layout: shared
+    memory other than `launch_shape`'s, no env per CTA, or more than 32
+    joints return cudaErrorInvalidValue (1) and launch nothing."""
+    rot, off, root = _fk_inputs(cuda, 64)
+    pos, rm = torch.empty_like(off), torch.empty_like(rot)
+    fn = FK._kernel_fn()
+    par = FK._parent_array(_parents("mujoco"))
+    good = FK.launch_shape(64, 24)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ptrs = [t.data_ptr() for t in (rot, off, root, pos, rm)]
+    for envs, smem, joints in ((good["envs_per_cta"], good["smem_bytes"] - 16, 24),
+                               (0, good["smem_bytes"], 24),
+                               (good["envs_per_cta"], good["smem_bytes"], 33)):
+        assert fn(*ptrs, 64, joints, par, envs, smem, stream) == 1
+    assert fn(*ptrs, 64, 24, par, good["envs_per_cta"], good["smem_bytes"], stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_k3_rejects_what_it_does_not_take(cuda):

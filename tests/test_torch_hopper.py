@@ -1,4 +1,4 @@
-"""The Hopper designs of K1 and K2, checked on the CPU.
+"""The Hopper designs of K1, K2 and K3, checked on the CPU.
 
 K1 (``ops/fused_adam.py``): the multi-tensor step (`fused_clip_adam_apply`,
 `update_leaves`, `global_norm_scalars`) on CPU tensors against the per-leaf
@@ -11,6 +11,12 @@ and a low part, sum lo*hi + hi*lo + hi*hi in f32) against the JAX
 `moe_linear_ref` at the decoder's full-width layers: the split keeps
 f32-grade results before any card run. And the tile choice that makes the
 full-width grid one resident wave.
+
+K3 (``ops/fk.py``): the launch shape (`launch_shape`) that the kernel's grid
+and shared-memory layout follow: every (env, joint, row) owned by one lane,
+the staged words on distinct shared-memory slots of the ring, the ring
+inside an SM, the envs of a chunk spread over the banks, the grid balanced
+over the SMs.
 
 Inputs are made from a seed with numpy and handed to both packages.
 """
@@ -25,6 +31,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from vid2player3d_tpu.learn.optim import scale_by_adam_lowmem
 from vid2player3d_tpu.ops.fused_adam import fused_clip_adam_apply as j_fused
 from vid2player3d_tpu.ops.moe_linear import moe_linear_ref as j_moe_ref
+from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
 from vid2player3d_torch.ops import moe_linear as MOE
 
@@ -285,3 +292,114 @@ def test_k2_prep_raises_on_cuda_tensor_without_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         MOE.split_weights(w, b)
     assert MOE.split_weights.launches == before
+
+
+# -- K3 ------------------------------------------------------------------------
+
+SM_BYTES = 233_472       # shared memory of one H100 SM (228 KB)
+CTA_BYTES = 232_448      # the most one CTA may use (227 KB)
+CTA_RESERVED = 1024      # bytes the SM keeps per resident CTA
+
+
+def _stage_words(length, stride, count, threads=FK.THREADS):
+    """The kernel's `stage_in` / `stage_out` walk: 16-byte units where the
+    row is a multiple of 4 floats (an aligned base), else 4-byte words;
+    thread t takes units t, t + threads, ... of `count` rows, walking row e
+    and offset q with one division up front. Returns the (word, slot) pairs
+    of every float moved."""
+    width = 4 if length % 4 == 0 else 1
+    units = length // width
+    pairs = []
+    de, dq = divmod(threads, units)
+    for t in range(threads):
+        e, q = divmod(t, units)
+        for f in range(t, units * count, threads):
+            pairs += [(width * f + i, e * stride + width * q + i) for i in range(width)]
+            e, q = e + de, q + dq
+            if q >= units:
+                e, q = e + 1, q - units
+    return np.array(pairs).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("n", (1, 31, 32, 33, 255, 256, 10239, 10240, 15360))
+def test_k3_launch_shape_covers_every_env_once(n):
+    """CTA b owns envs [b * E, (b + 1) * E) and walks them in chunks of 8;
+    lane t < 24 owns row t % 3 of env t // 3 of each chunk over all joints:
+    every (env, row) of N envs has exactly one lane, the tail CTA and the
+    ragged last chunk included, and no CTA is empty; the CTA fits an SM's
+    shared memory."""
+    s = FK.launch_shape(n, 24)
+    E = s["envs_per_cta"]
+    assert s["threads"] == FK.THREADS >= 3 * FK.CHUNK
+    assert s["smem_bytes"] <= CTA_BYTES
+    owned = np.zeros((n, 3), np.int64)
+    lane = np.arange(s["threads"])
+    env, row = lane // 3, lane % 3
+    for b in range(s["ctas"]):
+        count = min(E, n - b * E)
+        assert count >= 1
+        assert -(-count // FK.CHUNK) <= s["chunks_per_cta"]
+        for c0 in range(0, count, FK.CHUNK):
+            live = env < min(FK.CHUNK, count - c0)
+            np.add.at(owned, (b * E + c0 + env[live], row[live]), 1)
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("joints", (1, 7, 24, 32))
+def test_k3_staged_rows_fill_distinct_slots(joints):
+    """The three ring stages (a chunk's rot, off and root rows each) and the
+    two output slabs (rotmat, pos rows), for a full chunk and a ragged one:
+    each float
+    of a chunk's range lands on its own slot (row e, offset q; the strided
+    walk of the kernel agrees with f // len, f % len even when the thread
+    count exceeds a row), 16-byte units start on 16-byte slots, no two
+    regions share a slot, and they end at the bytes `launch_shape` asks for,
+    under 227 KB at J = 32."""
+    s = FK.launch_shape(10240, joints)
+    rows = [(9 * joints, FK.padded_row(9 * joints)), (3 * joints, FK.padded_row(3 * joints)),
+            (3, 3)]
+    regions = rows * FK.STAGES + rows[:2] * FK.OUT_SLOTS
+    for count in (FK.CHUNK, FK.CHUNK - 5):
+        slots, base = [], 0
+        for length, stride in regions:
+            assert stride >= length and (stride % 4 == 0 or length % 4)
+            pairs = _stage_words(length, stride, count)
+            order = np.argsort(pairs[:, 0])
+            f, slot = pairs[order, 0], pairs[order, 1]
+            np.testing.assert_array_equal(f, np.arange(length * count))
+            np.testing.assert_array_equal(slot, (f // length) * stride + f % length)
+            if length % 4 == 0:
+                assert ((base + slot[::4]) % 4 == 0).all()
+            slots.append(base + slot)
+            base += FK.CHUNK * stride
+        slots = np.concatenate(slots)
+        assert len(np.unique(slots)) == len(slots) and slots.max() < base
+        assert 4 * base == s["smem_bytes"] <= CTA_BYTES
+
+
+def test_k3_rows_spread_a_warp_over_the_banks():
+    """The padded rows (220 and 76 floats at J = 24) put the 8 envs of a
+    chunk, all in the first warp, on 8 distinct bank groups: the three lanes
+    of an env broadcast one word and no two envs conflict, where the natural
+    216 and 72 would put two envs on each bank."""
+    for length in (216, 72):
+        envs = np.arange(FK.CHUNK)
+        assert np.bincount(envs * FK.padded_row(length) % 32).max() == 1
+        assert np.bincount(envs * length % 32).max() == 2
+
+
+def test_k3_grid_fills_the_card():
+    """Four CTAs per SM at the tennis path's N, each a run of envs: 512 CTAs
+    of 20 envs at 10,240 (every one of the H100's 132 SMs busy, at most 80
+    envs on one against a mean of 78, 3 chunks per CTA) and 512 of 30 at
+    15,360; all resident at once (four fit an SM's shared memory); the
+    candidate reset's N = 256 takes 256 CTAs of one env."""
+    shape = FK.launch_shape(10240, 24)
+    assert (shape["envs_per_cta"], shape["ctas"], shape["chunks_per_cta"]) == (20, 512, 3)
+    assert FK.H100_SMS <= shape["ctas"] <= FK.CTAS_PER_SM * FK.H100_SMS
+    assert FK.CTAS_PER_SM * shape["envs_per_cta"] <= -(-10240 // FK.H100_SMS) + FK.CTAS_PER_SM
+    assert SM_BYTES // (shape["smem_bytes"] + CTA_RESERVED) >= FK.CTAS_PER_SM
+    assert (FK.launch_shape(15360, 24)["envs_per_cta"], FK.launch_shape(15360, 24)["ctas"]) \
+        == (30, 512)
+    assert FK.launch_shape(256, 24)["ctas"] == 256
+    assert FK.launch_shape(0, 24)["ctas"] == 0
