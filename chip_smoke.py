@@ -18,12 +18,14 @@ Phases, each printing one line (any failed phase exits non-zero):
               (eager and graph), and the wrapper's host cost per step
   4. K2       moe_linear against its plain version at the MVAE decoder's three
               full-width layers (E = 6; 320->256, 288->256, 288->290) at
-              B = 10,240, 1,001, 255 and 1, its prep kernel bit for bit with
-              the plain TF32 split, its backward against autograd at B = 256;
-              its tiling; time per decode (3 prep + 3 GEMM launches) eager and
-              as a CUDA-graph replay beside the 3xTF32 and f32 SIMT bounds, the
-              plain version's, and one cuBLAS GEMM per layer of the same FLOPs
-              (no blend, eager and graph) as a library yardstick
+              B = 10,240, 7,680 (one lane's decode in the dual rally), 1,001,
+              255 and 1, its prep kernel bit for bit with the plain TF32
+              split, its backward against autograd at B = 256; its tiling;
+              time per decode (3 prep + 3 GEMM launches) at B = 10,240 and
+              7,680, eager and as a CUDA-graph replay beside the 3xTF32 and
+              f32 SIMT bounds, the plain version's, and one cuBLAS GEMM per
+              layer of the same FLOPs (no blend, eager and graph) as a library
+              yardstick
   5. K3       fk_chain bit for bit with its plain version at N = 1, 255, 256,
               257, 10,240 and 15,360 (MuJoCo tree), 10,240 (SMPL tree) and on
               views 4 bytes past a 16-byte boundary, one launch per call;
@@ -54,11 +56,26 @@ Phases, each printing one line (any failed phase exits non-zero):
               return_w_estimate) with the same networks; K3's counter set to
               0 before its `reset_all` (1 launch) and read after the steps
               (2 launches each: the step's FK targets and the candidate reset)
-  11. profile torch.profiler over a short imitation epoch and a short tennis
-              rollout: device busy and idle share, device events per step,
-              the costliest device kernels, K2's and K3's device share and
-              the estimate_out span's share
-  12. kernels one JSON line over the ported kernels
+  11. dual parity  a small dual-rally epoch (8 envs, two players: a
+              left-handed two-hand lane and a right-handed one, two policies,
+              horizon 4, f32) on the card against the same epoch on the CPU
+              with the same draws
+  12. dual main     the dual rally as `nadal_federer` builds it: DualTennisEnv
+              (15,360 envs, 6 substeps, return_w_estimate, continuous
+              targets, wrist reaction force, ball-body contact, the full
+              masked reset) with two random full-width MVAEs (nadal
+              left-handed with the two-hand backhand, federer) and two random
+              full-width pi_low -> V2PPPO(num_policies=2) (horizon 32,
+              minibatch 16,384, 6 mini-epochs: 180 optimizer steps per epoch,
+              lr 1e-5, sigma_init -2.9), two `train_epoch`s, the K2 and K3
+              launch counters set to 0 just before and read just after; the
+              two-hand IK's time per step at full size
+  13. profile torch.profiler over a short imitation epoch, a short tennis
+              rollout and a short dual rollout: device busy and idle share,
+              device events per step, the costliest device kernels, K2's and
+              K3's device share and the shares of the spans (masked_reset,
+              estimate_out, two_hand, and the dual env's serve and handoff)
+  14. kernels one JSON line over the ported kernels
 The last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository around it: with no card, or run from
@@ -84,7 +101,9 @@ TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 tensor cores, dense
 
 NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 2
 K1_CHECK_STEPS = 4
-SPANS = ("estimate_out",)   # record_function spans on the main path
+# record_function spans on the main paths (the dual env's serve runs inside
+# the masked reset)
+SPANS = ("masked_reset", "estimate_out", "two_hand", "serve", "handoff")
 K1_TIMED_STEPS = 200
 
 
@@ -469,6 +488,8 @@ MOE_EXPERTS = 6
 TENNIS_ENVS, TENNIS_HORIZON, TENNIS_MINIBATCH, TENNIS_MINI_EPOCHS = 10240, 64, 16384, 6
 TENNIS_EPOCHS = 2
 STAGE2_ENVS, STAGE2_STEPS = 15360, 8
+DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 2
+LANE_DECODE = DUAL_ENVS // 2    # the dual rally decodes each lane's rows on their own
 KERNEL_TIMED = 50
 
 
@@ -483,6 +504,58 @@ def _moe_layer_inputs(dev, batch, d_in, d_out, gen):
     return x, coeff, w, b
 
 
+def _k2_times(dev, card: str, batch: int, gen):
+    """One decode's three layers at `batch` rows: the kernels, their plain
+    versions and the cuBLAS yardstick, eager and as graphs, beside the
+    bounds."""
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    layers = [_moe_layer_inputs(dev, batch, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
+    # the library yardstick: x @ W reshaped to (in, 6*out), one cuBLAS GEMM
+    # per layer with the same FLOPs and no blend
+    wide = [(x, w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()) for x, _, w, _ in layers]
+    fns = {
+        "decode": lambda: [MOE.moe_linear(*a) for a in layers],
+        "plain": lambda: [MOE.moe_linear_ref(*a) for a in layers],
+        "library": lambda: [x @ w2 for x, w2 in wide],
+        "split": lambda: [MOE.split_weights(a[2], a[3]) for a in layers],
+        "plain_split": lambda: [MOE._split_plain(a[2], a[3], MOE.padded_in(a[2].shape[1],
+                                                                           MOE_EXPERTS))
+                                for a in layers],
+    }
+    before = (MOE.moe_linear.launches, MOE.split_weights.launches)
+    times = {}
+    for name, fn in fns.items():
+        times[name + "_ms"] = cuda_ms(fn, KERNEL_TIMED)
+        times[name + "_graph_ms"] = _graph_ms(fn, KERNEL_TIMED)
+    # timing launches are not the main path's
+    MOE.moe_linear.launches, MOE.split_weights.launches = before
+    flops = sum(2 * MOE_EXPERTS * batch * i * o for i, o in MOE_LAYERS)
+    nbytes = 4 * sum(batch * i + batch * MOE_EXPERTS + MOE_EXPERTS * i * o
+                     + MOE_EXPERTS * o + batch * o for i, o in MOE_LAYERS)
+    # W and bias read, hi and lo written
+    split_bytes = 4 * 3 * sum(MOE_EXPERTS * (i + 1) * o for i, o in MOE_LAYERS)
+    rate = hbm_rate(card)
+    tf32_bound_ms = max(nbytes / rate, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    f32_bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
+    graph_ms = times["decode_graph_ms"]
+    return dict(ms=times["decode_ms"], graph_ms=graph_ms,
+                plain_ms=times["plain_ms"], plain_graph_ms=times["plain_graph_ms"],
+                library_ms=times["library_ms"], library_graph_ms=times["library_graph_ms"],
+                split_ms=times["split_ms"], split_graph_ms=times["split_graph_ms"],
+                plain_split_ms=times["plain_split_ms"],
+                plain_split_graph_ms=times["plain_split_graph_ms"],
+                bound_ms=tf32_bound_ms, f32_simt_bound_ms=f32_bound_ms,
+                split_bound_ms=split_bytes / rate * 1e3, flops=flops, bytes=nbytes,
+                split_bytes=split_bytes,
+                bound_by="operations" if 3 * flops / TF32_FLOPS_PER_S >= nbytes / rate
+                else "bytes",
+                achieved_tflops=flops / (graph_ms * 1e-3) / 1e12,
+                issued_tf32_tflops=3 * flops / (graph_ms * 1e-3) / 1e12,
+                share_of_3xtf32_bound=tf32_bound_ms / graph_ms,
+                share_of_f32_simt_bound=f32_bound_ms / graph_ms)
+
+
 def k2_phase(dev, card: str):
     import torch
 
@@ -493,7 +566,7 @@ def k2_phase(dev, card: str):
     # plain version's (cuBLAS, blend after the product) differ by rounding
     tol = 1e-4
     errs = {}
-    for batch in (TENNIS_ENVS, 1001, 255, 1):
+    for batch in (TENNIS_ENVS, LANE_DECODE, 1001, 255, 1):
         for d_in, d_out in MOE_LAYERS:
             x, coeff, w, b = _moe_layer_inputs(dev, batch, d_in, d_out, gen)
             got = MOE.moe_linear(x, coeff, w, b)
@@ -532,53 +605,19 @@ def k2_phase(dev, card: str):
         if t["ctas_per_sm"] < 1:
             fail(f"K2's tiling does not fit an SM: {t}")
 
-    layers = [_moe_layer_inputs(dev, TENNIS_ENVS, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
-    # the library yardstick: x @ W reshaped to (in, 6*out), one cuBLAS GEMM
-    # per layer with the same FLOPs and no blend
-    wide = [(x, w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()) for x, _, w, _ in layers]
-    fns = {
-        "decode": lambda: [MOE.moe_linear(*a) for a in layers],
-        "plain": lambda: [MOE.moe_linear_ref(*a) for a in layers],
-        "library": lambda: [x @ w2 for x, w2 in wide],
-        "split": lambda: [MOE.split_weights(a[2], a[3]) for a in layers],
-        "plain_split": lambda: [MOE._split_plain(a[2], a[3], MOE.padded_in(a[2].shape[1],
-                                                                           MOE_EXPERTS))
-                                for a in layers],
-    }
-    before = (MOE.moe_linear.launches, MOE.split_weights.launches)
-    times = {}
-    for name, fn in fns.items():
-        times[name + "_ms"] = cuda_ms(fn, KERNEL_TIMED)
-        times[name + "_graph_ms"] = _graph_ms(fn, KERNEL_TIMED)
-    # timing launches are not the main path's
-    MOE.moe_linear.launches, MOE.split_weights.launches = before
-    flops = sum(2 * MOE_EXPERTS * TENNIS_ENVS * i * o for i, o in MOE_LAYERS)
-    nbytes = 4 * sum(TENNIS_ENVS * i + TENNIS_ENVS * MOE_EXPERTS + MOE_EXPERTS * i * o
-                     + MOE_EXPERTS * o + TENNIS_ENVS * o for i, o in MOE_LAYERS)
-    # W and bias read, hi and lo written
-    split_bytes = 4 * 3 * sum(MOE_EXPERTS * (i + 1) * o for i, o in MOE_LAYERS)
-    rate = hbm_rate(card)
-    tf32_bound_ms = max(nbytes / rate, 3 * flops / TF32_FLOPS_PER_S) * 1e3
-    f32_bound_ms = max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3
-    graph_ms = times["decode_graph_ms"]
-    row = dict(max_abs_err=max(errs.values()), tol=tol, split_max_abs_err=split_err,
-               backward_max_abs_err=bwd_err, ms=times["decode_ms"], graph_ms=graph_ms,
-               plain_ms=times["plain_ms"], plain_graph_ms=times["plain_graph_ms"],
-               library_ms=times["library_ms"], library_graph_ms=times["library_graph_ms"],
-               split_ms=times["split_ms"], split_graph_ms=times["split_graph_ms"],
-               plain_split_ms=times["plain_split_ms"],
-               plain_split_graph_ms=times["plain_split_graph_ms"],
-               bound_ms=tf32_bound_ms, f32_simt_bound_ms=f32_bound_ms,
-               split_bound_ms=split_bytes / rate * 1e3, flops=flops, bytes=nbytes,
-               split_bytes=split_bytes, bound_by="operations" if 3 * flops / TF32_FLOPS_PER_S
-               >= nbytes / rate else "bytes")
-    say("K2", card=card, unit="one MVAE decode at B=10240: 3 prep + 3 GEMM launches", errs=errs,
+    times = {batch: _k2_times(dev, card, batch, gen) for batch in (TENNIS_ENVS, LANE_DECODE)}
+    main, lane = times[TENNIS_ENVS], times[LANE_DECODE]
+    row = dict(main, max_abs_err=max(errs.values()), tol=tol, split_max_abs_err=split_err,
+               backward_max_abs_err=bwd_err, per_lane_B7680={
+                   k: lane[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
+                                        "library_ms", "library_graph_ms", "bound_ms",
+                                        "f32_simt_bound_ms", "share_of_3xtf32_bound",
+                                        "achieved_tflops")})
+    say("K2", card=card, unit="one MVAE decode at B=10240 (and per_lane_B7680: one lane of the "
+        "dual rally): 3 prep + 3 GEMM launches", errs=errs,
         library="x @ W.reshape(in, 6*out): one cuBLAS f32 GEMM per layer, same FLOPs, "
                 "no blend",
-        tiling=tilings, achieved_tflops=flops / (graph_ms * 1e-3) / 1e12,
-        issued_tf32_tflops=3 * flops / (graph_ms * 1e-3) / 1e12,
-        share_of_3xtf32_bound=tf32_bound_ms / graph_ms,
-        share_of_f32_simt_bound=f32_bound_ms / graph_ms, **row)
+        tiling=tilings, **row)
     return row
 
 
@@ -689,7 +728,8 @@ def k3_phase(dev, card: str):
     # timing launches are not the main path's
     FK.fk_chain.launches = before
     row = dict(per_n[f"N{TENNIS_ENVS}"], max_abs_err=max(errs.values()), tol=tol,
-               library_ms=None)
+               library_ms=None, N15360={k: per_n[f"N{STAGE2_ENVS}"][k] for k in (
+                   "ms", "graph_ms", "warm_ms", "warm_graph_ms", "bound_ms", "share_of_bound")})
     say("K3", card=card, unit="one FK of N envs, 24 joints; ms / graph_ms cold (input and "
         "output sets over 4x the L2 taken in turn), warm_* one set again and again",
         errs=errs, builds=builds, library="none: no single PyTorch call computes FK",
@@ -701,12 +741,12 @@ def k3_phase(dev, card: str):
 # the tennis path's pieces
 # ---------------------------------------------------------------------------
 
-def _init_frames():
+def _init_frames(seed: int = 0):
     """64 synthetic MVAE init frames, as the CLI makes them without a trained
-    MVAE (seed 0, x0.05, root height 0.95)."""
+    MVAE (x0.05, root height 0.95; the CLI seeds player b's with seed + 1)."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     ft = (rng.standard_normal((64, 288)) * 0.05).astype(np.float32)
     ft[:, 2] = 0.95
     return ft
@@ -733,21 +773,58 @@ def _tennis_env(dev, env_cfg, hidden, experts, gen=None):
                      device=dev)
 
 
-def _tennis_draws(rng, n, horizon, mini_epochs, pool, k, num_actions, n_init=64):
-    """Explicit draws for a tennis epoch (discrete targets), so two devices
-    run the same epoch."""
+def _dual_env(dev, env_cfg, hidden, experts, gen=None):
+    """The nadal_federer pairing on `dev`: lane 0 a left-handed nadal MVAE
+    (seed 0) with the two-hand backhand, lane 1 a federer MVAE (seed 1), each
+    with its own 64 init frames and random full-width pi_low (seeds 0, 1)
+    -> DualTennisEnv."""
+    import dataclasses
+
+    import torch
+
+    from vid2player3d_torch.envs import DualTennisEnv
+    from vid2player3d_torch.learn import FrozenImitator
+    from vid2player3d_torch.learn import running_norm as RN
+    from vid2player3d_torch.learn.networks import ImitatorNet
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    specs = (dataclasses.replace(P.make_random_spec(0, player="nadal", hidden=hidden,
+                                                    experts=experts, device=dev),
+                                 righthand=False),
+             P.make_random_spec(1, player="federer", hidden=hidden, experts=experts, device=dev))
+    pi_low = [FrozenImitator(net=ImitatorNet(num_actions=75,
+                                             generator=torch.Generator().manual_seed(s)).to(dev),
+                             obs_norm=RN.RunningNormState.create(734, dev)) for s in (0, 1)]
+    if gen is None:
+        gen = TennisBallGenerator(num_candidates=4096, seed=0, device=dev)
+    return DualTennisEnv(env_cfg, specs, (_init_frames(0), _init_frames(1)), ball_generator=gen,
+                         pi_low=pi_low[0], pi_low_b=pi_low[1], two_hand_lanes=(True, False),
+                         device=dev)
+
+
+def _tennis_draws(rng, n, horizon, mini_epochs, pool, k, num_actions, n_init=64, dual=False):
+    """Explicit draws for a tennis epoch (discrete targets; with `dual`,
+    continuous targets and the serve's uniforms), so two devices run the
+    same epoch."""
     import numpy as np
 
+    def target(m):
+        return rng.random((m, 3)) if dual else rng.random(m)
+
     def reset(m):
-        return {"init_idx": rng.integers(0, n_init, m), "root_xy_u": rng.random((m, 2)),
-                "ball_idx": rng.integers(0, pool, m), "target_u": rng.random(m),
-                "tt": rng.integers(-5, 5, m)}
+        d = {"init_idx": rng.integers(0, n_init, m), "root_xy_u": rng.random((m, 2)),
+             "ball_idx": rng.integers(0, pool, m), "target_u": target(m),
+             "tt": rng.integers(-5, 5, m)}
+        if dual:
+            d["serve_u"] = rng.random((m, 3))
+        return d
 
     win = max(1, pool // 8)
     env = [dict(reset=reset(k if 0 < k < n else n), rw_noise=rng.standard_normal((n, 32)),
                 ball_idx=rng.integers(0, pool, n),
                 near_jitter=rng.integers(-win // 2, win // 2 + 1, n),
-                target_u=rng.random(n), tt=rng.integers(-5, 5, n))
+                target_u=target(n), tt=rng.integers(-5, 5, n))
            for _ in range(horizon)]
     return reset(n), {"noise": rng.standard_normal((horizon, n, num_actions)).astype(np.float32),
                  "perms": np.stack([rng.permutation(n * horizon) for _ in range(mini_epochs)]),
@@ -918,14 +995,189 @@ def stage2_phase(dev, card: str, agent, ts):
 
 
 # ---------------------------------------------------------------------------
-# phase 11 (tennis part): where the tennis rollout's time goes
+# phase 11: a small dual-rally epoch on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def tennis_profile_phase(dev, card: str, agent, ts):
-    """A tennis rollout of horizon 2 at the main path's sizes, profiled after
-    the main path's warm-up: device busy and idle share, device events per env
-    step, the costliest kernels, K2's and K3's device share, and the share of
-    the estimate_out span (host wall and the device time of its kernels)."""
+def dual_parity_phase(dev):
+    """Two players (the left-handed lane with the two-hand backhand, its
+    rows started in a backhand so the fix applies), two policies; the
+    first place where a lane's strided rows reach K2 and K3 on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import moe_linear as MOE
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    n, t, mb, me = 8, 4, 8, 2
+    env_cfg = TennisConfig(num_envs=n, substeps=2, max_episode_length=40,
+                           reward_type="return_w_estimate", use_random_ball_target="continuous",
+                           ball_reaction_force=True, ball_body_contact=True, reset_candidates=0)
+    v2p_cfg = V2PConfig(horizon=t, minibatch_size=mb, mini_epochs=me, actor_units=(64, 32),
+                        critic_units=(64, 32), compute_dtype="f32", num_policies=2)
+    pool = TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
+    reset_draws, draws = _tennis_draws(np.random.default_rng(1), n, t, me, pool.pool_size, 0,
+                                       35, n_init=64, dual=True)
+    metrics = {}
+    for d in ("cpu", dev):
+        gen = TennisBallGenerator.from_arrays(pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                              pool.launch_vspin, device=d)
+        agent = V2PPPO(_dual_env(d, env_cfg, hidden=64, experts=3, gen=gen), v2p_cfg, seed=7,
+                       device=d)
+        ts = agent.init_state(reset_draws=reset_draws)
+        mvae = ts.env_state.mvae
+        swing = torch.where(agent.env.two_hand_mask, 2, mvae.swing_type).to(torch.int32)
+        ts.env_state = dataclasses.replace(ts.env_state,
+                                           mvae=dataclasses.replace(mvae, swing_type=swing))
+        before = (MOE.moe_linear.launches, FK.fk_chain.launches)
+        _, m = agent.train_epoch(ts, draws=draws)
+        if d != "cpu" and (MOE.moe_linear.launches - before[0] != 6 * t
+                           or FK.fk_chain.launches - before[1] != 2 * t):
+            fail("the dual parity epoch did not launch K2 and K3 on the card")
+        metrics[str(d)] = {k: float(v) for k, v in m.items()}
+    ref, got = metrics["cpu"], metrics[str(dev)]
+    worst = {}
+    for k in ref:
+        err = abs(got[k] - ref[k])
+        worst[k] = err
+        if not err <= PARITY_ATOL.get(k, 1e-5) + 1e-4 * abs(ref[k]):
+            fail(f"card and CPU dual epochs disagree on {k}: {got[k]} vs {ref[k]}")
+    say("dual_parity", envs=n, horizon=t, policies=2, metric_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dual rally (nadal_federer)
+# ---------------------------------------------------------------------------
+
+def dual_main_phase(dev, card: str):
+    import math
+
+    import torch
+
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    t0 = time.perf_counter()
+    # federer_train_stage_3's env with the dual changes of nadal_federer
+    env_cfg = TennisConfig(num_envs=DUAL_ENVS, substeps=6, max_episode_length=300,
+                           reward_type="return_w_estimate", use_random_ball_target="continuous",
+                           reset_reaction_nframes=70, reset_candidates=0,
+                           ball_reaction_force=True, ball_body_contact=True)
+    agent = V2PPPO(_dual_env(dev, env_cfg, hidden=256, experts=6), V2PConfig(
+        horizon=DUAL_HORIZON, minibatch_size=DUAL_MINIBATCH, mini_epochs=DUAL_MINI_EPOCHS,
+        learning_rate=1e-5, sigma_init=-2.9, bounds_loss_coef=10.0, num_policies=2),
+        seed=7, device=dev)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_per_epoch = agent.num_minibatches * DUAL_MINI_EPOCHS
+
+    # the rollout's share of each epoch, timed around the learner's own call
+    rollout_s = []
+    rollout = agent.rollout
+
+    def timed_rollout(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = rollout(*a, **kw)
+        torch.cuda.synchronize()
+        rollout_s.append(time.perf_counter() - t)
+        return out
+
+    agent.rollout = timed_rollout
+    torch.cuda.reset_peak_memory_stats()
+    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+    epoch_s, rows = [], []
+    try:
+        for _ in range(DUAL_EPOCHS):
+            t0 = time.perf_counter()
+            ts, m = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in m.items()})
+    finally:
+        agent.rollout = rollout
+    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
+    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # per env step: each lane's decode (3 layers: a prep and a GEMM each);
+    # K3 in the full masked reset and in the FK targets
+    env_steps = DUAL_EPOCHS * DUAL_HORIZON
+    if k2 != 6 * env_steps or k2_prep != 6 * env_steps:
+        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the dual path, expected "
+             f"{6 * env_steps} each")
+    if k3 != 2 * env_steps:
+        fail(f"K3 launched {k3} times on the dual path, expected {2 * env_steps}")
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"dual epoch {i}: non-finite metrics {bad}")
+        if r["grad_skip"] != 0.0:
+            fail(f"dual epoch {i}: grad_skip {r['grad_skip']}")
+    if int(ts.opt_state.count) != DUAL_EPOCHS * steps_per_epoch:
+        fail(f"optimizer count {int(ts.opt_state.count)}")
+    if any(v.shape[0] != 2 for v in ts.params.values()):
+        fail("the dual params are not stacked over two policies")
+
+    # the two-hand IK alone at full size, on the carried kinematic state with
+    # the left-handed lane's rows put into a backhand
+    env = agent.env
+    mvae = ts.env_state.mvae
+    import dataclasses
+
+    mvae = dataclasses.replace(mvae, swing_type=torch.where(env.two_hand_mask, 2,
+                                                            mvae.swing_type).to(torch.int32),
+                               phase_pred=torch.full_like(mvae.phase_pred, 3.0))
+    env._apply_two_hand(mvae)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        fixed = env._apply_two_hand(mvae)
+    torch.cuda.synchronize()
+    ik_ms = (time.perf_counter() - t0) / reps * 1e3
+    moved = float((fixed.joint_rotmat - mvae.joint_rotmat).abs().amax(dim=(1, 2, 3))[0::2].min())
+    if not (moved > 0.0 and bool(torch.isfinite(fixed.joint_rotmat).all())):
+        fail(f"the two-hand IK did not move every backhand row of the two-hand lane: {moved}")
+
+    keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
+            "done_rate", "reward_mean", "c_loss", "kl", "grad_skip", "est_bounce_in_rate")
+    per_step_ms = [r / DUAL_HORIZON * 1e3 for r in rollout_s]
+    say("dual_main", card=card, nvidia_smi=nvidia_smi(), config="nadal_federer",
+        envs=DUAL_ENVS, lanes=2, horizon=DUAL_HORIZON, substeps=6, minibatch=DUAL_MINIBATCH,
+        mini_epochs=DUAL_MINI_EPOCHS, epochs=DUAL_EPOCHS, cut="none",
+        compute_dtype=str(agent.compute_dtype), mvae="2 x (hidden 256, 6 experts, 288->290)",
+        two_hand_iters=env.cfg.two_hand_iters, ball_pool=env.gen.pool_size, setup_s=setup_s,
+        epoch_s=epoch_s, rollout_s=rollout_s, update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+        rollout_env_steps_per_s=[DUAL_ENVS * DUAL_HORIZON / r for r in rollout_s],
+        epoch_env_steps_per_s=[DUAL_ENVS * DUAL_HORIZON / e for e in epoch_s],
+        rollout_ms_per_env_step=per_step_ms, two_hand_ik_ms=ik_ms,
+        two_hand_ik_share_of_rollout_step=ik_ms / per_step_ms[-1],
+        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
+        k3_launches=k3, k1_launches=k1, peak_mem_gib=peak_gib,
+        metrics=[{k: r[k] for k in keep} for r in rows])
+    return agent, ts, {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
+
+
+# ---------------------------------------------------------------------------
+# phase 13 (tennis and dual parts): where a rollout's time goes
+# ---------------------------------------------------------------------------
+
+def rollout_profile_phase(name: str, card: str, agent, ts):
+    """A rollout of horizon 2 at a main path's sizes, profiled after that
+    path's warm-up: device busy and idle share, device events per env step,
+    the costliest kernels, K2's and K3's device share, and per span of
+    SPANS its host wall share and the device time of the kernels that ran
+    inside its device-side ranges."""
     import dataclasses
 
     import torch
@@ -953,24 +1205,24 @@ def tennis_profile_phase(dev, card: str, agent, ts):
     k2_s = sum(v for k, v in by_name.items()
                if "moe_linear_kernel" in k or "moe_split_w_kernel" in k)
     k3_s = sum(v for k, v in by_name.items() if "fk_chain_kernel" in k)
-    # the span's host wall time, and the device time of the kernels that ran
-    # inside its device-side ranges
-    est_wall = sum(e.cpu_time_total for e in prof.events()
-                   if e.name == "estimate_out" and e.device_type != torch.autograd.DeviceType.CUDA
-                   ) * 1e-6
-    spans = _device_spans(prof, "estimate_out")
-    est_dev = sum(e.time_range.elapsed_us() for e in evs
-                  if any(r.start <= e.time_range.start < r.end for r in spans)) * 1e-6
-    say("tennis_profile", card=card, envs=TENNIS_ENVS, horizon=horizon, wall_s=wall,
+    spans = {}
+    for span in SPANS:
+        span_wall = sum(e.cpu_time_total for e in prof.events()
+                        if e.name == span and e.device_type != torch.autograd.DeviceType.CUDA
+                        ) * 1e-6
+        ranges = _device_spans(prof, span)
+        span_dev = sum(e.time_range.elapsed_us() for e in evs
+                       if any(r.start <= e.time_range.start < r.end for r in ranges)) * 1e-6
+        spans[span] = dict(wall_share=span_wall / wall,
+                           device_share=span_dev / busy if busy and ranges else "not measured")
+    say(name, card=card, envs=agent.env.cfg.num_envs, horizon=horizon, wall_s=wall,
         wall_s_per_env_step=wall / horizon,
         device_busy_s=busy if evs else "not measured",
         device_idle_share=(1.0 - busy / wall) if evs else "not measured",
         device_events_per_env_step=len(evs) / horizon,
         k2_device_share=k2_s / busy if busy else "not measured",
         k3_device_share=k3_s / busy if busy else "not measured",
-        estimate_out_wall_share=est_wall / wall,
-        estimate_out_device_share=est_dev / busy if busy and spans else "not measured",
-        top_device_s={k[:60]: v for k, v in top})
+        spans=spans, top_device_s={k[:60]: v for k, v in top})
 
 
 def main() -> None:
@@ -1005,12 +1257,23 @@ def main() -> None:
     tennis_parity_phase(dev)
     agent, ts, tennis_launches = tennis_main_phase(dev, card)
     stage2_phase(dev, card, agent, ts)
+    dual_parity_phase(dev)
+    dual_agent, dual_ts, dual_launches = dual_main_phase(dev, card)
     profile_phase(dev, card)
-    tennis_profile_phase(dev, card, agent, ts)
+    rollout_profile_phase("tennis_profile", card, agent, ts)
+    rollout_profile_phase("dual_profile", card, dual_agent, dual_ts)
 
     b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
     k1_common = {"route": "cuda", "source": "vid2player3d_torch/csrc/fused_adam.cu",
                  "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
+    # K2 and K3 run on two main paths: the stage-1 tennis epochs and the dual
+    # rally's; `launches` is the dual path's (this slice's), each path's count
+    # beside it
+    def per_path(name):
+        return {"launches": dual_launches[name],
+                "launches_per_path": {"tennis_stage1": tennis_launches[name],
+                                      "dual_rally": dual_launches[name]}}
+
     kernels = [
         {"name": "fused_adam_norm", **k1_common, "launches": k1_launches["norm"],
          "max_abs_err": b16["scalar_rel_err"], "ms": b16["norm"], "plain_ms": b16["plain_norm"],
@@ -1034,27 +1297,31 @@ def main() -> None:
         {"name": "moe_split_w", "route": "cuda",
          "source": "vid2player3d_torch/csrc/moe_linear.cu",
          "replaces": "vid2player3d_tpu/ops/moe_linear.py:71",
-         "launches": tennis_launches["moe_split_w"], "max_abs_err": k2["split_max_abs_err"],
+         **per_path("moe_split_w"), "max_abs_err": k2["split_max_abs_err"],
          "ms": k2["split_ms"], "plain_ms": k2["plain_split_ms"], "bound_ms": k2["split_bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "unit": "K2's prep: the TF32 split of the decoder's three W and biases, transposed",
          "graph_ms": k2["split_graph_ms"], "plain_graph_ms": k2["plain_split_graph_ms"]},
         {"name": "moe_linear", "route": "cuda", "source": "vid2player3d_torch/csrc/moe_linear.cu",
          "replaces": "vid2player3d_tpu/ops/moe_linear.py:71",
-         "launches": tennis_launches["moe_linear"],
+         **per_path("moe_linear"),
          **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240; bound: 3xTF32",
+         "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240, and per_lane_B7680 "
+                 "one lane's decode in the dual rally; bound: 3xTF32",
+         "per_lane_B7680": k2["per_lane_B7680"],
          "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
          "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
          "backward_max_abs_err": k2["backward_max_abs_err"]},
         {"name": "fk_chain", "route": "cuda", "source": "vid2player3d_torch/csrc/fk_chain.cu",
          "replaces": "vid2player3d_tpu/ops/fk.py:77",
-         "launches": tennis_launches["fk_chain"],
+         **per_path("fk_chain"),
          **{k: k3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "unit": "one FK at N=10240; ms and graph_ms with cold inputs (sets over 4x the L2 "
-                 "in turn), warm_ms and warm_graph_ms one set again and again",
+         "unit": "one FK at N=10240 (N15360: the dual rally's and stage 2's); ms and graph_ms "
+                 "with cold inputs (sets over 4x the L2 in turn), warm_ms and warm_graph_ms one "
+                 "set again and again",
+         "N15360": k3["N15360"],
          "graph_ms": k3["graph_ms"], "warm_ms": k3["warm_ms"],
          "warm_graph_ms": k3["warm_graph_ms"], "plain_graph_ms": k3["plain_graph_ms"],
          "host_ms_per_call": k3["host_ms_per_call"], "share_of_bound": k3["share_of_bound"]},

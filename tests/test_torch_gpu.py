@@ -1,6 +1,7 @@
 """The port's kernels (K1 fused clip+Adam: norm and multi-tensor update; K2
 moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
-versions on the card.
+versions on the card; and the dual rally's step and two-hand IK on the card
+against the same on the CPU, with K2's and K3's launches per dual step.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -168,7 +169,7 @@ def _moe_inputs(dev, batch, d_in, d_out, experts=6, seed=0):
 
 
 @pytest.mark.parametrize("layer", MOE_LAYERS, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("batch", (1, 255, 10240))
+@pytest.mark.parametrize("batch", (1, 255, 7680, 10240))
 def test_k2_kernel_matches_plain(cuda, batch, layer):
     """Kernel against the plain apply-then-blend version, one prep and one
     GEMM launch per call. Both sum ~2000 products per output (|out| ~ 3) in
@@ -370,3 +371,115 @@ def test_k3_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         FK.fk_chain(rot, off, root, (-1,) + (5,) * 23)
     assert FK.fk_chain.launches == before
+
+
+# -- the dual rally ---------------------------------------------------------------
+
+def _dual_env(dev, n):
+    """A small nadal_federer pairing on `dev` (the same seeded weights on
+    every device): a left-handed two-hand lane and a right-handed one."""
+    import dataclasses
+
+    import numpy as np
+
+    from vid2player3d_torch.envs import DualTennisEnv, TennisConfig
+    from vid2player3d_torch.learn import FrozenImitator
+    from vid2player3d_torch.learn import running_norm as RN
+    from vid2player3d_torch.learn.networks import ImitatorNet
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    specs = (dataclasses.replace(P.make_random_spec(0, player="nadal", hidden=32, experts=2,
+                                                    device=dev), righthand=False),
+             P.make_random_spec(1, player="federer", hidden=32, experts=2, device=dev))
+    frames = []
+    for seed in (0, 1):
+        f = (np.random.default_rng(seed).standard_normal((8, P.FRAME_SIZE)) * 0.05
+             ).astype(np.float32)
+        f[:, 2] = 0.95
+        frames.append(f)
+    pool = TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
+    gen = TennisBallGenerator.from_arrays(pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                          pool.launch_vspin, device=dev)
+    pi_low = [FrozenImitator(net=ImitatorNet(num_actions=75,
+                                             generator=torch.Generator().manual_seed(s)).to(dev),
+                             obs_norm=RN.RunningNormState.create(734, dev)) for s in (0, 1)]
+    cfg = TennisConfig(num_envs=n, substeps=2, max_episode_length=40,
+                       reward_type="return_w_estimate", ball_reaction_force=True,
+                       ball_body_contact=True, reset_candidates=0)
+    return DualTennisEnv(cfg, specs, frames, ball_generator=gen, pi_low=pi_low[0],
+                         pi_low_b=pi_low[1], two_hand_lanes=(True, False), device=dev)
+
+
+def _dual_draws(rng, n, pool):
+    def reset():
+        return {"init_idx": rng.integers(0, 8, n), "root_xy_u": rng.random((n, 2)),
+                "ball_idx": rng.integers(0, pool, n), "target_u": rng.random((n, 3)),
+                "tt": rng.integers(-5, 5, n), "serve_u": rng.random((n, 3))}
+
+    return reset(), [dict(reset=reset(), rw_noise=rng.standard_normal((n, 32)),
+                          target_u=rng.random((n, 3)), tt=rng.integers(-5, 5, n))
+                     for _ in range(3)]
+
+
+def test_dual_steps_match_cpu_and_launch_k2_k3(cuda):
+    """A dual reset and three steps (8 envs; the left-handed lane's rows
+    start in a backhand, so the two-hand fix applies) on the card against
+    the same on the CPU with the same draws and actions: every discrete
+    output exact, obs and rewards to 1e-3 (another order of float sums
+    through the stiff physics; the CPU port holds the JAX package at 1e-4).
+    Each dual step launches K2 6 times (a prep and a GEMM per layer, a
+    decode per lane) of each kind and K3 twice (the full masked reset and
+    the FK targets)."""
+    import dataclasses
+
+    import numpy as np
+
+    n = 8
+    outs = {}
+    for dev in ("cpu", cuda):
+        env = _dual_env(dev, n)
+        rng = np.random.default_rng(0)
+        reset, steps = _dual_draws(rng, n, env.gen.pool_size)
+        state, _ = env.reset_all(reset)
+        state = dataclasses.replace(state, mvae=dataclasses.replace(
+            state.mvae, swing_type=torch.where(env.two_hand_mask, 2, state.mvae.swing_type
+                                               ).to(torch.int32)))
+        acts = rng.standard_normal((3, n, env.num_actions)).astype(np.float32) * 0.5
+        got = []
+        for k in range(3):
+            before = (MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches)
+            with torch.no_grad():
+                state, out = env.step(state, torch.tensor(acts[k], device=dev), steps[k])
+            launched = (MOE.moe_linear.launches - before[0],
+                        MOE.split_weights.launches - before[1], FK.fk_chain.launches - before[2])
+            if torch.device(dev).type == "cuda":
+                assert launched == (6, 6, 2), launched
+            got.append({f: getattr(out, f).cpu().numpy() for f in
+                        ("obs", "reward", "done", "terminate")})
+        outs[str(dev)] = got
+    for k, (a, b) in enumerate(zip(outs["cpu"], outs[str(cuda)])):
+        for f in ("done", "terminate"):
+            np.testing.assert_array_equal(b[f], a[f], err_msg=f"step {k} {f}")
+        for f in ("obs", "reward"):
+            np.testing.assert_allclose(b[f], a[f], atol=1e-3, err_msg=f"step {k} {f}")
+
+
+def test_two_hand_ik_matches_cpu(cuda):
+    """The two-hand IK (8 Adam steps) on 256 seeded poses on the card
+    against the CPU: 1e-4."""
+    import numpy as np
+
+    from vid2player3d_torch.core import rot as R
+    from vid2player3d_torch.tennis import twohand as TH
+
+    rng = np.random.default_rng(1)
+    aa = torch.tensor(rng.standard_normal((256, 24, 3)).astype(np.float32) * 0.4)
+    rest = torch.tensor(np.cumsum(rng.standard_normal((256, 24, 3)) * 0.1, axis=1)
+                        .astype(np.float32))
+    rm = R.angle_axis_to_rotmat(aa)
+    mask = torch.tensor(rng.random(256) < 0.5)
+    want = TH.optimize_two_hand_backhand(rm, rest, righthand=False, iters=8, mask=mask)
+    got = TH.optimize_two_hand_backhand(rm.to(cuda), rest.to(cuda), righthand=False, iters=8,
+                                        mask=mask.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)

@@ -15,7 +15,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
-from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv, TennisConfig, TennisEnv
+from vid2player3d_torch.envs import (DualTennisEnv, HumanoidImConfig, HumanoidImEnv,
+                                      TennisConfig, TennisEnv)
 from vid2player3d_torch.learn import FrozenImitator, ImitationPPO, PPOConfig, V2PConfig, V2PPPO
 from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
@@ -163,31 +164,56 @@ def test_tennis_entry_points_need_a_device_without_cuda():
                                  critic_units=(8,)), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [{"num_policies": 2}, {"mesh": object()},
-                                {"minibatch_per_chip": True}],
+@pytest.mark.parametrize("kw,error", [({"num_policies": 0}, ValueError),
+                                      ({"mesh": object()}, NotImplementedError),
+                                      ({"minibatch_per_chip": True}, NotImplementedError)],
                          ids=["num_policies", "mesh", "minibatch_per_chip"])
-def test_v2p_unported_options_raise(kw):
-    """Lane-routed policies, a mesh and per-chip minibatches are not ported:
-    asking for any of them raises."""
+def test_v2p_unported_options_raise(kw, error):
+    """A mesh and per-chip minibatches are not ported: asking for either
+    raises. Lane-routed policies are: two build stacked params, fewer than
+    one raises."""
     _, _, _, env = _tennis_env()
     cfg_kw = {k: v for k, v in kw.items() if k != "mesh"}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, **cfg_kw), mesh=kw.get("mesh"),
                device="cpu")
+    agent = V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, num_policies=2, actor_units=(8,),
+                                  critic_units=(8,)), device="cpu")
+    assert all(v.shape[0] == 2 for v in agent._initial_params().values())
 
 
 def test_tennis_unported_options_raise():
-    """Domain randomization, the two-hand backhand, dual rallies and the
-    native ball backend are not ported: asking for them raises."""
+    """Domain randomization and the native ball backend are not ported:
+    asking for them raises. The two-hand backhand and one spec per lane
+    build."""
     spec, feats, gen, _ = _tennis_env()
-    for kw in ({"rand_specs": (object(),)}, {"two_hand_backhand": True}):
-        with pytest.raises(NotImplementedError):
-            _tennis_env(**kw)
     with pytest.raises(NotImplementedError):
-        TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen,
-                  device="cpu")
+        _tennis_env(rand_specs=(object(),))
+    assert _tennis_env(two_hand_backhand=True)[3].any_two_hand
+    TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen, device="cpu")
     with pytest.raises(NotImplementedError):
         TennisBallGenerator(num_candidates=16, backend="native", device="cpu")
+
+
+def test_dual_entry_points_need_a_device_without_cuda():
+    """With no CUDA device, `DualTennisEnv` and `V2PPPO(num_policies=2)`
+    called without `device=` raise instead of running on the CPU; the dual
+    env also raises on an odd env count and on candidate resets."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points default to it")
+    spec, feats, gen, _ = _tennis_env()
+    cfg = TennisConfig(num_envs=2, substeps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DualTennisEnv(cfg, (spec, spec), (feats, feats), ball_generator=gen)
+    env = DualTennisEnv(cfg, (spec, spec), (feats, feats), ball_generator=gen, device="cpu")
+    v2p = V2PConfig(horizon=4, minibatch_size=8, num_policies=2, actor_units=(8,),
+                    critic_units=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V2PPPO(env, v2p)
+    assert V2PPPO(env, v2p, device="cpu").device.type == "cpu"
+    for bad in (TennisConfig(num_envs=3), TennisConfig(num_envs=4, reset_candidates=2)):
+        with pytest.raises(ValueError):
+            DualTennisEnv(bad, (spec, spec), (feats, feats), ball_generator=gen, device="cpu")
 
 
 def test_k2_k3_wrappers_raise_on_cuda_tensor_without_card():

@@ -247,16 +247,25 @@ def test_candidate_reset_reaction_and_contact_step_matches(configs):
 
 
 def test_unported_tennis_options_raise(configs):
-    """Domain randomization, the two-hand backhand and dual rallies (one
-    spec per lane) are not ported: asking for them raises."""
+    """Domain randomization is not ported: asking for it raises. The two-hand
+    backhand and one spec per lane now build (their parity is in
+    tests/test_torch_twohand.py and tests/test_torch_dual.py); lanes that do
+    not divide the envs, or init sets that do not match the lanes, raise."""
     shared, _ = configs
     jspec, feats, jgen, _, _ = shared
     spec = _port_spec(jspec)
     gen = CK.ball_pool_from_jax(jgen, device="cpu")
-    for kw in ({"rand_specs": (object(),)}, {"two_hand_backhand": True}):
-        with pytest.raises(NotImplementedError):
-            TennisEnv(TennisConfig(num_envs=2, **kw), spec, feats, ball_generator=gen,
-                      device="cpu")
     with pytest.raises(NotImplementedError):
-        TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen,
+        TennisEnv(TennisConfig(num_envs=2, rand_specs=(object(),)), spec, feats,
+                  ball_generator=gen, device="cpu")
+    assert TennisEnv(TennisConfig(num_envs=2, two_hand_backhand=True), spec, feats,
+                     ball_generator=gen, device="cpu").any_two_hand
+    env = TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen,
+                    device="cpu")
+    assert env.two_hand_mask.tolist() == [False, False]
+    with pytest.raises(ValueError):
+        TennisEnv(TennisConfig(num_envs=3), (spec, spec), feats, ball_generator=gen,
+                  device="cpu")
+    with pytest.raises(ValueError):
+        TennisEnv(TennisConfig(num_envs=2), (spec, spec), (feats,), ball_generator=gen,
                   device="cpu")

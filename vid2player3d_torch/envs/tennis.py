@@ -1,4 +1,4 @@
-"""Hierarchical single-player tennis environment (PyTorch counterpart of
+"""Hierarchical tennis environment (PyTorch counterpart of
 ``vid2player3d_tpu/envs/tennis.py``).
 
 One `step(state, action) -> (state, StepOutput)` runs, over all envs at once:
@@ -13,18 +13,30 @@ Frame conventions: court z-up, net at y=0, player on y<0. Kinematic (MVAE)
 joint rotations are SMPL-order local rotmats; the physics humanoid is the
 24-body articulation of the imitation env (MuJoCo joint order).
 
+Lanes: `spec`, `init_conditions` and the frozen low-level policies may be one
+player's or one per lane (dual rallies pair two player identities; the lane
+of env i is i % lanes). Every handedness-dependent constant (wrist, hands,
+grip, welded racket mass, two-hand flag) is a per-env array taken from the
+env's lane; the MVAE decodes each lane's rows (a static stride) with that
+lane's spec, and the lanes interleave again. The two-hand backhand
+(`tennis/twohand.py`) pulls the free hand onto the racket handle on backhand
+frames of the lanes that have it. `DualTennisEnv` (``envs/tennis_dual.py``)
+overrides the hooks `_init_tar_action`, `_post_reset`, `_reaction_trigger`,
+`_reaction_ball` and `_couple_done`.
+
 Randomness: the env owns a `torch.Generator` seeded by `seed`. `reset_all`
 and `step` take `draws=` in place of its draws, so a test can feed the JAX
 package's draws:
-- reset: `init_idx` (N,) init-condition rows, `root_xy_u` (N, 2) uniforms,
-  `ball_idx` (N,) pool rows, `target_u` (N,) or (N, 3) uniforms, `tt` (N,)
-  ints in [-5, 5);
+- reset: `init_idx` (N,) init-condition rows (of the env's lane's set),
+  `root_xy_u` (N, 2) uniforms, `ball_idx` (N,) pool rows, `target_u` (N,)
+  or (N, 3) uniforms, `tt` (N,) ints in [-5, 5); the dual env adds
+  `serve_u` (N, 3) uniforms;
 - step: `reset` (the reset draws of the masked reset, for K candidates or N
   envs), `rw_noise` (N, latents) normals, `ball_idx`, `near_jitter` (N,),
   `target_u`, `tt`.
 
-Not ported yet (they raise): dual rallies (a tuple of lane specs), domain
-randomization (`rand_specs`), the two-hand backhand and mesh sharding.
+Not ported yet (they raise): domain randomization (`rand_specs`) and mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from ..physics.model import ArticulationModel, ArticulationState, ContactParams
 from ..tennis import ball as B
 from ..tennis import court
 from ..tennis import player as P
+from ..tennis import twohand
 from ..tennis.racket import grip_arrays
 from ..utils.runtime import as_draw, resolve_device
 from .obs import compute_imitation_obs
@@ -64,7 +77,10 @@ class TennisConfig:
     vae_action_scale: float = 1.5
     random_walk_in_recovery: bool = True
     fix_head_orientation: bool = False   # look at the ball
-    two_hand_backhand: bool = False      # not ported yet: must stay False
+    # two-hand backhand: pull the free hand onto the racket handle on
+    # backhand frames, a fixed number of IK Adam steps inside the step
+    two_hand_backhand: bool = False
+    two_hand_iters: int = 8
     # initial ball: "pool" launches from the trajectory pool; "serve_toss"
     # synthesizes the serve toss from the free hand
     init_ball_type: str = "pool"
@@ -156,14 +172,15 @@ class StepOutput:
     extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
-def _zip_envs(fn, a, b):
-    """fn(a_field, b_field) over every per-env tensor of two states (nested
-    dataclasses included): every field of TennisState, MVAEPlayerState and
-    ArticulationState has the env axis first, so none is kept by shape."""
-    return type(a)(**{
-        f.name: (_zip_envs(fn, x, y) if dataclasses.is_dataclass(x) else fn(x, y))
-        for f in dataclasses.fields(a)
-        for x, y in ((getattr(a, f.name), getattr(b, f.name)),)})
+def _zip_envs(fn, *states):
+    """fn(field of each state) over every per-env tensor of one or more
+    states (nested dataclasses included): every field of TennisState,
+    MVAEPlayerState and ArticulationState has the env axis first, so none is
+    kept by shape."""
+    return type(states[0])(**{
+        f.name: (_zip_envs(fn, *xs) if dataclasses.is_dataclass(xs[0]) else fn(*xs))
+        for f in dataclasses.fields(states[0])
+        for xs in ([getattr(st, f.name) for st in states],)})
 
 
 def _rows_where(mask, new, old):
@@ -175,22 +192,33 @@ class TennisEnv:
     frozen low-level policy) on one device; `reset_all` and `step` are
     functions of the state."""
 
-    def __init__(self, cfg: TennisConfig, spec: P.MVAEPlayerSpec, init_conditions,
+    def __init__(self, cfg: TennisConfig, spec, init_conditions,
                  ball_generator: Optional[B.TennisBallGenerator] = None,
                  smpl_model: Optional[S.SMPLModel] = None,
                  betas: Optional[np.ndarray] = None,
                  pi_low: Optional[Callable] = None,
+                 pi_low_b: Optional[Callable] = None,
+                 two_hand_lanes: Optional[Tuple[bool, ...]] = None,
                  contact_params: ContactParams = ContactParams(),
                  seed: int = 0, device=None):
-        if isinstance(spec, (tuple, list)):
-            raise NotImplementedError("dual rallies (one spec per lane) are not ported yet")
+        """`spec` and `init_conditions` are one player's, or tuples with one
+        per lane (init sets of different sizes are trimmed to the smallest).
+        `pi_low_b` is the second lane's frozen low-level policy (else lane 1
+        uses `pi_low` too); `two_hand_lanes` the per-lane two-hand flags
+        (else `cfg.two_hand_backhand` for every lane)."""
         if cfg.rand_specs:
             raise NotImplementedError("domain randomization is not ported yet")
-        if cfg.two_hand_backhand:
-            raise NotImplementedError("the two-hand backhand is not ported yet")
+        specs = tuple(spec) if isinstance(spec, (tuple, list)) else (spec,)
+        if cfg.num_envs % len(specs):
+            raise ValueError(f"{cfg.num_envs} envs do not split into {len(specs)} lanes")
+        self._lane_specs = specs
+        self._lane_two_hand = (tuple(bool(t) for t in two_hand_lanes) if two_hand_lanes is not None
+                               else (cfg.two_hand_backhand,) * len(specs))
+        if len(self._lane_two_hand) != len(specs):
+            raise ValueError(f"{len(self._lane_two_hand)} two-hand flags for {len(specs)} lanes")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.spec = spec
+        self.spec = specs[0]
         self.smpl = smpl_model if smpl_model is not None else S.make_synthetic_smpl()
         N = cfg.num_envs
         if betas is None:
@@ -201,6 +229,15 @@ class TennisEnv:
         self.motion_bodies = torch.cat(
             [torch.zeros((N, 1)), torch.as_tensor(np.asarray(betas, np.float32))],
             dim=-1).to(self.device)
+        if isinstance(init_conditions, (tuple, list)):
+            if len(init_conditions) != len(specs):
+                raise ValueError(f"{len(init_conditions)} init sets for {len(specs)} lanes")
+            k = min(np.asarray(c).shape[0] for c in init_conditions)
+            init_conditions = np.concatenate([np.asarray(c, np.float32)[:k]
+                                              for c in init_conditions], axis=0)
+        else:
+            k = np.asarray(init_conditions).shape[0]
+        self._init_per_lane = k
         self.init_conditions = torch.as_tensor(np.asarray(init_conditions, np.float32),
                                                device=self.device)
         self.gen = ball_generator or B.TennisBallGenerator(
@@ -219,6 +256,7 @@ class TennisEnv:
             self._sync_flight = float(first[has].mean()) if has.any() \
                 else float(cfg.reset_reaction_nframes)
         self.pi_low = pi_low
+        self.pi_low_b = pi_low_b
         self.contact_params = contact_params
         self.ball_params = B.BallParams()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -234,26 +272,86 @@ class TennisEnv:
         self._candidates = None
 
     def _bind_lane_arrays(self):
-        """Handedness-dependent per-env arrays: wrist / hand / free-hand body
-        ids and the grip frame."""
-        N, dev = self.cfg.num_envs, self.device
+        """Handedness-dependent per-env arrays from each env's lane spec:
+        wrist / hand / free-hand body ids, the grip frame (left-handers get
+        the mirrored `lefthand_semi_western` grip) and the two-hand flag."""
+        dev = self.device
         names = S.MUJOCO_JOINT_NAMES
-        rh = bool(self.spec.righthand)
-        side, other = ("R", "L") if rh else ("L", "R")
+        lane = np.arange(self.cfg.num_envs) % len(self._lane_specs)
+        rh = np.array([bool(s.righthand) for s in self._lane_specs])[lane]
 
-        def ids(name):
-            return torch.full((N,), names.index(name), dtype=torch.long, device=dev)
+        def ids(right_name, left_name):
+            return torch.as_tensor(np.where(rh, names.index(right_name), names.index(left_name)),
+                                   dtype=torch.long, device=dev)
 
-        self.wrist_id = ids(f"{side}_Wrist")
-        self.hand_id = ids(f"{side}_Hand")
-        self.free_hand_id = ids(f"{other}_Hand")
+        self.righthand = torch.as_tensor(rh, device=dev)
+        self.wrist_id = ids("R_Wrist", "L_Wrist")
+        self.hand_id = ids("R_Hand", "L_Hand")
+        self.free_hand_id = ids("L_Hand", "R_Hand")
         right, left = grip_arrays("eastern"), grip_arrays("lefthand_semi_western")
         # reach and head radius are grip-independent scalars
         self.racket_reach = right[2]
         self.racket_head_radius = right[3]
-        g = right if rh else left
-        self.racket_dir_c = torch.as_tensor(np.tile(g[0], (N, 1)), device=dev)
-        self.racket_normal_c = torch.as_tensor(np.tile(g[1], (N, 1)), device=dev)
+        self.racket_dir_c = torch.as_tensor(np.where(rh[:, None], right[0], left[0]), device=dev)
+        self.racket_normal_c = torch.as_tensor(np.where(rh[:, None], right[1], left[1]),
+                                               device=dev)
+        self.two_hand_mask = torch.as_tensor(np.asarray(self._lane_two_hand)[lane], device=dev)
+        self.any_two_hand = any(self._lane_two_hand)
+
+    # -- lanes: env rows of lane l are the static stride l::lanes ---------------
+
+    def _lane_rows(self, l: int) -> slice:
+        L = len(self._lane_specs)
+        return slice(None) if L == 1 else slice(l, None, L)
+
+    def _interleave_lanes(self, parts):
+        """Inverse of the per-lane stride split: parts[l] holds lane l's rows
+        (tensors or state dataclasses); stacking on a new axis 1 and
+        flattening restores the env order (lanes alternate)."""
+        if len(parts) == 1:
+            return parts[0]
+
+        def merge(*xs):
+            return torch.stack(xs, dim=1).reshape((-1,) + xs[0].shape[1:])
+
+        return _zip_envs(merge, *parts) if dataclasses.is_dataclass(parts[0]) else merge(*parts)
+
+    def _lane_init_conditions(self, l: int):
+        K = self._init_per_lane
+        if self.init_conditions.shape[0] == K:
+            return self.init_conditions          # one set shared by every lane
+        return self.init_conditions[l * K:(l + 1) * K]
+
+    def _mvae_step(self, mvae: P.MVAEPlayerState, latents, residual) -> P.MVAEPlayerState:
+        """One kinematic frame, each lane decoded by its own spec."""
+        parts = []
+        for l, sp in enumerate(self._lane_specs):
+            r = self._lane_rows(l)
+            parts.append(P.step(sp, _zip_envs(lambda x: x[r], mvae), latents[r],
+                                None if residual is None else residual[r]))
+        return self._interleave_lanes(parts)
+
+    def _mvae_reset(self, draws, root_xy) -> P.MVAEPlayerState:
+        """MVAE init states from each lane's init frames; `init_idx` (N,)
+        indexes the set of the env's lane."""
+        idx = as_draw(draws["init_idx"], torch.long, self.device) \
+            if draws is not None and "init_idx" in draws else None
+        parts = []
+        for l, sp in enumerate(self._lane_specs):
+            r = self._lane_rows(l)
+            n = root_xy[r].shape[0]
+            i = idx[r] if idx is not None else torch.randint(
+                0, self._init_per_lane, (n,), generator=self.generator, device=self.device)
+            parts.append(P.reset(sp, self._lane_init_conditions(l)[i], root_xy=root_xy[r]))
+        return self._interleave_lanes(parts)
+
+    def _apply_pi_low(self, low_obs):
+        """The frozen low-level policy; with a second one bound, lane 1's rows
+        go through it."""
+        if self.pi_low_b is None or len(self._lane_specs) == 1:
+            return self.pi_low(low_obs)
+        return self._interleave_lanes([self.pi_low(low_obs[0::2]),
+                                       self.pi_low_b(low_obs[1::2])])
 
     def _weld_racket_mass(self, model: ArticulationModel) -> ArticulationModel:
         """Fold the racket's mass and inertia into each env's racket-hand
@@ -304,6 +402,17 @@ class TennisEnv:
         """(N, 24, 3) parent-relative rest offsets, MuJoCo order."""
         return self.model.joint_pos
 
+    @property
+    def rest_joints_smpl(self):
+        """(N, 24, 3) global rest joint positions, SMPL order: the rest pose
+        of the two-hand IK."""
+        off = self.model.joint_pos
+        g = [torch.zeros_like(off[:, 0])]
+        for j in range(1, 24):
+            g.append(g[int(self.model.parents[j])] + off[:, j])
+        return torch.stack(g, dim=1)[:, torch.as_tensor(S.MUJOCO_2_SMPL, dtype=torch.long,
+                                                        device=off.device)]
+
     # -- random draws ----------------------------------------------------------
 
     def _rand(self, draws, name, shape):
@@ -352,6 +461,20 @@ class TennisEnv:
         joint_rotmat[:, self._NECK] = new_rm[:, 1]
         return dataclasses.replace(mvae, joint_rotmat=joint_rotmat)
 
+    def _apply_two_hand(self, mvae: P.MVAEPlayerState) -> P.MVAEPlayerState:
+        """Two-hand backhand on the backhand frames (swing type 2, phase in
+        (2, 5)) of the lanes with the flag: one IK per racket hand among
+        them, over all rows, masked to that hand's rows."""
+        mask = ((mvae.swing_type == 2) & (mvae.phase_pred > 2.0) & (mvae.phase_pred < 5.0)
+                & self.two_hand_mask)
+        rm = mvae.joint_rotmat
+        hands = {bool(sp.righthand) for sp, th in zip(self._lane_specs, self._lane_two_hand) if th}
+        for rh in sorted(hands):
+            rm = twohand.optimize_two_hand_backhand(
+                rm, self.rest_joints_smpl, righthand=rh, iters=self.cfg.two_hand_iters,
+                mask=mask & (self.righthand == rh))
+        return dataclasses.replace(mvae, joint_rotmat=rm)
+
     def _kinematic_targets(self, mvae: P.MVAEPlayerState, res_root=None):
         """MVAE SMPL-order local rotmats -> PD dof targets (69, MuJoCo order)
         + target body pos/rot for the low-level obs, the FK through K3.
@@ -391,11 +514,26 @@ class TennisEnv:
         hi = torch.tensor(cfg.target_bounce_max, device=self.device)
         return self._rand(draws, "target_u", (n, 3)) * (hi - lo) + lo
 
-    def _reaction_trigger(self, state: TennisState, tar_time):
+    def _init_tar_action(self, N) -> torch.Tensor:
+        """Initial task-machine role per env (1 reaction); the dual env starts
+        its odd lanes in recovery, awaiting the serve's return."""
+        return torch.ones(N, dtype=torch.int32, device=self.device)
+
+    def _post_reset(self, state: TennisState, draws=None) -> TennisState:
+        """Post-process a fresh reset state (the dual env synthesizes the
+        serve here)."""
+        return state
+
+    def _couple_done(self, terminate, done):
+        """Rally coupling: the dual env ends both paired envs together."""
+        return terminate, done
+
+    def _reaction_trigger(self, state: TennisState, tar_time, contact_now):
         """When a recovery env flips back to reaction: the timed window
         `tar_time == tar_time_total`, or with `cfg.sync_launch` held until
         the swing phase meets the pool's launch-to-strike flight time
-        (forced after `sync_max_wait` frames)."""
+        (forced after `sync_max_wait` frames). The dual env: the partner's
+        contact."""
         cfg = self.cfg
         if not cfg.sync_launch:
             return tar_time == state.tar_time_total
@@ -406,10 +544,12 @@ class TennisEnv:
         forced = tar_time >= state.tar_time_total + cfg.sync_max_wait
         return (timed & gate) | forced
 
-    def _reaction_ball(self, state: TennisState, draws):
+    def _reaction_ball(self, state: TennisState, draws, ball_state13, reaction_mask):
         """Incoming ball for envs entering reaction: a pool sample, or, when
         the last rally ball ended on the far side (y > 0), a launch near
-        where it landed."""
+        where it landed. Returns (traj, pos, vel, vspin, ok); `ok` marks
+        hand-offs that clear the net (always true for pool samples; the dual
+        env's mirrored partner ball can be netted)."""
         N = self.cfg.num_envs
         traj, lpos, lvel, lspin = self.gen.sample(N, self.generator,
                                                   idx=None if draws is None
@@ -419,7 +559,8 @@ class TennisEnv:
             jitter=None if draws is None else draws.get("near_jitter"))
         other = state.ball_pos[:, 1] > 0.0
         return (_rows_where(other, n_traj, traj), _rows_where(other, n_pos, lpos),
-                _rows_where(other, n_vel, lvel), torch.where(other, n_spin, lspin))
+                _rows_where(other, n_vel, lvel), torch.where(other, n_spin, lspin),
+                torch.ones(N, dtype=torch.bool, device=self.device))
 
     def reset_all(self, draws: Optional[Dict] = None) -> Tuple[TennisState, torch.Tensor]:
         """A fresh state for every env: an MVAE init frame with its root near
@@ -430,8 +571,7 @@ class TennisEnv:
         u_xy = self._rand(draws, "root_xy_u", (N, 2))
         root_xy = (u_xy - 0.5) * torch.tensor([2.0, 1.5], device=dev) \
             + torch.tensor([0.0, -13.0], device=dev)
-        idx = self._randint(draws, "init_idx", 0, self.init_conditions.shape[0], N)
-        mvae = P.reset(self.spec, self.init_conditions[idx], root_xy=root_xy)
+        mvae = self._mvae_reset(draws, root_xy)
 
         # physics humanoid snapped to the kinematic pose
         dof_tar, body_pos, body_rot = self._kinematic_targets(mvae)
@@ -456,7 +596,7 @@ class TennisEnv:
             ball_pos=lpos, ball_vel=lvel, ball_vspin=lspin, ball_traj=traj,
             racket_pos=racket_pos, racket_vel=z3, racket_normal=racket_normal,
             racket_impulse=z3,
-            tar_action=torch.ones(N, dtype=torch.int32, device=dev),
+            tar_action=self._init_tar_action(N),
             tar_time=zi, tar_time_total=tt.to(torch.int32),
             target_bounce=self._sample_target(draws, N),
             has_contact=zb, has_bounce=zb, bounce_pos=z3, bounce_in=zb,
@@ -464,6 +604,7 @@ class TennisEnv:
             est_bounce_time=torch.zeros(N, device=dev), est_bounce_in=zb,
             est_max_height=torch.zeros(N, device=dev),
             progress=zi, reset_buf=zi, terminate_buf=zi)
+        state = self._post_reset(state, draws)
         return state, self._obs(state)
 
     def _masked_env_reset(self, state: TennisState, draws=None) -> TennisState:
@@ -492,7 +633,8 @@ class TennisEnv:
             f.name: getattr(self.model, f.name)[:K] for f in dataclasses.fields(self.model)
             if f.init and isinstance(getattr(self.model, f.name), torch.Tensor)})
         env.motion_bodies = self.motion_bodies[:K]
-        for f in ("wrist_id", "hand_id", "free_hand_id", "racket_dir_c", "racket_normal_c"):
+        for f in ("righthand", "wrist_id", "hand_id", "free_hand_id", "racket_dir_c",
+                  "racket_normal_c", "two_hand_mask"):
             setattr(env, f, getattr(self, f)[:K])
         env._candidates = None
         return env
@@ -689,7 +831,8 @@ class TennisEnv:
         rows = torch.arange(N, device=dev)
 
         # 1) masked reset of done envs (start of step)
-        state = self._masked_env_reset(state, None if draws is None else draws.get("reset"))
+        with torch.autograd.profiler.record_function("masked_reset"):
+            state = self._masked_env_reset(state, None if draws is None else draws.get("reset"))
 
         # 2) action split + recovery random-walk latents
         latents = action[:, :cfg.num_latents] * cfg.vae_action_scale
@@ -706,10 +849,14 @@ class TennisEnv:
         res_root = action[:, n_res:n_res + 3] * cfg.residual_root_scale \
             if cfg.add_residual_root else None
 
-        # 3) kinematic MVAE frame (+ optional look-at-ball head fix)
-        mvae = P.step(self.spec, state.mvae, latents, residual)
+        # 3) kinematic MVAE frame (+ optional look-at-ball head fix and
+        # two-hand backhand)
+        mvae = self._mvae_step(state.mvae, latents, residual)
         if cfg.fix_head_orientation:
             mvae = self._fix_head_orientation(mvae, state.ball_pos)
+        if self.any_two_hand:
+            with torch.autograd.profiler.record_function("two_hand"):
+                mvae = self._apply_two_hand(mvae)
         dof_tar, tar_body_pos, tar_body_rot = self._kinematic_targets(mvae, res_root)
 
         # 4) frozen low-level policy: a residual around the kinematic target,
@@ -721,7 +868,7 @@ class TennisEnv:
         root_force = root_torque = None
         if self.pi_low is not None:
             low_obs = self._low_level_obs(state.sim, dof_tar, tar_body_pos, tar_body_rot, fk_prev)
-            low_act = self.pi_low(low_obs)
+            low_act = self._apply_pi_low(low_obs)
             pd_tar = dof_tar + low_act[:, :69]
             if low_act.shape[-1] >= 75:
                 heading_q = Q.calc_heading_quat(Q.remove_base_rot(state.sim.root_quat))
@@ -772,9 +919,7 @@ class TennisEnv:
             bounce_now
             & (bpos[:, 0] > court.COURT_MIN[0]) & (bpos[:, 0] < court.COURT_MAX[0])
             & (bpos[:, 1] > court.COURT_MIN[1]) & (bpos[:, 1] < court.COURT_MAX[1]))
-        quat_id = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(N, 4)
-        ball_state13 = torch.cat([ball_pos, quat_id, ball_vel,
-                                  B.spin_vector(ball_vel, ball_vspin)], dim=-1)
+        ball_state13 = B.pack_state(ball_pos, ball_vel, ball_vspin)
         with torch.autograd.profiler.record_function("estimate_out"):
             valid, ebp, ebt, emh = B.estimate_out(ball_state13, num_frames=90,
                                                   p=self.ball_params)
@@ -826,16 +971,21 @@ class TennisEnv:
         in_reaction = new_state.tar_action == 1   # pre-transition role
         ball_passed = (ball_pos[:, 1] < root_pos[:, 1] - 1.0) & in_reaction
         reset_recovery = in_reaction & (contact | ball_passed)
-        reset_reaction = self._reaction_trigger(new_state, tar_time)
+        reset_reaction = self._reaction_trigger(new_state, tar_time, contact_now)
 
-        traj_new, lpos, lvel, lspin = self._reaction_ball(new_state, draws)
+        # incoming ball for reaction transitions; `handoff_ok` ends netted
+        # dual hand-offs
+        traj_new, lpos, lvel, lspin, handoff_ok = self._reaction_ball(
+            new_state, draws, ball_state13, reset_reaction)
 
         if cfg.enable_early_termination:
             terminate = terminate | (reset_recovery & ~contact) | ball_passed
             if cfg.reward_type.startswith("return_w_estimate"):
                 terminate = terminate | (contact & ~est_bounce_in)
+        terminate = terminate | (reset_reaction & ~handoff_ok)
 
         done = terminate | (progress >= cfg.max_episode_length - 1)
+        terminate, done = self._couple_done(terminate, done)
         reset_reaction = reset_reaction & ~done
         reset_recovery = reset_recovery & ~done
 

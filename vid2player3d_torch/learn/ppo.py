@@ -166,17 +166,10 @@ class ImitationPPO:
 
         flat = CK.load_npz(path)
         ts = self.init_state(CK.params_from_jax(flat))
-        mu, nu, count = CK.adam_state_from_jax(flat)
-        names = list(ts.params)
-        ts.opt_state = AdamState(
-            count=torch.as_tensor(count, dtype=torch.int32, device=self.device),
-            mu=[torch.as_tensor(mu[k], device=self.device).to(self.compute_dtype) for k in names],
-            nu=[torch.as_tensor(nu[k], device=self.device).to(self.compute_dtype) for k in names])
-        ts.obs_norm = CK.running_norm_from_jax(flat, "obs_norm", self.device)
-        ts.val_norm = CK.running_norm_from_jax(flat, "val_norm", self.device)
-        ts.epoch = int(flat["epoch"])
+        ts.opt_state, ts.obs_norm, ts.val_norm, ts.epoch, lr = CK.learner_state_from_jax(
+            flat, list(ts.params), self.device, self.compute_dtype)
         if self.cfg.lr_schedule == "adaptive":
-            ts.lr = torch.tensor(float(flat["lr"]), device=self.device)
+            ts.lr = torch.tensor(lr, device=self.device)
         return ts
 
     # -- policy forward -------------------------------------------------------

@@ -10,15 +10,24 @@ Differences from `ImitationPPO`, as in the JAX learner:
   update whose gradient has any non-finite element is skipped (params and
   Adam state unchanged), counted in the `grad_skip` metric
 - the optimizer is the optax-chain Adam (``learn/optim.py``), not K1
+- dual rallies (`num_policies=2`): one network per player identity, routed
+  by env lane (env i is lane i % num_policies). The params are stacked
+  leaves with a leading policy axis, so the optimizer sees one tree and
+  clips by one global norm over all policies. Every policy evaluates the
+  whole batch and each sample keeps its own lane's output (twice the
+  forward, static shapes, and exactly zero gradient into the other
+  policy); the lane travels with each sample through GAE, the permutation
+  and the loss. The obs normalizer and sigma are shared.
 
 One `train_epoch` = horizon rollout → next-value bootstrap → GAE →
 mini_epochs × minibatches. The draws (action noise, minibatch permutations,
 the env's per-step draws) come from generators, or from `draws=` so a test
 can feed the JAX learner's.
 
-Not ported yet (they raise): several policies routed by lane
-(`num_policies > 1`), device meshes and per-chip minibatches. The stage
-checkpoint load/save waits for the port's checkpoint writer.
+`load_checkpoint` reads a JAX-package `V2PPPO.save_checkpoint` `.npz`
+(stacked leaves included). Not ported yet (they raise): device meshes and
+per-chip minibatches. The stage checkpoint surgery and the writer wait for
+the port's checkpoint writer.
 """
 
 from __future__ import annotations
@@ -50,7 +59,8 @@ class V2PConfig(PPOConfig):
     aux_dof_res_coef: float = 0.0
     actor_units: Tuple[int, ...] = (1024, 512)
     critic_units: Tuple[int, ...] = (1024, 512)
-    num_policies: int = 1      # not ported yet: must stay 1
+    # dual rallies: one network per player identity, routed by env lane
+    num_policies: int = 1
 
 
 @dataclasses.dataclass
@@ -94,10 +104,10 @@ class V2PPPO:
 
     def __init__(self, env: TennisEnv, cfg: V2PConfig = V2PConfig(), seed: int = 7,
                  mesh=None, device=None):
-        if cfg.num_policies > 1 or mesh is not None or cfg.minibatch_per_chip:
-            raise NotImplementedError(
-                "several lane-routed policies, device meshes and per-chip minibatches "
-                "are not ported yet")
+        if mesh is not None or cfg.minibatch_per_chip:
+            raise NotImplementedError("device meshes and per-chip minibatches are not ported yet")
+        if cfg.num_policies < 1:
+            raise ValueError(f"num_policies {cfg.num_policies}")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, learner on {self.device}")
@@ -107,10 +117,16 @@ class V2PPPO:
         self.num_actions = env.num_actions
         self.obs_dim = env.obs_dim
         self.compute_dtype = resolve_compute_dtype(cfg.compute_dtype, self.device)
-        self.net = V2PNet(num_actions=self.num_actions, obs_dim=self.obs_dim,
-                          actor_units=cfg.actor_units, critic_units=cfg.critic_units,
-                          dtype=self.compute_dtype,
-                          generator=torch.Generator().manual_seed(seed)).to(self.device)
+        # one network per policy from one seeded generator, in turn; `net`
+        # (the first) is the module the stacked params are called through
+        gen = torch.Generator().manual_seed(seed)
+        self.nets = [V2PNet(num_actions=self.num_actions, obs_dim=self.obs_dim,
+                            actor_units=cfg.actor_units, critic_units=cfg.critic_units,
+                            dtype=self.compute_dtype, generator=gen).to(self.device)
+                     for _ in range(cfg.num_policies)]
+        self.net = self.nets[0]
+        self.num_policies = cfg.num_policies
+        self._lane = torch.arange(env.cfg.num_envs, device=self.device) % self.num_policies
         self.sigma = torch.full((self.num_actions,), float(np.exp(cfg.sigma_init)),
                                 device=self.device)
         nbatch = env.cfg.num_envs * cfg.horizon
@@ -118,12 +134,24 @@ class V2PPPO:
             raise ValueError(f"batch {nbatch} not divisible by minibatch {cfg.minibatch_size}")
         self.num_minibatches = nbatch // cfg.minibatch_size
 
+    def _initial_params(self) -> Dict[str, torch.Tensor]:
+        if self.num_policies == 1:
+            return dict(self.net.named_parameters())
+        named = [dict(n.named_parameters()) for n in self.nets]
+        return {k: torch.stack([d[k] for d in named]) for k in named[0]}
+
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None,
                    reset_draws: Optional[Dict] = None) -> V2PTrainState:
-        """A fresh train state: the network's initial params unless `params`
-        is given, and a reset of every env (from the env's generator unless
+        """A fresh train state: the networks' initial params unless `params`
+        is given (with num_policies > 1, leaves stacked on a leading policy
+        axis), and a reset of every env (from the env's generator unless
         `reset_draws` is given)."""
-        src = params if params is not None else dict(self.net.named_parameters())
+        src = params if params is not None else self._initial_params()
+        if self.num_policies > 1:
+            bad = [k for k, v in src.items() if v.shape[0] != self.num_policies]
+            if bad:
+                raise ValueError(f"params {bad} lack the leading axis of {self.num_policies} "
+                                 "policies")
         params = {k: v.detach().to(self.device, torch.float32).clone().requires_grad_(True)
                   for k, v in src.items()}
         env_state, obs = self.env.reset_all(reset_draws)
@@ -136,11 +164,40 @@ class V2PPPO:
             generator=torch.Generator(self.device).manual_seed(self.seed),
             epoch=0, lr=torch.tensor(self.cfg.learning_rate, device=self.device))
 
+    def load_checkpoint(self, path: str, reset_draws: Optional[Dict] = None) -> V2PTrainState:
+        """Train state from a JAX-package `V2PPPO.save_checkpoint` `.npz`
+        (params, Adam state, running stats, epoch, and lr under the adaptive
+        schedule); with num_policies > 1 its leaves carry the policy axis.
+        The env state is a fresh reset."""
+        from ..utils import checkpoint as CK
+
+        flat = CK.load_npz(path)
+        ts = self.init_state(CK.params_from_jax(flat), reset_draws)
+        ts.opt_state, ts.obs_norm, ts.val_norm, ts.epoch, lr = CK.learner_state_from_jax(
+            flat, list(ts.params), self.device, self.compute_dtype)
+        if self.cfg.lr_schedule == "adaptive":
+            ts.lr = torch.tensor(lr, device=self.device)
+        return ts
+
     # -- forward ----------------------------------------------------------------
 
-    def _forward(self, params, obs_norm, obs):
+    def _apply(self, params, obs_n, lane):
+        """(mu, value). With several policies every one evaluates the whole
+        batch and each sample keeps its lane's output."""
+        if self.num_policies == 1:
+            return functional_call(self.net, params, (obs_n,))
+        outs = [functional_call(self.net, {k: v[p] for k, v in params.items()}, (obs_n,))
+                for p in range(self.num_policies)]
+        mu, value = outs[0]
+        for p in range(1, self.num_policies):
+            sel = lane == p
+            mu = torch.where(sel[:, None], outs[p][0], mu)
+            value = torch.where(sel, outs[p][1], value)
+        return mu, value
+
+    def _forward(self, params, obs_norm, obs, lane=None):
         obs_n = RN.normalize(obs_norm, obs, self.cfg.obs_clip)
-        return functional_call(self.net, params, (obs_n,))
+        return self._apply(params, obs_n, self._lane if lane is None else lane)
 
     def _value(self, ts: V2PTrainState, v_norm):
         if not self.cfg.normalize_value:
@@ -210,7 +267,7 @@ class V2PPPO:
 
     def _loss(self, params, mb, obs_norm):
         cfg = self.cfg
-        mu, v_norm = self._forward(params, obs_norm, mb["obs"])
+        mu, v_norm = self._forward(params, obs_norm, mb["obs"], mb["lane"])
         sigma = self.sigma[None]
         neglogp = diag_gaussian_neglogp(mb["action"], mu, sigma)
         ratio = torch.exp(mb["old_neglogp"] - neglogp)
@@ -271,7 +328,8 @@ class V2PPPO:
         if cfg.normalize_advantage:
             adv_f = (adv_f - adv_f.mean()) / (adv_f.std(unbiased=False) + 1e-8)
         batch_all = dict(obs=obs_f, action=flat(traj["action"]), old_mu=flat(traj["mu"]),
-                         old_neglogp=flat(traj["neglogp"]), adv=adv_f, return_norm=ret_norm_f)
+                         old_neglogp=flat(traj["neglogp"]), adv=adv_f, return_norm=ret_norm_f,
+                         lane=flat(self._lane[None].expand(T, N)))
 
         lr = ts.lr
         if cfg.lr_schedule == "linear":

@@ -1,1 +1,2 @@
-"""Tennis pieces of the hierarchical task: court, racket, ball, MVAE player."""
+"""Tennis pieces of the hierarchical task: court, racket, ball, MVAE player,
+two-hand backhand IK."""

@@ -11,8 +11,9 @@ positive topspin; its world angular-velocity vector is
 
 The pool generator draws its candidate launches from a `torch.Generator`
 seeded by `seed` (on the CPU, so every device gets the same pool), and
-`from_arrays` loads a pool made elsewhere. The native C++ backend and the
-dual-play `estimate_in` are not ported yet.
+`from_arrays` loads a pool made elsewhere. `estimate_in` is the dual-play
+hand-off: the opponent's outgoing ball mirrored through the net. The native
+C++ backend is not ported yet.
 """
 
 from __future__ import annotations
@@ -296,6 +297,14 @@ def _state_to_launch(ball_states):
     return pos, vel, vspin * sign
 
 
+def pack_state(pos, vel, vspin):
+    """(pos, vel, signed vspin) -> the 13-float ball state (pos3, identity
+    quat xyzw, lin3, ang3)."""
+    quat = torch.zeros(pos.shape[:-1] + (4,), dtype=pos.dtype, device=pos.device)
+    quat[..., 3] = 1.0
+    return torch.cat([pos, quat, vel, spin_vector(vel, vspin)], dim=-1)
+
+
 def estimate_out(ball_states, num_frames: int = 120, substeps: int = 1,
                  p: BallParams = DEFAULT_PARAMS):
     """Outgoing-bounce estimate from post-contact ball states (N,13), by
@@ -313,3 +322,16 @@ def estimate_out(ball_states, num_frames: int = 120, substeps: int = 1,
     bounce_time = torch.where(ok, res.bounce_time, 0.0)
     max_height = torch.amax(res.traj[..., 2], dim=-1)
     return valid, bounce_pos, bounce_time, max_height
+
+
+def estimate_in(ball_states, traj_length: int = 100, p: BallParams = DEFAULT_PARAMS):
+    """Dual-play hand-off: the opponent's outgoing 13-float ball states (N,13)
+    mirrored through the net (x and y negated, positions and velocities) into
+    this court's frame, and flown into the full incoming 30 Hz trajectory.
+    Returns (traj (N,T,3), ball_states_in, ball_states_out), the last two
+    packed again from (pos, vel, signed vspin)."""
+    pos, vel, vspin = _state_to_launch(ball_states)
+    mir = torch.tensor([-1.0, -1.0, 1.0], dtype=pos.dtype, device=pos.device)
+    pos_in, vel_in = pos * mir, vel * mir
+    res = simulate_flight(pos_in, vel_in, vspin, num_frames=traj_length, p=p)
+    return res.traj, pack_state(pos_in, vel_in, vspin), pack_state(pos, vel, vspin)

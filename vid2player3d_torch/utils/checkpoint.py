@@ -7,7 +7,9 @@ The JAX package saves a pytree to one `.npz` with slash-joined key paths
 
 The flax tree maps onto the port's `ActorCritic` state dict:
 `actor_mlp/Dense_{0,1,2}` → `actor_mlp.{0,1,2}`, `mu`, `critic_mlp/...`,
-`value`; a Dense kernel (in, out) is a Linear weight (out, in). The MVAE's
+`value`; a Dense kernel (in, out) is a Linear weight (out, in). A
+`V2PPPO(num_policies=2)` tree stacks every leaf (and its Adam moments) on a
+leading policy axis, which the port's stacked params keep. The MVAE's
 flax tree, a JAX `TennisState` and a JAX ball pool map onto the port's
 `PoseMixtureVAE`, `TennisState` and `TennisBallGenerator`. Load only: the
 port writes no checkpoints of its own yet.
@@ -54,7 +56,10 @@ def _tree_to_state_dict(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, t
         if named is None:
             continue
         name, is_kernel = named
-        arr = np.array(arr.T if is_kernel else arr, dtype=np.float32, order="C")
+        # a kernel (..., in, out) becomes a weight (..., out, in); a leading
+        # axis is the policy axis of stacked dual-rally params
+        arr = np.array(np.swapaxes(arr, -1, -2) if is_kernel else arr, dtype=np.float32,
+                       order="C")
         out[name] = torch.from_numpy(arr)
     return out
 
@@ -74,6 +79,21 @@ def adam_state_from_jax(flat: Dict[str, np.ndarray], prefix: str = "opt_state/1/
     mu = _tree_to_state_dict(flat, prefix + "mu/")
     nu = _tree_to_state_dict(flat, prefix + "nu/")
     return mu, nu, int(flat[prefix + "count"])
+
+
+def learner_state_from_jax(flat: Dict[str, np.ndarray], names, device, moment_dtype):
+    """What a JAX learner checkpoint holds beside its params: (AdamState with
+    the moments in `names` order as `moment_dtype`, obs_norm, val_norm,
+    epoch, lr)."""
+    from ..learn.optim import AdamState
+
+    mu, nu, count = adam_state_from_jax(flat)
+    opt = AdamState(count=torch.as_tensor(count, dtype=torch.int32, device=device),
+                    mu=[mu[k].to(device, moment_dtype) for k in names],
+                    nu=[nu[k].to(device, moment_dtype) for k in names])
+    return (opt, running_norm_from_jax(flat, "obs_norm", device),
+            running_norm_from_jax(flat, "val_norm", device), int(flat["epoch"]),
+            float(flat["lr"]))
 
 
 def running_norm_from_jax(flat: Dict[str, np.ndarray], name: str, device="cpu"
