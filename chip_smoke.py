@@ -39,8 +39,8 @@ Phases, each printing one line (any failed phase exits non-zero):
   7. main     the imitation path at full width: synthetic motion lib (8
               motions x 300 frames) -> HumanoidImEnv (4096 envs, 2 substeps)
               -> ImitationPPO (horizon 32, minibatch 512, 6 mini-epochs,
-              fused_optimizer="on"), two `train_epoch`s, K1's two launch
-              counters set to 0 just before and read just after
+              fused_optimizer="on"), one `train_epoch` (cut from two), K1's
+              two launch counters set to 0 just before and read just after
   8. tennis parity  a small tennis epoch (4 envs, horizon 4, f32) on the card
               against the same epoch on the CPU with the same draws
   9. tennis main    the tennis path at federer_train_stage_1's sizes: random
@@ -48,9 +48,9 @@ Phases, each printing one line (any failed phase exits non-zero):
               (734->1024->1024->512->75), a 4096-candidate ball pool,
               TennisEnv (10,240 envs, 2 substeps, reach reward, 256 candidate
               resets) -> V2PPPO (horizon 64, minibatch 16,384, 6 mini-epochs:
-              240 optimizer steps per epoch), two `train_epoch`s, the K2 (prep
-              and GEMM) and K3 launch counters set to 0 just before and read
-              just after
+              240 optimizer steps per epoch), one `train_epoch` (cut from
+              two), the K2 (prep and GEMM) and K3 launch counters set to 0
+              just before and read just after
   10. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
               envs, 6 substeps, wrist reaction force, ball-body contact,
               return_w_estimate) with the same networks; K3's counter set to
@@ -67,15 +67,33 @@ Phases, each printing one line (any failed phase exits non-zero):
               left-handed with the two-hand backhand, federer) and two random
               full-width pi_low -> V2PPPO(num_policies=2) (horizon 32,
               minibatch 16,384, 6 mini-epochs: 180 optimizer steps per epoch,
-              lr 1e-5, sigma_init -2.9), two `train_epoch`s, the K2 and K3
+              lr 1e-5, sigma_init -2.9), one `train_epoch` (cut from two), the K2 and K3
               launch counters set to 0 just before and read just after; the
               two-hand IK's time per step at full size
-  13. profile torch.profiler over a short imitation epoch, a short tennis
+  13. dr parity  a small amass_im_dr imitation epoch (4 envs, f32, from epoch
+              300 so the scheduled noise is on) and a small
+              federer_train_stage_1_dr tennis epoch (8 envs, test widths) on
+              the card against the CPU with the same draws
+  14. ctx parity  a small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on
+              the card against the CPU, and the context IK alone at B = 512
+              (outputs and the gradient into the heads)
+  15. im dr main    amass_im_dr at phase 7's sizes, two epochs: K1's launches,
+              each epoch's perturbed model against the base, the schedule's
+              strength per epoch
+  16. im ctx main   amass_im_corrupt at phase 7's sizes, two epochs (24
+              leaves): K1's launches, finite auxiliary losses, the context
+              IK's ms per rollout step and per optimizer step and its host
+              syncs
+  17. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
+              the federer MVAE width), two epochs: K2's and K3's launches,
+              grad_skip 0, each epoch's ball constants
+  18. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and a short dual rollout: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  14. kernels one JSON line over the ported kernels
+  19. kernels one JSON line over the ported kernels, each kernel's launches
+              on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository around it: with no card, or run from
@@ -99,7 +117,10 @@ HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12)
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 tensor cores, dense
 
-NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 2
+# the imitation phases' sizes; `main` runs one epoch (cut from two to keep the
+# whole run inside its time limit on slow hosts), slice 4's imitation phases two
+NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 1
+SLICE4_EPOCHS = 2
 K1_CHECK_STEPS = 4
 # record_function spans on the main paths (the dual env's serve runs inside
 # the masked reset)
@@ -146,6 +167,25 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _timed_rollouts(agent):
+    """Wrap `agent.rollout` to time each call on a synchronized host clock;
+    returns (the list it appends to, a function that unwraps it)."""
+    import torch
+
+    times, rollout = [], agent.rollout
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = rollout(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    agent.rollout = timed
+    return times, lambda: setattr(agent, "rollout", rollout)
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +440,8 @@ def main_phase(dev, card: str):
         fail("rollout obs not finite")
 
     say("main", card=card, envs=NUM_ENVS, horizon=HORIZON, substeps=SUBSTEPS,
-        minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS, epochs=EPOCHS, cut="none",
+        minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS, epochs=EPOCHS,
+        cut="8192 -> 4096 envs; 1 epoch",
         compute_dtype=str(agent.compute_dtype), n_params=sum(p.numel() for p in ts.params.values()),
         setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
         rollout_env_steps_per_s=NUM_ENVS * HORIZON / rollout_s,
@@ -486,9 +527,10 @@ def profile_phase(dev, card: str):
 MOE_LAYERS = ((320, 256), (288, 256), (288, 290))   # the decoder at full width
 MOE_EXPERTS = 6
 TENNIS_ENVS, TENNIS_HORIZON, TENNIS_MINIBATCH, TENNIS_MINI_EPOCHS = 10240, 64, 16384, 6
-TENNIS_EPOCHS = 2
+TENNIS_EPOCHS = 1   # `tennis_main`, cut from two; `tennis_dr_main` runs SLICE4_EPOCHS
 STAGE2_ENVS, STAGE2_STEPS = 15360, 8
-DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 2
+# `dual_main` runs one epoch (cut from two, as `main` and `tennis_main`)
+DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 1
 LANE_DECODE = DUAL_ENVS // 2    # the dual rally decodes each lane's rows on their own
 KERNEL_TIMED = 50
 
@@ -940,7 +982,7 @@ def tennis_main_phase(dev, card: str):
             "done_rate", "reward_mean", "c_loss", "kl", "grad_skip")
     say("tennis_main", card=card, nvidia_smi=nvidia_smi(), envs=TENNIS_ENVS,
         horizon=TENNIS_HORIZON, substeps=2, minibatch=TENNIS_MINIBATCH,
-        mini_epochs=TENNIS_MINI_EPOCHS, epochs=TENNIS_EPOCHS, cut="none",
+        mini_epochs=TENNIS_MINI_EPOCHS, epochs=TENNIS_EPOCHS, cut="1 epoch",
         compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts, 288->290",
         ball_pool=agent.env.gen.pool_size, setup_s=setup_s, epoch_s=epoch_s,
         rollout_s=rollout_s, rollout_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / rollout_s,
@@ -1080,18 +1122,7 @@ def dual_main_phase(dev, card: str):
     steps_per_epoch = agent.num_minibatches * DUAL_MINI_EPOCHS
 
     # the rollout's share of each epoch, timed around the learner's own call
-    rollout_s = []
-    rollout = agent.rollout
-
-    def timed_rollout(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = rollout(*a, **kw)
-        torch.cuda.synchronize()
-        rollout_s.append(time.perf_counter() - t)
-        return out
-
-    agent.rollout = timed_rollout
+    rollout_s, unwrap = _timed_rollouts(agent)
     torch.cuda.reset_peak_memory_stats()
     MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
     FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
@@ -1104,7 +1135,7 @@ def dual_main_phase(dev, card: str):
             epoch_s.append(time.perf_counter() - t0)
             rows.append({k: float(v) for k, v in m.items()})
     finally:
-        agent.rollout = rollout
+        unwrap()
     k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
     k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1154,7 +1185,7 @@ def dual_main_phase(dev, card: str):
     per_step_ms = [r / DUAL_HORIZON * 1e3 for r in rollout_s]
     say("dual_main", card=card, nvidia_smi=nvidia_smi(), config="nadal_federer",
         envs=DUAL_ENVS, lanes=2, horizon=DUAL_HORIZON, substeps=6, minibatch=DUAL_MINIBATCH,
-        mini_epochs=DUAL_MINI_EPOCHS, epochs=DUAL_EPOCHS, cut="none",
+        mini_epochs=DUAL_MINI_EPOCHS, epochs=DUAL_EPOCHS, cut="1 epoch",
         compute_dtype=str(agent.compute_dtype), mvae="2 x (hidden 256, 6 experts, 288->290)",
         two_hand_iters=env.cfg.two_hand_iters, ball_pool=env.gen.pool_size, setup_s=setup_s,
         epoch_s=epoch_s, rollout_s=rollout_s, update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
@@ -1169,7 +1200,417 @@ def dual_main_phase(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 13 (tennis and dual parts): where a rollout's time goes
+# phases 13-17: domain randomization and the context IK (slice 4)
+# ---------------------------------------------------------------------------
+
+def _imitation_draws(rng, agent, n, t, me):
+    """Explicit draws for a small imitation epoch, those of the env's
+    randomization and corruption included, so two devices run the same
+    epoch."""
+    import numpy as np
+
+    env, a = agent.env, agent.num_actions
+    draws = {"motion_times": (rng.random(n) * 0.8).astype(np.float32),
+             "noise": rng.standard_normal((t, n, a)).astype(np.float32),
+             "perms": np.stack([rng.permutation(n * t) for _ in range(me)])}
+    dr = env.randomizer
+    if dr is not None:
+        draws["dr_model"] = [rng.random(n) for _ in dr.model_specs]
+        draws["dr_act"] = [[rng.standard_normal((n, a)) for _ in dr.act_specs] for _ in range(t)]
+        draws["dr_obs"] = [[rng.standard_normal((n, env.obs_dim)) for _ in dr.obs_specs]
+                           for _ in range(t)]
+    if env.cfg.transform_specs is not None:
+        shape = (n, env.cfg.context_length + 2 * env.cfg.context_padding, 24)
+        draws["corrupt"] = {"sel_u": rng.random(shape), "noise": rng.standard_normal(shape + (3,)),
+                            "drop_u": rng.random(shape)}
+    return draws
+
+
+def _small_imitation_epoch(dev, name, epoch, draws_seed, n=4, t=4, mb=8, me=2):
+    """One small f32 epoch of a named imitation configuration on `dev` from
+    `epoch` (the schedule step is epoch·horizon); (metrics, the agent, K1's
+    launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import ImitationPPO
+    from vid2player3d_torch.ops import fused_adam as FA
+
+    env_cfg, ppo_cfg = preset(name, num_envs=n, substeps=2)
+    env = HumanoidImEnv(env_cfg, make_synthetic_motion_lib(num_motions=2, T=60, seed=0, device=dev),
+                        motion_ids=np.array([0, 1, 1, 0]), device=dev)
+    agent = ImitationPPO(env, dataclasses.replace(ppo_cfg, horizon=t, minibatch_size=mb,
+                                                  mini_epochs=me, compute_dtype="f32",
+                                                  fused_optimizer="on"), seed=7, device=dev)
+    ts = agent.init_state()
+    ts.epoch = epoch
+    draws = _imitation_draws(np.random.default_rng(draws_seed), agent, n, t, me)
+    before = FA.leaf_update.launches + FA.global_norm_scalars.launches
+    _, m = agent.train_epoch(ts, draws=draws)
+    launched = FA.leaf_update.launches + FA.global_norm_scalars.launches - before
+    return {k: float(v) for k, v in m.items()}, agent, launched
+
+
+def _compare(phase, ref, got, what):
+    worst = {}
+    for k in ref:
+        err = abs(got[k] - ref[k])
+        worst[k] = err
+        if not err <= PARITY_ATOL.get(k, 1e-5) + 1e-4 * abs(ref[k]):
+            fail(f"{phase}: card and CPU {what} disagree on {k}: {got[k]} vs {ref[k]}")
+    return worst
+
+
+def dr_parity_phase(dev):
+    """A small amass_im_dr imitation epoch (4 envs, f32, the config's four
+    specs, from epoch 300 so the scheduled noise is on) and a small
+    federer_train_stage_1_dr tennis epoch (8 envs, test widths, the config's
+    four specs, from epoch 400) on the card against the CPU with the same
+    draws."""
+    import dataclasses
+
+    import numpy as np
+
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    im = {}
+    for d in ("cpu", dev):
+        m, agent, launched = _small_imitation_epoch(d, "amass_im_dr", 300, 2)
+        if d != "cpu" and launched != 2 * 4:
+            fail(f"dr_parity: K1 launched {launched} times in 4 optimizer steps")
+        im[str(d)] = m
+    im_err = _compare("dr_parity", im["cpu"], im[str(dev)], "DR imitation epochs")
+
+    n, t, mb, me, epoch = 8, 4, 8, 2, 400
+    env_cfg, _ = preset("federer_train_stage_1_dr", num_envs=n, max_episode_length=40,
+                        reset_reaction_nframes=6, reset_candidates=2)
+    v2p_cfg = V2PConfig(horizon=t, minibatch_size=mb, mini_epochs=me, actor_units=(64, 32),
+                        critic_units=(64, 32), compute_dtype="f32")
+    pool = TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    reset_draws, draws = _tennis_draws(rng, n, t, me, pool.pool_size, 2, 35, n_init=64)
+    draws.update(dr_ball=[rng.random(), rng.random()],
+                 dr_act=[[rng.standard_normal((n, 35))] for _ in range(t)],
+                 dr_obs=[[rng.standard_normal((n, 257))] for _ in range(t)])
+    tennis, balls = {}, {}
+    for d in ("cpu", dev):
+        gen = TennisBallGenerator.from_arrays(pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                              pool.launch_vspin, device=d)
+        agent = V2PPPO(_tennis_env(d, dataclasses.replace(env_cfg, substeps=2), hidden=64,
+                                   experts=3, gen=gen), v2p_cfg, seed=7, device=d)
+        ts = agent.init_state(reset_draws=reset_draws)
+        ts.epoch = epoch
+        _, m = agent.train_epoch(ts, draws=draws)
+        tennis[str(d)] = {k: float(v) for k, v in m.items()}
+        balls[str(d)] = [float(v) for v in agent.last_env.ball_params]
+    if not (np.allclose(balls["cpu"], balls[str(dev)], rtol=1e-6, atol=0.0)
+            and balls["cpu"] != [float(v) for v in agent.env.ball_params]):
+        fail(f"dr_parity: ball constants {balls}")
+    tennis_err = _compare("dr_parity", tennis["cpu"], tennis[str(dev)], "DR tennis epochs")
+    say("dr_parity", imitation=dict(config="amass_im_dr", envs=4, horizon=4, epoch=300,
+                                    metric_abs_err=im_err),
+        tennis=dict(config="federer_train_stage_1_dr", envs=n, horizon=t, epoch=epoch,
+                    ball_params=balls[str(dev)], metric_abs_err=tennis_err))
+
+
+def _ik_case(b, seed=0):
+    """Seeded moderate poses (the SMPL FK of random angle-axis), the rest
+    pose and random twist / leaf residuals, on the CPU."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.core import rot as R
+    from vid2player3d_torch.core import smpl as S
+
+    rng = np.random.default_rng(seed)
+    rest = S.rest_joints(S.make_synthetic_smpl(), torch.zeros(b, 10))
+    aa = torch.tensor(rng.uniform(-0.4, 0.4, (b, 24, 3)).astype(np.float32))
+    posed, _ = S.batch_rigid_transform(R.angle_axis_to_rotmat(aa), rest)
+    return (posed, rest, torch.tensor(0.1 * rng.standard_normal((b, 46)).astype(np.float32)),
+            torch.tensor(0.1 * rng.standard_normal((b, 30)).astype(np.float32)))
+
+
+def ctx_parity_phase(dev):
+    """A small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on the card
+    against the CPU with the same draws, and the context IK alone at the
+    minibatch's B = 512 on the card against the CPU (rotations, joints and
+    the gradient into the heads' residuals: 1e-4 of their scale)."""
+    import torch
+
+    from vid2player3d_torch.core import ik as IK
+
+    ctx = {}
+    for d in ("cpu", dev):
+        m, agent, launched = _small_imitation_epoch(d, "amass_im_corrupt", 0, 4)
+        if d != "cpu" and (launched != 2 * 4 or len(agent.init_state().params) != 24):
+            fail(f"ctx_parity: K1 launched {launched} times in 4 optimizer steps")
+        ctx[str(d)] = m
+    err = _compare("ctx_parity", ctx["cpu"], ctx[str(dev)], "context-IK epochs")
+
+    outs = {}
+    for d in ("cpu", dev):
+        posed, rest, phis, leaf = (x.to(d) for x in _ik_case(512))
+        phis.requires_grad_(True)
+        leaf.requires_grad_(True)
+        out = IK.perform_context_ik(posed, rest, phis, leaf)
+        loss = (out[0] ** 2).sum() * 0.1 + (out[1][..., 0] ** 3).sum() + out[2].sum()
+        outs[str(d)] = [x.detach().cpu() for x in out + torch.autograd.grad(loss, (phis, leaf))]
+    ik_err = []
+    for name, a, g in zip(("local", "chain", "joints", "d_phis", "d_leaf"), outs["cpu"],
+                          outs[str(dev)]):
+        e = float((a - g).abs().max())
+        ik_err.append(e)
+        if not (bool(torch.isfinite(g).all()) and e <= 1e-4 * max(1.0, float(a.abs().max()))):
+            fail(f"ctx_parity: the IK on the card disagrees on {name}: {e}")
+    say("ctx_parity", config="amass_im_corrupt", envs=4, horizon=4, metric_abs_err=err,
+        ik_B=512, ik_max_abs_err=dict(zip(("local", "chain", "joints", "d_phis", "d_leaf"),
+                                          ik_err)))
+
+
+def _imitation_main(dev, name):
+    """Two epochs of a named imitation configuration at the main path's
+    sizes (4096 envs, full width, fused K1) with K1's counters set to 0 just
+    before and read just after; (agent, ts, rows, K1 launches, timings)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import ImitationPPO
+    from vid2player3d_torch.ops import fused_adam as FA
+
+    t0 = time.perf_counter()
+    env_cfg, ppo_cfg = preset(name, num_envs=NUM_ENVS, substeps=SUBSTEPS)
+    lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
+    agent = ImitationPPO(HumanoidImEnv(env_cfg, lib, rng=0, device=dev),
+                         dataclasses.replace(ppo_cfg, horizon=HORIZON, minibatch_size=MINIBATCH,
+                                             mini_epochs=MINI_EPOCHS, fused_optimizer="on"),
+                         seed=7, device=dev)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_per_epoch = agent.num_minibatches * MINI_EPOCHS
+
+    rollout_s, unwrap = _timed_rollouts(agent)
+    torch.cuda.reset_peak_memory_stats()
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+    epoch_s, rows, envs = [], [], []
+    try:
+        for _ in range(SLICE4_EPOCHS):
+            t0 = time.perf_counter()
+            ts, m = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in m.items()})
+            envs.append(agent.last_env)
+    finally:
+        unwrap()
+    launches = {"update": FA.leaf_update.launches, "norm": FA.global_norm_scalars.launches}
+    expected = SLICE4_EPOCHS * steps_per_epoch * -(-len(ts.params) // 64)
+    if launches != {"update": expected, "norm": expected}:
+        fail(f"{name}: K1 launched {launches} times, expected {expected} each")
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{name} epoch {i}: non-finite metrics {bad}")
+        if not r["alive_ratio"] > 0.5:
+            fail(f"{name} epoch {i}: alive_ratio {r['alive_ratio']}")
+    if int(ts.opt_state.count) != SLICE4_EPOCHS * steps_per_epoch:
+        fail(f"{name}: optimizer count {int(ts.opt_state.count)}")
+    timing = dict(setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
+                  update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+                  rollout_env_steps_per_s=[NUM_ENVS * HORIZON / r for r in rollout_s],
+                  epoch_env_steps_per_s=[NUM_ENVS * HORIZON / e for e in epoch_s],
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  optimizer_steps_per_epoch=steps_per_epoch)
+    return agent, ts, rows, launches, envs, timing
+
+
+def im_dr_main_phase(dev, card: str):
+    """amass_im_dr at the main path's sizes, two epochs: K1's launches, each
+    epoch's perturbed model (drawn from the base model: the two differ and
+    both lie inside the specs' ranges of the base) and the schedule's
+    strength per epoch."""
+    import torch
+
+    from vid2player3d_torch.envs.domain_rand import _sched_scale
+
+    agent, ts, rows, launches, envs, timing = _imitation_main(dev, "amass_im_dr")
+    base = agent.env.model
+    dr = agent.env.randomizer
+    ranges = {}
+    for sp in dr.model_specs:
+        lo, hi = sp.rng
+        r = [(getattr(e.model, sp.field) / getattr(base, sp.field)) for e in envs]
+        for x in r:
+            if not (float(x.min()) >= lo - 1e-6 and float(x.max()) <= hi + 1e-6):
+                fail(f"im_dr_main: {sp.field} factor outside [{lo}, {hi}]")
+        if torch.equal(r[0], r[1]):
+            fail(f"im_dr_main: the two epochs stepped the same {sp.field}")
+        ranges[sp.field] = [[float(x.min()), float(x.max())] for x in r]
+    scales = {sp.field: [_sched_scale(sp, e * HORIZON) for e in range(SLICE4_EPOCHS)]
+              for sp in dr.obs_specs + dr.act_specs}
+    keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "clip_frac")
+    say("im_dr_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_dr", envs=NUM_ENVS,
+        horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS, epochs=SLICE4_EPOCHS,
+        cut="8192 -> 4096 envs", compute_dtype=str(agent.compute_dtype), leaves=len(ts.params),
+        k1_launches=launches, model_factor_ranges=ranges, schedule_scale_per_epoch=scales,
+        metrics=[{k: r[k] for k in keep} for r in rows], **timing)
+    return launches
+
+
+def im_ctx_main_phase(dev, card: str):
+    """amass_im_corrupt at the main path's sizes, two epochs (24 leaves):
+    K1's launches and finite auxiliary losses; then the context IK alone on
+    a synchronized host clock, per rollout step (the 4096 envs' targets) and
+    per optimizer step (the 512-row minibatch's IK, forward and backward into
+    the heads), with the host syncs each call makes."""
+    import warnings
+
+    import torch
+
+    agent, ts, rows, launches, _, timing = _imitation_main(dev, "amass_im_corrupt")
+    for i, r in enumerate(rows):
+        if not r["aux_dof_loss"] > 0.0:
+            fail(f"im_ctx_main epoch {i}: aux_dof_loss {r['aux_dof_loss']}")
+    if len(ts.params) != 24:
+        fail(f"im_ctx_main: {len(ts.params)} leaves")
+
+    env = agent.env
+    _, raw_obs, ctx = env.reset_all(ts.generator)
+    cb_pos = agent._ctx_frame(ctx["feat"], 0)[0]
+    conf = ctx["conf"][:, env.cfg.context_padding]
+    rest = env.rest_joints_smpl
+    mb = torch.randperm(NUM_ENVS, device=dev)[:MINIBATCH]
+    ctx_params = [v for k, v in ts.params.items() if k.startswith("ctx.")]
+
+    def rollout_ik():
+        with torch.no_grad():
+            return agent._context_targets(ts.params, cb_pos, conf, rest)
+
+    def update_ik():
+        out = agent._context_targets(ts.params, cb_pos[mb], conf[mb], rest[mb])
+        return torch.autograd.grad(sum(x.sum() for x in out), ctx_params)
+
+    out, reps = {}, 5
+    for name, fn in (("rollout_step", rollout_ik), ("optimizer_step", update_ik)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name + "_ms"] = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[name + "_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    per_step_ms = [r / HORIZON * 1e3 for r in timing["rollout_s"]]
+    keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "aux_dof_loss",
+            "aux_pos_loss")
+    say("im_ctx_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_corrupt",
+        envs=NUM_ENVS, horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS,
+        epochs=SLICE4_EPOCHS, cut="8192 -> 4096 envs", compute_dtype=str(agent.compute_dtype),
+        leaves=len(ts.params), k1_launches=launches, ik=out,
+        rollout_ms_per_env_step=per_step_ms,
+        ik_share_of_rollout_step=out["rollout_step_ms"] / per_step_ms[-1],
+        metrics=[{k: r[k] for k in keep} for r in rows], **timing)
+    return launches
+
+
+def tennis_dr_main_phase(dev, card: str):
+    """federer_train_stage_1_dr at its own sizes (10,240 envs, the federer
+    MVAE width, full-width pi_low and V2PNet), two epochs: K2 and K3's
+    launches, no skipped update, and each epoch's ball constants (they differ
+    and lie inside the specs' ranges)."""
+    import math
+
+    import torch
+
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    t0 = time.perf_counter()
+    env_cfg, v2p_cfg = preset("federer_train_stage_1_dr")
+    agent = V2PPPO(_tennis_env(dev, env_cfg, hidden=256, experts=6), v2p_cfg, seed=7, device=dev)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps_per_epoch = agent.num_minibatches * v2p_cfg.mini_epochs
+    horizon = v2p_cfg.horizon
+
+    rollout_s, unwrap = _timed_rollouts(agent)
+    torch.cuda.reset_peak_memory_stats()
+    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+    epoch_s, rows, balls = [], [], []
+    try:
+        for _ in range(SLICE4_EPOCHS):
+            t0 = time.perf_counter()
+            ts, m = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in m.items()})
+            balls.append(agent.last_env.ball_params)
+    finally:
+        unwrap()
+    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
+    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
+    env_steps = SLICE4_EPOCHS * horizon
+    if k2 != 3 * env_steps or k2_prep != 3 * env_steps:
+        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the DR tennis path, expected "
+             f"{3 * env_steps} each")
+    if k3 != 2 * env_steps:
+        fail(f"K3 launched {k3} times on the DR tennis path, expected {2 * env_steps}")
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"DR tennis epoch {i}: non-finite metrics {bad}")
+        if r["grad_skip"] != 0.0:
+            fail(f"DR tennis epoch {i}: grad_skip {r['grad_skip']}")
+    base = agent.env.ball_params
+    consts = {}
+    for sp in agent.env.randomizer.ball_specs:
+        name = sp.field[len("ball_"):]
+        vals = [float(getattr(b, name)) for b in balls]
+        f = [v / getattr(base, name) for v in vals]
+        if not all(sp.rng[0] - 1e-6 <= x <= sp.rng[1] + 1e-6 for x in f) or vals[0] == vals[1]:
+            fail(f"DR tennis: {name} per epoch {vals} against {getattr(base, name)}")
+        consts[name] = vals
+    keep = ("hit_rate", "contact_rate", "racket_ball_dist", "cycles", "done_rate", "reward_mean",
+            "c_loss", "kl", "grad_skip")
+    say("tennis_dr_main", card=card, nvidia_smi=nvidia_smi(), config="federer_train_stage_1_dr",
+        envs=env_cfg.num_envs, horizon=horizon, substeps=env_cfg.substeps,
+        minibatch=v2p_cfg.minibatch_size, mini_epochs=v2p_cfg.mini_epochs, epochs=SLICE4_EPOCHS,
+        cut="none", compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts",
+        ball_constants_per_epoch=consts, setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
+        update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+        rollout_env_steps_per_s=[env_cfg.num_envs * horizon / r for r in rollout_s],
+        epoch_env_steps_per_s=[env_cfg.num_envs * horizon / e for e in epoch_s],
+        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
+        k3_launches=k3, k1_launches=k1, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        metrics=[{k: r[k] for k in keep} for r in rows])
+    return {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
+
+
+# ---------------------------------------------------------------------------
+# phase 18 (tennis and dual parts): where a rollout's time goes
 # ---------------------------------------------------------------------------
 
 def rollout_profile_phase(name: str, card: str, agent, ts):
@@ -1259,6 +1700,11 @@ def main() -> None:
     stage2_phase(dev, card, agent, ts)
     dual_parity_phase(dev)
     dual_agent, dual_ts, dual_launches = dual_main_phase(dev, card)
+    dr_parity_phase(dev)
+    ctx_parity_phase(dev)
+    k1_dr = im_dr_main_phase(dev, card)
+    k1_ctx = im_ctx_main_phase(dev, card)
+    tennis_dr_launches = tennis_dr_main_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
     rollout_profile_phase("dual_profile", card, dual_agent, dual_ts)
@@ -1266,22 +1712,31 @@ def main() -> None:
     b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
     k1_common = {"route": "cuda", "source": "vid2player3d_torch/csrc/fused_adam.cu",
                  "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
-    # K2 and K3 run on two main paths: the stage-1 tennis epochs and the dual
-    # rally's; `launches` is the dual path's (this slice's), each path's count
+    # K1 runs on three main paths (the imitation epochs, amass_im_dr's and
+    # amass_im_corrupt's); K2 and K3 on three (the stage-1 tennis epochs, the
+    # dual rally's and federer_train_stage_1_dr's). `launches` is K1's on the
+    # imitation path and K2's and K3's on the dual path, each path's count
     # beside it
+    def k1_paths(kind):
+        return {"launches_per_path": {"imitation": k1_launches[kind], "im_dr": k1_dr[kind],
+                                      "im_ctx": k1_ctx[kind]}}
+
     def per_path(name):
         return {"launches": dual_launches[name],
                 "launches_per_path": {"tennis_stage1": tennis_launches[name],
-                                      "dual_rally": dual_launches[name]}}
+                                      "dual_rally": dual_launches[name],
+                                      "tennis_stage1_dr": tennis_dr_launches[name]}}
 
     kernels = [
         {"name": "fused_adam_norm", **k1_common, "launches": k1_launches["norm"],
+         **k1_paths("norm"),
          "max_abs_err": b16["scalar_rel_err"], "ms": b16["norm"], "plain_ms": b16["plain_norm"],
          "bound_ms": b16["norm_bound_ms"], "bound_by": "bytes", "library_ms": None,
          "unit": "the global norm and scalars of one ImitatorNet step (16 leaves); "
                  "max_abs_err is the scalars' largest relative error",
          "graph_ms": b16["norm_graph"], "plain_graph_ms": b16["plain_norm_graph"]},
         {"name": "fused_adam_update", **k1_common, "launches": k1_launches["update"],
+         **k1_paths("update"),
          "max_abs_err": max(b16["err_p"], b16["err_moments"]), "ms": b16["update"],
          "plain_ms": b16["plain_update"], "bound_ms": b16["update_bound_ms"], "bound_by": "bytes",
          "library_ms": b16["library_ms"],

@@ -138,7 +138,19 @@ def test_divergence_latch(envs):
 
 
 def test_unported_options_raise():
+    """Context corruption and domain randomization are ported (their parity
+    is in tests/test_torch_corrupt_ik.py and tests/test_torch_dr_epoch.py):
+    an env with them builds; an unknown joint to mask or an unknown
+    randomization target raises."""
+    from vid2player3d_torch.envs.corrupt import TransformSpecs
+    from vid2player3d_torch.envs.domain_rand import RandSpec
+
     lib = t_make_lib(num_motions=1, T=30, device="cpu")
-    for kw in ({"transform_specs": object()}, {"rand_specs": (object(),)}):
-        with pytest.raises(NotImplementedError):
+    env = HumanoidImEnv(HumanoidImConfig(
+        num_envs=2, transform_specs=TransformSpecs(mask_joints=("Head",)),
+        rand_specs=(RandSpec("kp", "uniform", (0.9, 1.1)),)), lib, device="cpu")
+    assert env.randomizer.model_specs and env.rest_joints_smpl.shape == (2, 24, 3)
+    for kw in ({"transform_specs": TransformSpecs(mask_joints=("Tail",))},
+               {"rand_specs": (RandSpec("not_a_field"),)}):
+        with pytest.raises(ValueError):
             HumanoidImEnv(HumanoidImConfig(num_envs=2, **kw), lib, device="cpu")

@@ -483,3 +483,111 @@ def test_two_hand_ik_matches_cpu(cuda):
     got = TH.optimize_two_hand_backhand(rm.to(cuda), rest.to(cuda), righthand=False, iters=8,
                                         mask=mask.to(cuda))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+# -- slice 4: domain randomization and the context IK ----------------------------
+
+def _ik_inputs(b, seed=0):
+    """Seeded moderate poses (the SMPL FK of random angle-axis), the rest
+    pose and random twist / leaf residuals, on the CPU."""
+    import numpy as np
+
+    from vid2player3d_torch.core import rot as R
+    from vid2player3d_torch.core import smpl as S
+
+    rng = np.random.default_rng(seed)
+    rest = S.rest_joints(S.make_synthetic_smpl(), torch.zeros(b, 10))
+    aa = torch.tensor(rng.uniform(-0.4, 0.4, (b, 24, 3)).astype(np.float32))
+    posed, _ = S.batch_rigid_transform(R.angle_axis_to_rotmat(aa), rest)
+    phis = torch.tensor(0.1 * rng.standard_normal((b, 46)).astype(np.float32))
+    leaf = torch.tensor(0.1 * rng.standard_normal((b, 30)).astype(np.float32))
+    return posed, rest, phis, leaf
+
+
+@pytest.mark.parametrize("b", [512, 4096])
+def test_context_ik_matches_cpu(cuda, b):
+    """`perform_context_ik` at the minibatch (512) and rollout (4096) sizes
+    on the card against the CPU: rotations and joints to 1e-4 (cuSOLVER's
+    SVD against LAPACK's on distinct singular values), and the gradient into
+    the twist and leaf residuals to 1e-4 of its scale."""
+    from vid2player3d_torch.core import ik as IK
+
+    outs = {}
+    for dev in ("cpu", cuda):
+        posed, rest, phis, leaf = (t.to(dev) for t in _ik_inputs(b))
+        phis.requires_grad_(True)
+        leaf.requires_grad_(True)
+        local, chain, joints = IK.perform_context_ik(posed, rest, phis, leaf)
+        loss = (local ** 2).sum() * 0.1 + (chain[..., 0] ** 3).sum() + joints.sum()
+        grads = torch.autograd.grad(loss, (phis, leaf))
+        outs[str(dev)] = [t.detach().cpu() for t in (local, chain, joints) + grads]
+    for a, g in zip(outs["cpu"], outs[str(cuda)]):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, a, atol=1e-4 * max(1.0, float(a.abs().max())), rtol=0.0)
+
+
+def _small_imitation(dev, preset_name, **ppo_kw):
+    import dataclasses
+
+    import numpy as np
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import ImitationPPO
+
+    env_cfg, ppo_cfg = preset(preset_name, num_envs=4, substeps=2)
+    env = HumanoidImEnv(env_cfg, make_synthetic_motion_lib(num_motions=2, T=60, seed=0, device=dev),
+                        motion_ids=np.array([0, 1, 1, 0]), device=dev)
+    return ImitationPPO(env, dataclasses.replace(
+        ppo_cfg, horizon=4, minibatch_size=8, mini_epochs=2, compute_dtype="f32",
+        fused_optimizer="on", **ppo_kw), seed=7, device=dev)
+
+
+def _imitation_draws(agent, rng):
+    import numpy as np
+
+    n, t, a = 4, 4, 75
+    dr = agent.env.randomizer
+    draws = {"motion_times": (rng.random(n) * 0.8).astype(np.float32),
+             "noise": rng.standard_normal((t, n, a)).astype(np.float32),
+             "perms": np.stack([rng.permutation(n * t) for _ in range(2)])}
+    if dr is not None:
+        draws["dr_model"] = [rng.random(n) for _ in dr.model_specs]
+        draws["dr_act"] = [[rng.standard_normal((n, a)) for _ in dr.act_specs] for _ in range(t)]
+        draws["dr_obs"] = [[rng.standard_normal((n, agent.env.obs_dim)) for _ in dr.obs_specs]
+                           for _ in range(t)]
+    if agent.env.cfg.transform_specs is not None:
+        L = 48
+        draws["corrupt"] = {"sel_u": rng.random((n, L, 24)),
+                            "noise": rng.standard_normal((n, L, 24, 3)),
+                            "drop_u": rng.random((n, L, 24))}
+    return draws
+
+
+@pytest.mark.parametrize("name", ["amass_im_dr", "amass_im_corrupt"])
+def test_slice4_imitation_epoch_matches_cpu(cuda, name):
+    """One small epoch (4 envs, f32, horizon 4, 2 mini-epochs) of a DR or a
+    context-IK imitation learner on the card against the CPU with the same
+    draws (the DR epoch from epoch 300, where the noise is on): every metric
+    within the parity bounds of `chip_smoke.py`; K1 launches one norm and
+    one update per optimizer step (16 or 24 leaves)."""
+    import numpy as np
+
+    metrics = {}
+    for dev in ("cpu", cuda):
+        agent = _small_imitation(dev, name)
+        ts = agent.init_state()
+        ts.epoch = 300 if name == "amass_im_dr" else 0
+        draws = _imitation_draws(agent, np.random.default_rng(0))
+        before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
+        _, m = agent.train_epoch(ts, draws=draws)
+        if torch.device(dev).type == "cuda":
+            assert (FA.leaf_update.launches - before[0],
+                    FA.global_norm_scalars.launches - before[1]) == (4, 4)
+        metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+    atol = {"a_loss": 1e-4, "c_loss": 1e-3, "b_loss": 1e-4, "kl": 1e-5, "clip_frac": 1e-6,
+            "lr": 0.0}
+    ref, got = metrics["cpu"], metrics[str(cuda)]
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= atol.get(k, 1e-5) + 1e-4 * abs(ref[k]), k

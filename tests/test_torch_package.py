@@ -39,6 +39,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vid2player3d_tpu"))
 print(len(names), bad)
 assert not bad, bad
+# the modules of slice 4 (domain randomization, the corrupted-context IK)
+new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
+       "vid2player3d_torch.envs.presets", "vid2player3d_torch.core.ik"}
+assert new <= set(names), new - set(names)
 """
 
 
@@ -51,7 +55,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25, out.stdout
+    assert n_modules >= 29, out.stdout
 
 
 def test_entry_points_need_a_device_without_cuda():
@@ -75,11 +79,19 @@ def test_entry_points_need_a_device_without_cuda():
                                 {"minibatch_per_chip": True}, {"dp_sync": "per_mini_epoch"}],
                          ids=["mesh", "context_ik", "minibatch_per_chip", "dp_sync"])
 def test_learner_unported_options_raise(kw):
-    """A mesh, context IK, per-chip minibatches and local-SGD sync are not
-    ported: asking for any of them raises instead of running without it."""
+    """A mesh, per-chip minibatches and local-SGD sync are not ported: asking
+    for any of them raises instead of running without it. The context IK is
+    ported: it builds the {ac, ctx} params (16 + 8 leaves), and with a mesh
+    it raises too."""
     lib = make_synthetic_motion_lib(num_motions=1, T=30, device="cpu")
     env = HumanoidImEnv(HumanoidImConfig(num_envs=2), lib, device="cpu")
     cfg_kw = {k: v for k, v in kw.items() if k != "mesh"}
+    if cfg_kw.get("use_context_ik"):
+        agent = ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw),
+                             device="cpu")
+        names = list(agent.init_state().params)
+        assert len(names) == 24 and sum(n.startswith("ctx.") for n in names) == 8
+        kw = dict(kw, mesh=object())
     with pytest.raises(NotImplementedError):
         ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw),
                      mesh=kw.get("mesh"), device="cpu")
@@ -183,12 +195,16 @@ def test_v2p_unported_options_raise(kw, error):
 
 
 def test_tennis_unported_options_raise():
-    """Domain randomization and the native ball backend are not ported:
-    asking for them raises. The two-hand backhand and one spec per lane
-    build."""
+    """The native ball backend is not ported: asking for it raises. Domain
+    randomization is (an unknown target raises), and the two-hand backhand
+    and one spec per lane build."""
+    from vid2player3d_torch.envs.domain_rand import RandSpec
+
     spec, feats, gen, _ = _tennis_env()
-    with pytest.raises(NotImplementedError):
-        _tennis_env(rand_specs=(object(),))
+    assert _tennis_env(rand_specs=(RandSpec("ball_base_cd", "uniform", (0.9, 1.1)),)
+                       )[3].randomizer.ball_specs
+    with pytest.raises(ValueError):
+        _tennis_env(rand_specs=(RandSpec("ball_bogus"),))
     assert _tennis_env(two_hand_backhand=True)[3].any_two_hand
     TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen, device="cpu")
     with pytest.raises(NotImplementedError):

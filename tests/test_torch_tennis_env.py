@@ -247,16 +247,22 @@ def test_candidate_reset_reaction_and_contact_step_matches(configs):
 
 
 def test_unported_tennis_options_raise(configs):
-    """Domain randomization is not ported: asking for it raises. The two-hand
-    backhand and one spec per lane now build (their parity is in
-    tests/test_torch_twohand.py and tests/test_torch_dual.py); lanes that do
-    not divide the envs, or init sets that do not match the lanes, raise."""
+    """Domain randomization now builds (its parity is in
+    tests/test_torch_dr_tennis.py; an unknown target raises), as do the
+    two-hand backhand and one spec per lane (tests/test_torch_twohand.py,
+    tests/test_torch_dual.py); lanes that do not divide the envs, or init
+    sets that do not match the lanes, raise."""
+    from vid2player3d_torch.envs.domain_rand import RandSpec
+
     shared, _ = configs
     jspec, feats, jgen, _, _ = shared
     spec = _port_spec(jspec)
     gen = CK.ball_pool_from_jax(jgen, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TennisEnv(TennisConfig(num_envs=2, rand_specs=(object(),)), spec, feats,
+    env = TennisEnv(TennisConfig(num_envs=2, rand_specs=(RandSpec("kp", "uniform", (0.9, 1.1)),)),
+                    spec, feats, ball_generator=gen, device="cpu")
+    assert env.with_model(env.randomizer.randomize_model(env.model)).model is not env.model
+    with pytest.raises(ValueError):
+        TennisEnv(TennisConfig(num_envs=2, rand_specs=(RandSpec("ball_bogus"),)), spec, feats,
                   ball_generator=gen, device="cpu")
     assert TennisEnv(TennisConfig(num_envs=2, two_hand_backhand=True), spec, feats,
                      ball_generator=gen, device="cpu").any_two_hand

@@ -43,6 +43,19 @@ MUJOCO_2_SMPL = np.array([MUJOCO_JOINT_NAMES.index(n) for n in SMPL_BONE_ORDER_N
 NUM_JOINTS = 24
 
 
+def smpl_children_map(parents: np.ndarray = SMPL_PARENTS) -> np.ndarray:
+    """First-child map of the twist-swing IK: children[j] = the first child
+    of j, except Pelvis -> Torso (3) and Chest (9) -> Neck; -1 for a leaf."""
+    children = -np.ones_like(parents)
+    for i in range(len(parents)):
+        p = int(parents[i])
+        if p != -1 and children[p] < 0:
+            children[p] = i
+    children[0] = 3
+    children[9] = SMPL_BONE_ORDER_NAMES.index("Neck")
+    return children
+
+
 @dataclasses.dataclass(frozen=True)
 class SMPLModel:
     """SMPL parameters as float32 tensors."""

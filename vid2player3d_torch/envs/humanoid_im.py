@@ -13,12 +13,16 @@ truncation, per-step target tracking, exp-of-error imitation reward
 heading frame, head-height termination + motion-end reset, the
 32+2·8-frame motion context, and the divergence (NaN) latch.
 
-Context corruption and domain randomization are not ported yet; a config
-that asks for them raises.
+Context corruption (`transform_specs`, ``envs/corrupt.py``) degrades the
+observed block of the motion context; the ground-truth blocks stay clean for
+the context-IK learner's auxiliary losses. Domain randomization
+(`rand_specs`, ``envs/domain_rand.py``) is applied by the learner: a
+perturbed model per epoch through `with_model`, noise per step.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -31,6 +35,7 @@ from ..data import motion_lib as ML
 from ..physics import asset, engine
 from ..physics.model import ArticulationState, ContactParams
 from ..utils.runtime import resolve_device
+from . import corrupt, domain_rand
 from .obs import compute_imitation_obs, dof_to_obs
 
 
@@ -57,9 +62,11 @@ class HumanoidImConfig:
     reward_specs: Tuple[Tuple[str, float], ...] = (
         ("k_dof", 60.0), ("k_vel", 0.2), ("k_pos", 100.0), ("k_rot", 40.0),
         ("w_dof", 0.6), ("w_vel", 0.1), ("w_pos", 0.2), ("w_rot", 0.1))
-    # context corruption and domain randomization: not ported yet, must be None
-    transform_specs: Optional[object] = None
-    rand_specs: Optional[tuple] = None
+    # context corruption; None = clean context
+    transform_specs: Optional[corrupt.TransformSpecs] = None
+    # domain randomization; None = off. The learner re-draws the model
+    # perturbation every epoch and the obs/action noise every step
+    rand_specs: Optional[Tuple[domain_rand.RandSpec, ...]] = None
     # curated sphere-pair self-collision contacts
     self_collision: bool = True
 
@@ -100,9 +107,10 @@ class HumanoidImEnv:
                  motion_ids: Optional[np.ndarray] = None,
                  contact_params: ContactParams = ContactParams(),
                  rng: int = 0, device=None):
-        if cfg.transform_specs is not None or cfg.rand_specs:
-            raise NotImplementedError(
-                "context corruption and domain randomization are not ported yet")
+        if cfg.transform_specs is not None:
+            unknown = set(cfg.transform_specs.mask_joints) - set(S.MUJOCO_JOINT_NAMES)
+            if unknown:
+                raise ValueError(f"unknown joints to mask: {sorted(unknown)}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.lib = lib.to(self.device)
@@ -135,12 +143,32 @@ class HumanoidImEnv:
         th[self.head_id] = max(cfg.termination_head_height, th[self.head_id])
         self.termination_heights = torch.as_tensor(th, device=self.device)
 
+        # per-env rest joint positions in SMPL order, the rest pose of the
+        # learner's context IK: the offsets accumulated over the tree (of the
+        # base model: a randomized model keeps this rest pose)
+        off = self.model.joint_pos
+        rest = [torch.zeros_like(off[:, 0])]
+        for j in range(1, 24):
+            rest.append(rest[self.model.parents[j]] + off[:, j])
+        self.rest_joints_smpl = torch.stack(rest, dim=1)[:, torch.as_tensor(
+            S.MUJOCO_2_SMPL, dtype=torch.long, device=self.device)]
+
+        self.randomizer = domain_rand.DomainRandomizer(cfg.rand_specs) \
+            if cfg.rand_specs else None
+
         # identity-quat body-rot block of the sanitized obs of a diverged env
         self._safe_obs = torch.zeros(24 * 3 + 24 * 4 + 69 + 69 + 24 * 3 + 24 * 3
                                      + bodies.shape[-1], device=self.device)
         self._safe_obs[72:168] = torch.tensor([0.0, 0.0, 0.0, 1.0]).repeat(24)
         self.obs_dim = self._safe_obs.shape[0]
         self.num_actions = cfg.num_actions
+
+    def with_model(self, model) -> "HumanoidImEnv":
+        """A shallow copy of this env stepping `model` (a randomized one for
+        one epoch); this env keeps its own."""
+        env = copy.copy(self)
+        env.model = model
+        return env
 
     # -- helpers --------------------------------------------------------------
 
@@ -179,11 +207,14 @@ class HumanoidImEnv:
     # -- reset ----------------------------------------------------------------
 
     def reset_all(self, generator: Optional[torch.Generator] = None,
-                  motion_times=None) -> Tuple[EnvState, torch.Tensor, Dict[str, torch.Tensor]]:
+                  motion_times=None, corrupt_draws: Optional[Dict] = None
+                  ) -> Tuple[EnvState, torch.Tensor, Dict[str, torch.Tensor]]:
         """Reference-state init for every env. The reset times are drawn from
-        `generator` unless `motion_times` (N,) is given. Returns (state,
-        raw_obs, context) where context carries `feat` (N, L+2P, 378) and
-        `mask` (N, L+2P)."""
+        `generator` unless `motion_times` (N,) is given, the context
+        corruption's draws likewise unless `corrupt_draws` is given (see
+        ``envs/corrupt.py``). Returns (state, raw_obs, context) where context
+        carries `feat` (N, L+2P, 378), `mask` (N, L+2P) and `conf` (N, L+2P,
+        24)."""
         cfg = self.cfg
         N = cfg.num_envs
         if motion_times is not None:
@@ -204,12 +235,15 @@ class HumanoidImEnv:
         zeros = torch.zeros(N, dtype=torch.int32, device=self.device)
         state = EnvState(sim=sim, progress=zeros, reset_buf=zeros,
                          terminate_buf=zeros, motion_times=motion_times)
-        return state, self._raw_obs(sim), self.init_context(motion_times)
+        return state, self._raw_obs(sim), self.init_context(motion_times, generator,
+                                                            corrupt_draws)
 
-    def init_context(self, motion_times) -> Dict[str, torch.Tensor]:
+    def init_context(self, motion_times, generator: Optional[torch.Generator] = None,
+                     corrupt_draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         """Motion-context window: frames at motion_times + dt + dt·[-pad,
         L+pad), features [body_pos, body_rot, dof_pos, body_pos_gt,
-        dof_pos_gt]."""
+        dof_pos_gt]. With `transform_specs` the first block is corrupted and
+        `conf` is its confidence; the ground-truth blocks stay clean."""
         cfg = self.cfg
         N = cfg.num_envs
         L = cfg.context_length + 2 * cfg.context_padding
@@ -225,11 +259,15 @@ class HumanoidImEnv:
         rb_pos = st["rb_pos"].reshape(N, L, -1)
         rb_rot = st["rb_rot"].reshape(N, L, -1)
         dof = st["dof_pos"].reshape(N, L, -1)
-        feat = torch.cat([rb_pos, rb_rot, dof, rb_pos, dof], dim=-1)
+        # rb_pos is MuJoCo-ordered: named masks resolve against that list
+        obs_pos, conf = corrupt.corrupt_body_pos(
+            rb_pos.reshape(N, L, 24, 3), cfg.transform_specs,
+            body_names=tuple(S.MUJOCO_JOINT_NAMES), generator=generator, draws=corrupt_draws)
+        feat = torch.cat([obs_pos.reshape(N, L, -1), rb_rot, dof, rb_pos, dof], dim=-1)
 
         lens = self.lib.motion_lengths[self.motion_ids]
         mask = all_times <= (lens + 2 * cfg.control_dt)[:, None]
-        return {"feat": feat, "mask": mask, "conf": torch.ones((N, L, 24), device=self.device)}
+        return {"feat": feat, "mask": mask, "conf": conf}
 
     # -- step -----------------------------------------------------------------
 

@@ -35,8 +35,11 @@ package's draws:
   envs), `rw_noise` (N, latents) normals, `ball_idx`, `near_jitter` (N,),
   `target_u`, `tt`.
 
-Not ported yet (they raise): domain randomization (`rand_specs`) and mesh
-sharding.
+Domain randomization (`rand_specs`, ``envs/domain_rand.py``) is applied by
+the learner: `with_model` gives a shallow copy stepping a perturbed model and
+perturbed ball constants for one epoch (a randomized `BallParams` field is a
+0-d tensor on the device, read without a host sync), and noise goes on the
+actions and observations every step. Not ported yet: mesh sharding.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..tennis import player as P
 from ..tennis import twohand
 from ..tennis.racket import grip_arrays
 from ..utils.runtime import as_draw, resolve_device
+from . import domain_rand
 from .obs import compute_imitation_obs
 
 
@@ -98,6 +102,9 @@ class TennisConfig:
     sync_max_wait: int = 90
     obs_ball_traj_length: int = 10
     use_random_ball_target: str = "continuous"   # "discrete" | "continuous"
+    # incoming-ball bounce box half-width in x (m), read where the ball pool
+    # is built: 3.0 is the full serve spread, a stage-1a curriculum narrows it
+    ball_bounce_x_half: float = 3.0
     # reward
     reward_type: str = "return_w_estimate"       # reach | return | return_w_estimate
     reward_weights: Tuple[Tuple[str, float], ...] = (("pos", 0.1), ("ball_pos", 0.9))
@@ -116,7 +123,9 @@ class TennisConfig:
     # fold the racket's mass and inertia into the racket-hand wrist body
     simulated_racket_mass: bool = True
     ball_traj_pool_len: int = 100
-    rand_specs: Optional[tuple] = None   # domain randomization: not ported yet
+    # domain randomization; model fields perturb per epoch, "ball_*" fields
+    # the BallParams constants, obs/action noise per step. None = off
+    rand_specs: Optional[Tuple[domain_rand.RandSpec, ...]] = None
     self_collision: bool = True
     # 0 = a full fresh reset of all N envs every step, masked onto the done
     # ones; K > 0 = only K candidate resets, gathered onto the done envs
@@ -206,8 +215,8 @@ class TennisEnv:
         `pi_low_b` is the second lane's frozen low-level policy (else lane 1
         uses `pi_low` too); `two_hand_lanes` the per-lane two-hand flags
         (else `cfg.two_hand_backhand` for every lane)."""
-        if cfg.rand_specs:
-            raise NotImplementedError("domain randomization is not ported yet")
+        self.randomizer = domain_rand.DomainRandomizer(cfg.rand_specs) \
+            if cfg.rand_specs else None
         specs = tuple(spec) if isinstance(spec, (tuple, list)) else (spec,)
         if cfg.num_envs % len(specs):
             raise ValueError(f"{cfg.num_envs} envs do not split into {len(specs)} lanes")
@@ -270,6 +279,18 @@ class TennisEnv:
         self._smpl_2_mujoco = torch.as_tensor(S.SMPL_2_MUJOCO, dtype=torch.long,
                                               device=self.device)
         self._candidates = None
+
+    def with_model(self, model=None, ball_params=None) -> "TennisEnv":
+        """A shallow copy of this env stepping `model` and `ball_params`
+        (randomized ones for one epoch) where given; its candidate resets are
+        sliced from the new model. This env keeps its own."""
+        env = copy.copy(self)
+        if model is not None:
+            env.model = model
+        if ball_params is not None:
+            env.ball_params = ball_params
+        env._candidates = None
+        return env
 
     def _bind_lane_arrays(self):
         """Handedness-dependent per-env arrays from each env's lane spec:

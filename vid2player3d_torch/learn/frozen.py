@@ -38,13 +38,15 @@ class FrozenImitator:
                         obs_dim: int = IMITATION_OBS_DIM, device=None) -> "FrozenImitator":
         """Load a JAX-package `ImitationPPO.save_checkpoint` `.npz` (params +
         running stats). Context-IK checkpoints nest the actor-critic under
-        `params/ac`; the context heads are train-time machinery and are
-        skipped."""
+        `params/ac`; only that subtree is kept (the context heads are
+        train-time machinery)."""
         from ..utils import checkpoint as CK
 
         dev = resolve_device(device)
         flat = CK.load_npz(path)
         state = CK.params_from_jax({k: v for k, v in flat.items() if k.startswith("params/")})
+        if any(k.startswith("ac.") for k in state):
+            state = {k[3:]: v for k, v in state.items() if k.startswith("ac.")}
         net = ImitatorNet(num_actions=num_actions, obs_dim=obs_dim)
         net.load_state_dict(state)
         return cls(net=net.to(dev), obs_norm=CK.running_norm_from_jax(flat, "obs_norm", dev))

@@ -4,7 +4,8 @@
 imitation obs, a continuous mu head (fixed log-sigma lives in the learner)
 and a value head; the residual action (mu += target dof) is applied by the
 caller. `V2PNet`, the high-level tennis policy, is the same module with
-(1024, 512) trunks over the 257-dim tennis obs.
+(1024, 512) trunks over the 257-dim tennis obs. `ContextHeads` is the
+context-IK learner's encoder of the (possibly corrupted) motion context.
 
 Parameters are float32. With `dtype=torch.bfloat16` the trunk layers cast
 both their input and their weight to bf16 before the product, as a flax
@@ -73,6 +74,34 @@ class ActorCritic(nn.Module):
         mu = self.mu(self._trunk(self.actor_mlp, obs))
         value = self.value(self._trunk(self.critic_mlp, obs))
         return mu, value[..., 0]
+
+
+class ContextHeads(nn.Module):
+    """Context encoder of the corrupted-context IK: the root-relative context
+    joint positions (72) and their confidence (24) -> MLP (256, 128, ReLU) ->
+    twist residuals `phis` (23x2) and leaf-rotation residuals `leaf6d`
+    (5 x rot6d) for the analytic IK. The two heads start at zero, so training
+    starts from the identity-twist IK. Always float32."""
+
+    def __init__(self, in_dim: int = 24 * 3 + 24, units: Sequence[int] = (256, 128),
+                 generator: torch.Generator = None):
+        super().__init__()
+        dims = [in_dim] + list(units)
+        self.ctx_mlp = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
+        self.phis = nn.Linear(units[-1], 46)
+        self.leaf6d = nn.Linear(units[-1], 30)
+        for layer in self.ctx_mlp:
+            _variance_scaling_(layer.weight, 1.0, generator)
+        for layer in self.modules():
+            if isinstance(layer, nn.Linear):
+                nn.init.zeros_(layer.bias)
+        nn.init.zeros_(self.phis.weight)
+        nn.init.zeros_(self.leaf6d.weight)
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        for layer in self.ctx_mlp:
+            x = F.relu(layer(x))
+        return self.phis(x), self.leaf6d(x)
 
 
 ImitatorNet = ActorCritic

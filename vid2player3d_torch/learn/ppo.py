@@ -17,12 +17,26 @@ Semantics preserved from the JAX learner:
 - the optimizer step as the optax-chain path (``learn/optim.py``) or, with
   `fused_optimizer="on"`, the fused K1 kernel (``ops/fused_adam.py``)
 
-The random draws of an epoch (reset times, action noise, minibatch
-permutations) come from the train state's generator, or from `draws=` so a
-test can feed the JAX learner's draws.
+Domain randomization (the env's `rand_specs`): every epoch steps a copy of
+the env with a model perturbed from the env's own (never from the last
+epoch's), at schedule step `epoch · horizon`; action noise goes on what the
+env executes (the stored action and its neglogp stay the policy's), obs noise
+on the next raw obs.
 
-Not ported yet: the context-IK path, multi-device meshes, per-chip
-minibatches and local-SGD sync; asking for them raises.
+Context IK (`use_context_ik`): the params are `{ac, ctx}` (`ImitatorNet` and
+`ContextHeads`); the imitation targets come from the analytic IK
+(``core/ik.py``) of the (possibly corrupted) context positions with the
+heads' twist and leaf residuals. The update re-runs the IK with gradients on
+every minibatch and adds the auxiliary dof-rot6d and body-position losses
+against the ground-truth context.
+
+The random draws of an epoch (reset times, the context corruption, action
+noise, the randomization's draws, minibatch permutations) come from the
+train state's generator, or from `draws=` so a test can feed the JAX
+learner's draws.
+
+Not ported yet: multi-device meshes, per-chip minibatches and local-SGD sync;
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -32,13 +46,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 
+from ..core import ik as IK
+from ..core import quat as Q
+from ..core import rot as Rt
+from ..core import smpl as S
 from ..envs.humanoid_im import HumanoidImEnv
 from ..ops.fused_adam import fused_clip_adam_apply
 from ..utils.runtime import resolve_device
 from . import running_norm as RN
-from .networks import ImitatorNet
+from .networks import ContextHeads, ImitatorNet
 from .optim import AdamState, clip_adam_apply, init_adam
 
 
@@ -68,6 +87,7 @@ class PPOConfig:
     # not ported yet: must keep these defaults
     minibatch_per_chip: bool = False
     dp_sync: str = "per_minibatch"
+    # the context-IK pipeline and its auxiliary losses' weights
     use_context_ik: bool = False
     aux_w_dof: float = 1.0
     aux_w_pos: float = 10.0
@@ -115,11 +135,9 @@ class ImitationPPO:
 
     def __init__(self, env: HumanoidImEnv, cfg: PPOConfig = PPOConfig(), seed: int = 7,
                  mesh=None, device=None):
-        if (mesh is not None or cfg.use_context_ik or cfg.minibatch_per_chip
-                or cfg.dp_sync != "per_minibatch"):
+        if mesh is not None or cfg.minibatch_per_chip or cfg.dp_sync != "per_minibatch":
             raise NotImplementedError(
-                "device meshes, context IK, per-chip minibatches and local-SGD sync "
-                "are not ported yet")
+                "device meshes, per-chip minibatches and local-SGD sync are not ported yet")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, learner on {self.device}")
@@ -131,12 +149,22 @@ class ImitationPPO:
         self.compute_dtype = resolve_compute_dtype(cfg.compute_dtype, self.device)
         # initialized on the CPU from a seeded CPU generator, then moved, so
         # the initial params are the same on every device
-        self.net = ImitatorNet(num_actions=self.num_actions, obs_dim=self.obs_dim,
-                               dtype=self.compute_dtype,
-                               generator=torch.Generator().manual_seed(seed)).to(self.device)
+        gen = torch.Generator().manual_seed(seed)
+        net = ImitatorNet(num_actions=self.num_actions, obs_dim=self.obs_dim,
+                          dtype=self.compute_dtype, generator=gen)
+        if cfg.use_context_ik:
+            # params named `ac.*` and `ctx.*`; the heads compute in float32
+            net = nn.ModuleDict({"ac": net, "ctx": ContextHeads(generator=gen)})
+        self.net = net.to(self.device)
         self.use_fused = cfg.fused_optimizer == "on"
         self.sigma = torch.full((self.num_actions,), float(np.exp(cfg.sigma_init)),
                                 device=self.device)
+        # the env the last epoch stepped (a randomized copy under DR)
+        self.last_env = env
+        self._smpl_2_mujoco = torch.as_tensor(S.SMPL_2_MUJOCO, dtype=torch.long,
+                                              device=self.device)
+        self._mujoco_2_smpl = torch.as_tensor(S.MUJOCO_2_SMPL, dtype=torch.long,
+                                              device=self.device)
 
         nbatch = env.cfg.num_envs * cfg.horizon
         if nbatch % cfg.minibatch_size:
@@ -146,7 +174,11 @@ class ImitationPPO:
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh train state (the network's initial params unless `params`
         is given); two calls give independent, identical states."""
+        names = [k for k, _ in self.net.named_parameters()]
         src = params if params is not None else dict(self.net.named_parameters())
+        if sorted(src) != sorted(names):
+            raise ValueError(f"params {sorted(set(src) ^ set(names))[:4]} do not match the "
+                             "network's")
         params = {k: v.detach().to(self.device, torch.float32).clone().requires_grad_(True)
                   for k, v in src.items()}
         return TrainState(
@@ -161,7 +193,8 @@ class ImitationPPO:
 
     def load_checkpoint(self, path: str) -> TrainState:
         """Train state from a JAX-package `.npz` checkpoint (params, running
-        stats, Adam state, epoch, lr)."""
+        stats, Adam state, epoch, lr); a context-IK checkpoint's `ac` and
+        `ctx` trees included."""
         from ..utils import checkpoint as CK
 
         flat = CK.load_npz(path)
@@ -179,16 +212,52 @@ class ImitationPPO:
         [obs_pos 72 | rot 96 | dof 69 | pos_gt 72 | dof_gt 69]."""
         f = ctx_feat[:, self.env.cfg.context_padding + t]
         N = f.shape[0]
-        return f[:, :72].reshape(N, 24, 3), f[:, 72:168].reshape(N, 24, 4), f[:, 168:237]
+        return (f[:, :72].reshape(N, 24, 3), f[:, 72:168].reshape(N, 24, 4), f[:, 168:237],
+                f[:, 237:309].reshape(N, 24, 3), f[:, 309:378])
+
+    @staticmethod
+    def _sub(params, prefix):
+        n = len(prefix)
+        return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
     def _apply(self, params, io_n):
+        if self.cfg.use_context_ik:
+            return functional_call(self.net["ac"], self._sub(params, "ac."), (io_n,))
         return functional_call(self.net, params, (io_n,))
 
-    def _forward(self, params, obs_norm, raw_obs, ctx_feat, t: int):
+    def _context_targets(self, params, ctx_pos_mj, conf_mj, rest_smpl):
+        """The context-IK stage: (possibly corrupted) context positions and
+        their confidence -> the heads' twist and leaf residuals -> the
+        analytic IK -> imitation targets.
+
+        ctx_pos_mj (B,24,3) MuJoCo-order positions; conf_mj (B,24); rest_smpl
+        (B,24,3) the SMPL-order rest pose. Returns (tgt_dof (B,69), tgt_pos
+        (B,24,3), tgt_rot quat (B,24,4), local_mj (B,24,3,3))."""
+        B = ctx_pos_mj.shape[0]
+        pos_smpl = ctx_pos_mj[:, self._mujoco_2_smpl]
+        conf_smpl = conf_mj[:, self._mujoco_2_smpl]
+        xin = torch.cat([(pos_smpl - pos_smpl[:, :1]).reshape(B, 72), conf_smpl], dim=-1)
+        phis, leaf6d = functional_call(self.net["ctx"], self._sub(params, "ctx."), (xin,))
+        local, chain, joints = IK.perform_context_ik(pos_smpl, rest_smpl, phis, leaf6d)
+        local_mj = local[:, self._smpl_2_mujoco]
+        tgt_dof = Rt.rotmat_to_angle_axis(local_mj[:, 1:].reshape(-1, 3, 3)).reshape(B, 69)
+        tgt_rot = Q.rotmat_to_quat(chain[:, self._smpl_2_mujoco])
+        return tgt_dof, joints[:, self._smpl_2_mujoco], tgt_rot, local_mj
+
+    def _forward(self, params, obs_norm, raw_obs, ctx_feat, t: int, ctx_conf=None):
         """raw env obs + context → (imitation_obs, normalized_obs, mu,
-        value_norm, target_dof); mu includes the residual action."""
-        cb_pos, cb_rot, c_dof = self._ctx_frame(ctx_feat, t)
-        io = self.env.imitation_obs(raw_obs, cb_pos, cb_rot, c_dof)
+        value_norm, target_dof); mu includes the residual action. With the
+        context IK the targets come from the IK of the (corrupted) context
+        positions, not the ground-truth channels."""
+        cb_pos, cb_rot, c_dof, _, _ = self._ctx_frame(ctx_feat, t)
+        if self.cfg.use_context_ik:
+            conf = torch.ones(cb_pos.shape[:-1], device=cb_pos.device) if ctx_conf is None \
+                else ctx_conf[:, self.env.cfg.context_padding + t]
+            c_dof, tgt_pos, tgt_rot, _ = self._context_targets(params, cb_pos, conf,
+                                                               self.env.rest_joints_smpl)
+            io = self.env.imitation_obs(raw_obs, tgt_pos, tgt_rot, c_dof)
+        else:
+            io = self.env.imitation_obs(raw_obs, cb_pos, cb_rot, c_dof)
         io_n = RN.normalize(obs_norm, io, self.cfg.obs_clip)
         mu, value = self._apply(params, io_n)
         mu = torch.cat([mu[:, :69] + c_dof, mu[:, 69:]], dim=-1)
@@ -202,16 +271,23 @@ class ImitationPPO:
     # -- rollout --------------------------------------------------------------
 
     @torch.no_grad()
-    def rollout(self, ts: TrainState, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    def rollout(self, ts: TrainState, draws: Optional[Dict] = None,
+                env: Optional[HumanoidImEnv] = None) -> Dict[str, torch.Tensor]:
         """Reset every env, play `horizon` steps; returns the (T, N, ...)
-        trajectory with the terminate-masked next values."""
-        cfg, env = self.cfg, self.env
+        trajectory with the terminate-masked next values. `env` is the env to
+        step (this learner's unless given: an epoch's randomized copy)."""
+        cfg = self.cfg
+        env = self.env if env is None else env
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
         dev = self.device
         env_state, raw_obs, ctx = env.reset_all(
             generator=ts.generator,
-            motion_times=None if draws is None else draws["motion_times"])
+            motion_times=None if draws is None else draws["motion_times"],
+            corrupt_draws=None if draws is None else draws.get("corrupt"))
         ctx_feat = ctx["feat"]
+        ctx_conf = ctx["conf"] if cfg.use_context_ik else None
+        dr = env.randomizer
+        dr_step = ts.epoch * cfg.horizon
 
         traj = dict(obs=torch.empty(T, N, self.obs_dim, device=dev),
                     action=torch.empty(T, N, A, device=dev),
@@ -220,17 +296,38 @@ class ImitationPPO:
                     sub_rewards=torch.empty(T, N, 4, device=dev))
         for k in ("neglogp", "value", "reward", "done", "terminate", "alive"):
             traj[k] = torch.empty(T, N, device=dev)
+        if cfg.use_context_ik:
+            # the update re-runs the context IK with gradients, so the
+            # minibatches carry the raw state and the step's context blocks
+            traj.update(raw_obs=torch.empty((T,) + raw_obs.shape, device=dev),
+                        ctx_pos=torch.empty(T, N, 24, 3, device=dev),
+                        ctx_conf=torch.empty(T, N, 24, device=dev),
+                        gt_pos=torch.empty(T, N, 24, 3, device=dev),
+                        gt_dof=torch.empty(T, N, 69, device=dev))
 
         for t in range(T):
             io, _, mu, v_norm, c_dof = self._forward(ts.params, ts.obs_norm, raw_obs,
-                                                     ctx_feat, t)
+                                                     ctx_feat, t, ctx_conf)
             if draws is None:
                 noise = torch.randn(mu.shape, generator=ts.generator, device=dev)
             else:
                 noise = torch.as_tensor(draws["noise"][t], device=dev)
             action = mu + self.sigma[None] * noise
             traj["alive"][t] = (env_state.reset_buf == 0).float()
-            env_state, out = env.step(env_state, action)
+            if cfg.use_context_ik:
+                cb_pos, _, _, gt_pos, gt_dof = self._ctx_frame(ctx_feat, t)
+                traj["raw_obs"][t] = raw_obs
+                traj["ctx_pos"][t] = cb_pos
+                traj["ctx_conf"][t] = ctx_conf[:, env.cfg.context_padding + t]
+                traj["gt_pos"][t] = gt_pos
+                traj["gt_dof"][t] = gt_dof
+            # randomization's action noise goes on what the env executes;
+            # the stored action stays the policy's
+            env_action = action
+            if dr is not None and dr.act_specs:
+                env_action = dr.randomize_actions(action, dr_step, ts.generator,
+                                                  None if draws is None else draws["dr_act"][t])
+            env_state, out = env.step(env_state, env_action)
             traj["obs"][t] = io
             traj["action"][t] = action
             traj["mu"][t] = mu
@@ -242,10 +339,14 @@ class ImitationPPO:
             traj["sub_rewards"][t] = out.sub_rewards
             traj["ctx_dof"][t] = c_dof
             raw_obs = out.obs
+            if dr is not None and dr.obs_specs:
+                raw_obs = dr.randomize_obs(raw_obs, dr_step, ts.generator,
+                                           None if draws is None else draws["dr_obs"][t])
 
         # v(obs_{t+1}) is the value computed at step t+1; one extra forward
         # for the final obs closes the horizon
-        _, _, _, vn_last, _ = self._forward(ts.params, ts.obs_norm, raw_obs, ctx_feat, T)
+        _, _, _, vn_last, _ = self._forward(ts.params, ts.obs_norm, raw_obs, ctx_feat, T,
+                                            ctx_conf)
         v_next = torch.cat([traj["value"][1:], self._value(ts, vn_last)[None]], dim=0)
         traj["next_value"] = v_next * (1.0 - traj["terminate"])
         return traj
@@ -263,11 +364,31 @@ class ImitationPPO:
 
     # -- update ---------------------------------------------------------------
 
+    def _context_obs(self, params, batch):
+        """The minibatch's imitation obs, target dofs and auxiliary losses
+        from the context IK, with gradients into the context heads: the dof
+        rot6d of the IK against the ground truth's, and the IK's body
+        positions against the ground truth's (per sample)."""
+        tgt_dof, tgt_pos, tgt_rot, local_mj = self._context_targets(
+            params, batch["ctx_pos"], batch["ctx_conf"], batch["rest"])
+        io = self.env.imitation_obs(batch["raw_obs"], tgt_pos, tgt_rot, tgt_dof)
+        B = tgt_dof.shape[0]
+        gt_rotmat = Q.quat_to_rotmat(Q.exp_map_to_quat(batch["gt_dof"].reshape(B, 23, 3)))
+        gt6 = Rt.rotmat_to_rot6d(gt_rotmat.reshape(-1, 3, 3)).reshape(B, -1)
+        ik6 = Rt.rotmat_to_rot6d(local_mj[:, 1:].reshape(-1, 3, 3)).reshape(B, -1)
+        aux = {"aux_dof_loss": ((ik6 - gt6) ** 2).mean(-1),
+               "aux_pos_loss": ((tgt_pos - batch["gt_pos"]) ** 2).mean((-1, -2))}
+        return io, tgt_dof, aux
+
     def _loss(self, params, batch, obs_norm):
         cfg = self.cfg
-        io_n = RN.normalize(obs_norm, batch["obs"], cfg.obs_clip)
+        if cfg.use_context_ik:
+            io, ctx_dof, aux = self._context_obs(params, batch)
+        else:
+            io, ctx_dof, aux = batch["obs"], batch["ctx_dof"], {}
+        io_n = RN.normalize(obs_norm, io, cfg.obs_clip)
         mu_raw, v_norm = self._apply(params, io_n)
-        mu = torch.cat([mu_raw[..., :69] + batch["ctx_dof"], mu_raw[..., 69:]], dim=-1)
+        mu = torch.cat([mu_raw[..., :69] + ctx_dof, mu_raw[..., 69:]], dim=-1)
         sigma = self.sigma[None]
         neglogp = diag_gaussian_neglogp(batch["action"], mu, sigma)
 
@@ -294,6 +415,11 @@ class ImitationPPO:
         kl = masked(policy_kl(mu, sigma, batch["old_mu"], sigma))
         stats = dict(a_loss=masked(a_loss), c_loss=masked(c_loss), b_loss=masked(b_loss),
                      clip_frac=masked(clipped), kl=kl)
+        if cfg.use_context_ik:
+            # the alive-masked auxiliary losses join the PPO objective
+            aux_dof, aux_pos = masked(aux["aux_dof_loss"]), masked(aux["aux_pos_loss"])
+            loss = loss + cfg.aux_w_dof * aux_dof + cfg.aux_w_pos * aux_pos
+            stats.update(aux_dof_loss=aux_dof, aux_pos_loss=aux_pos)
         return loss, stats
 
     def _adapt_lr(self, lr, kl):
@@ -307,15 +433,34 @@ class ImitationPPO:
 
     # -- epoch ----------------------------------------------------------------
 
+    def epoch_env(self, ts: TrainState, draws: Optional[Dict] = None) -> HumanoidImEnv:
+        """The env an epoch steps: with model randomization, a copy with a
+        model perturbed from this env's own at schedule step epoch·horizon
+        (`draws["dr_model"]`: one standard draw per env per model spec);
+        otherwise this env."""
+        dr = self.env.randomizer
+        if dr is None or not dr.model_specs:
+            return self.env
+        model = dr.randomize_model(self.env.model, ts.epoch * self.cfg.horizon, ts.generator,
+                                   None if draws is None else draws["dr_model"])
+        return self.env.with_model(model)
+
     def train_epoch(self, ts: TrainState, draws: Optional[Dict] = None
                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One epoch. `draws` (optional) holds `motion_times` (N,), `noise`
         (T, N, A) and `perms` (mini_epochs, T·N) to use in place of the
-        generator's draws. Returns the new state (params and moments are
-        updated in place) and the metrics as 0-d tensors on the device."""
+        generator's draws; under the context corruption `corrupt` (the
+        reset's corruption draws, ``envs/corrupt.py``); under domain
+        randomization `dr_model` (per model spec (N,)), `dr_act` (T, per
+        action spec (N, A)) and `dr_obs` (T, per obs spec (N, obs_dim)) as
+        standard draws. Returns the new state (params and moments are updated
+        in place) and the metrics as 0-d tensors on the device; the env the
+        epoch stepped is kept as `last_env`."""
         cfg = self.cfg
         dev = self.device
-        traj = self.rollout(ts, draws)
+        env = self.epoch_env(ts, draws)
+        self.last_env = env
+        traj = self.rollout(ts, draws, env)
         advs = self._gae(traj)
         returns = advs + traj["value"]
 
@@ -351,6 +496,12 @@ class ImitationPPO:
         batch_all = dict(obs=obs_f, action=flat(traj["action"]), old_mu=flat(traj["mu"]),
                          old_neglogp=flat(traj["neglogp"]), adv=adv_f,
                          return_norm=ret_norm_f, alive=alive_f, ctx_dof=flat(traj["ctx_dof"]))
+        if cfg.use_context_ik:
+            # the train forward recomputes the obs from the raw state and context
+            del batch_all["obs"]
+            for k in ("raw_obs", "ctx_pos", "ctx_conf", "gt_pos", "gt_dof"):
+                batch_all[k] = flat(traj[k])
+            batch_all["rest"] = self.env.rest_joints_smpl.repeat_interleave(T, dim=0)
 
         lr = ts.lr
         if cfg.lr_schedule == "linear":

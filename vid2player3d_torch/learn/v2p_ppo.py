@@ -10,6 +10,10 @@ Differences from `ImitationPPO`, as in the JAX learner:
   update whose gradient has any non-finite element is skipped (params and
   Adam state unchanged), counted in the `grad_skip` metric
 - the optimizer is the optax-chain Adam (``learn/optim.py``), not K1
+- domain randomization (the env's `rand_specs`), as in `ImitationPPO`: every
+  epoch steps a copy of the env with its model and ball constants perturbed
+  from the env's own at schedule step `epoch · horizon`; action noise on
+  what the env executes, obs noise on the next obs
 - dual rallies (`num_policies=2`): one network per player identity, routed
   by env lane (env i is lane i % num_policies). The params are stacked
   leaves with a leading policy axis, so the optimizer sees one tree and
@@ -133,6 +137,8 @@ class V2PPPO:
         if nbatch % cfg.minibatch_size:
             raise ValueError(f"batch {nbatch} not divisible by minibatch {cfg.minibatch_size}")
         self.num_minibatches = nbatch // cfg.minibatch_size
+        # the env the last epoch stepped (a randomized copy under DR)
+        self.last_env = env
 
     def _initial_params(self) -> Dict[str, torch.Tensor]:
         if self.num_policies == 1:
@@ -183,16 +189,17 @@ class V2PPPO:
 
     def _apply(self, params, obs_n, lane):
         """(mu, value). With several policies every one evaluates the whole
-        batch and each sample keeps its lane's output."""
+        batch and each sample keeps its lane's output by a one-hot weighted
+        sum over the policies, as the JAX learner's einsum: a non-finite
+        output of another policy makes the sample non-finite (0·inf), and the
+        update's guard then skips the step."""
         if self.num_policies == 1:
             return functional_call(self.net, params, (obs_n,))
         outs = [functional_call(self.net, {k: v[p] for k, v in params.items()}, (obs_n,))
                 for p in range(self.num_policies)]
-        mu, value = outs[0]
-        for p in range(1, self.num_policies):
-            sel = lane == p
-            mu = torch.where(sel[:, None], outs[p][0], mu)
-            value = torch.where(sel, outs[p][1], value)
+        sel = torch.nn.functional.one_hot(lane, self.num_policies).T.to(outs[0][0].dtype)
+        mu = (torch.stack([o[0] for o in outs]) * sel[..., None]).sum(0)
+        value = (torch.stack([o[1] for o in outs]) * sel).sum(0)
         return mu, value
 
     def _forward(self, params, obs_norm, obs, lane=None):
@@ -207,11 +214,16 @@ class V2PPPO:
     # -- rollout ----------------------------------------------------------------
 
     @torch.no_grad()
-    def rollout(self, ts: V2PTrainState, draws: Optional[Dict] = None):
+    def rollout(self, ts: V2PTrainState, draws: Optional[Dict] = None,
+                env: Optional[TennisEnv] = None):
         """`horizon` steps from the carried env state; returns the (T, N, ...)
         trajectory with the terminate-masked next values, the new env state
-        and the last obs."""
-        cfg, env, dev = self.cfg, self.env, self.device
+        and the last obs. `env` is the env to step (this learner's unless
+        given: an epoch's randomized copy)."""
+        cfg, dev = self.cfg, self.device
+        env = self.env if env is None else env
+        dr = env.randomizer
+        dr_step = ts.epoch * cfg.horizon
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
         traj = dict(obs=torch.empty(T, N, self.obs_dim, device=dev),
                     action=torch.empty(T, N, A, device=dev),
@@ -227,7 +239,13 @@ class V2PPPO:
             else:
                 noise = as_draw(draws["noise"][t], torch.float32, dev)
             action = mu + self.sigma[None] * noise
-            env_state, out = env.step(env_state, action,
+            # randomization's action noise goes on what the env executes;
+            # the stored action stays the policy's
+            env_action = action
+            if dr is not None and dr.act_specs:
+                env_action = dr.randomize_actions(action, dr_step, ts.generator,
+                                                  None if draws is None else draws["dr_act"][t])
+            env_state, out = env.step(env_state, env_action,
                                       None if draws is None else draws["env"][t])
             traj["obs"][t] = obs
             traj["action"][t] = action
@@ -242,6 +260,9 @@ class V2PPPO:
             subs.append(out.sub_rewards)
             extras.append(out.extras)
             obs = out.obs
+            if dr is not None and dr.obs_specs:
+                obs = dr.randomize_obs(obs, dr_step, ts.generator,
+                                       None if draws is None else draws["dr_obs"][t])
         traj["sub_rewards"] = torch.stack(subs)
         traj["extras"] = {k: torch.stack([e[k] for e in extras]) for k in extras[0]}
 
@@ -296,15 +317,38 @@ class V2PPPO:
 
     # -- epoch ------------------------------------------------------------------
 
+    def epoch_env(self, ts: V2PTrainState, draws: Optional[Dict] = None) -> TennisEnv:
+        """The env an epoch steps: under model or ball randomization a copy
+        with the model and ball constants perturbed from this env's own at
+        schedule step epoch·horizon (`draws["dr_model"]`: per model spec N
+        standard draws; `draws["dr_ball"]`: one per ball spec); otherwise
+        this env."""
+        env, dr = self.env, self.env.randomizer
+        if dr is None or not (dr.model_specs or dr.ball_specs):
+            return env
+        step = ts.epoch * self.cfg.horizon
+        model = dr.randomize_model(env.model, step, ts.generator,
+                                   None if draws is None else draws["dr_model"]) \
+            if dr.model_specs else None
+        ball = dr.randomize_ball(env.ball_params, step, ts.generator,
+                                 None if draws is None else draws["dr_ball"], device=self.device) \
+            if dr.ball_specs else None
+        return env.with_model(model, ball)
+
     def train_epoch(self, ts: V2PTrainState, draws: Optional[Dict] = None
                     ) -> Tuple[V2PTrainState, Dict[str, torch.Tensor]]:
         """One epoch. `draws` (optional) holds `noise` (T, N, A), `perms`
         (mini_epochs, T·N) and `env` (T per-step draw dicts of
-        `TennisEnv.step`) in place of the generators' draws. Params and Adam
-        moments are updated in place; returns the new state and the metrics
-        as 0-d tensors on the device."""
+        `TennisEnv.step`) in place of the generators' draws; under domain
+        randomization also `dr_model`, `dr_ball`, `dr_act` (T, per action
+        spec (N, A)) and `dr_obs` (T, per obs spec (N, obs_dim)) as standard
+        draws. Params and Adam moments are updated in place; returns the new
+        state and the metrics as 0-d tensors on the device; the env the epoch
+        stepped is kept as `last_env`."""
         cfg, dev = self.cfg, self.device
-        traj, env_state, last_obs = self.rollout(ts, draws)
+        env = self.epoch_env(ts, draws)
+        self.last_env = env
+        traj, env_state, last_obs = self.rollout(ts, draws, env)
         advs = self._gae(traj)
         returns = advs + traj["value"]
 

@@ -8,11 +8,14 @@ The JAX package saves a pytree to one `.npz` with slash-joined key paths
 The flax tree maps onto the port's `ActorCritic` state dict:
 `actor_mlp/Dense_{0,1,2}` → `actor_mlp.{0,1,2}`, `mu`, `critic_mlp/...`,
 `value`; a Dense kernel (in, out) is a Linear weight (out, in). A
-`V2PPPO(num_policies=2)` tree stacks every leaf (and its Adam moments) on a
-leading policy axis, which the port's stacked params keep. The MVAE's
-flax tree, a JAX `TennisState` and a JAX ball pool map onto the port's
-`PoseMixtureVAE`, `TennisState` and `TennisBallGenerator`. Load only: the
-port writes no checkpoints of its own yet.
+context-IK learner nests its trees as `ac/params/...` and `ctx/params/...`;
+they map onto the port's `ac.` and `ctx.` submodules, `ctx_mlp/Dense_{0,1}`,
+`phis` and `leaf6d` onto `ContextHeads`. A `V2PPPO(num_policies=2)` tree
+stacks every leaf (and its Adam moments) on a leading policy axis, which the
+port's stacked params keep. The MVAE's flax tree, a JAX `TennisState` and a
+JAX ball pool map onto the port's `PoseMixtureVAE`, `TennisState` and
+`TennisBallGenerator`. Every float leaf goes through `as_f32`. Load only:
+the port writes no checkpoints of its own yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..envs.humanoid_im import EnvState
 from ..learn.running_norm import RunningNormState
 from ..physics.model import ArticulationState
 
-_LAYER = re.compile(r"(actor_mlp|critic_mlp)/Dense_(\d+)/(kernel|bias)$|(mu|value)/(kernel|bias)$")
+_LAYER = re.compile(r"(?:(?:^|/)(ac|ctx)/params/)?(?:(actor_mlp|critic_mlp|ctx_mlp)/Dense_(\d+)"
+                    r"|(mu|value|phis|leaf6d))/(kernel|bias)$")
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -36,15 +40,27 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def as_f32(arr) -> np.ndarray:
+    """A float leaf as a C-ordered float32 array. Checkpoints written before
+    the JAX package saved bf16 leaves as f32 hold them as raw 2-byte void
+    arrays; their bytes are reinterpreted as bfloat16 and widened exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        raw = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return raw.view(torch.bfloat16).float().numpy()
+    return np.array(arr, dtype=np.float32, order="C")
+
+
 def _port_name(key: str):
     """Flax key path (any prefix) → (state-dict name, is_kernel), or None."""
     m = _LAYER.search(key)
     if m is None:
         return None
-    if m.group(1):
-        return f"{m.group(1)}.{m.group(2)}.{'weight' if m.group(3) == 'kernel' else 'bias'}", \
-            m.group(3) == "kernel"
-    return f"{m.group(4)}.{'weight' if m.group(5) == 'kernel' else 'bias'}", m.group(5) == "kernel"
+    sub, mlp, layer, head, kind = m.groups()
+    name = f"{mlp}.{layer}" if mlp else head
+    if sub:
+        name = f"{sub}.{name}"
+    return f"{name}.{'weight' if kind == 'kernel' else 'bias'}", kind == "kernel"
 
 
 def _tree_to_state_dict(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, torch.Tensor]:
@@ -58,9 +74,9 @@ def _tree_to_state_dict(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, t
         name, is_kernel = named
         # a kernel (..., in, out) becomes a weight (..., out, in); a leading
         # axis is the policy axis of stacked dual-rally params
-        arr = np.array(np.swapaxes(arr, -1, -2) if is_kernel else arr, dtype=np.float32,
-                       order="C")
-        out[name] = torch.from_numpy(arr)
+        arr = as_f32(arr)
+        out[name] = torch.from_numpy(np.ascontiguousarray(np.swapaxes(arr, -1, -2))
+                                     if is_kernel else arr)
     return out
 
 
@@ -93,14 +109,14 @@ def learner_state_from_jax(flat: Dict[str, np.ndarray], names, device, moment_dt
                     nu=[nu[k].to(device, moment_dtype) for k in names])
     return (opt, running_norm_from_jax(flat, "obs_norm", device),
             running_norm_from_jax(flat, "val_norm", device), int(flat["epoch"]),
-            float(flat["lr"]))
+            float(as_f32(flat["lr"])))
 
 
 def running_norm_from_jax(flat: Dict[str, np.ndarray], name: str, device="cpu"
                           ) -> RunningNormState:
     """A RunningNormState saved as `<name>/0..2` (n, mean, var)."""
     def t(i):
-        return torch.as_tensor(np.asarray(flat[f"{name}/{i}"], np.float32), device=device)
+        return torch.as_tensor(as_f32(flat[f"{name}/{i}"]), device=device)
 
     return RunningNormState(n=t(0), mean=t(1), var=t(2))
 
@@ -136,15 +152,14 @@ def mvae_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
     for key, arr in flat.items():
         m = _MVAE_MOE.search(key)
         if m:
-            out[f"decoder.{m.group(1)}.{m.group(2)}"] = torch.from_numpy(
-                np.array(arr, dtype=np.float32, order="C"))
+            out[f"decoder.{m.group(1)}.{m.group(2)}"] = torch.from_numpy(as_f32(arr))
             continue
         m = _MVAE_DENSE.search(key)
         if m:
             is_kernel = m.group(3) == "kernel"
+            arr = as_f32(arr)
             out[f"{m.group(1)}.{m.group(2)}.{'weight' if is_kernel else 'bias'}"] = \
-                torch.from_numpy(np.array(arr.T if is_kernel else arr, dtype=np.float32,
-                                          order="C"))
+                torch.from_numpy(np.ascontiguousarray(arr.T) if is_kernel else arr)
     return out
 
 
@@ -154,7 +169,7 @@ def _tensor(a, device):
         return torch.tensor(a, dtype=torch.bool, device=device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, dtype=torch.int32, device=device)
-    return torch.tensor(a, dtype=torch.float32, device=device)
+    return torch.tensor(as_f32(a), device=device)
 
 
 def tennis_state_from_jax(arrays: Dict[str, np.ndarray], device="cpu"):
