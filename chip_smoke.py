@@ -19,8 +19,9 @@ Phases, each printing one line (any failed phase exits non-zero):
   4. K2       moe_linear against its plain version at the MVAE decoder's three
               full-width layers (E = 6; 320->256, 288->256, 288->290) at
               B = 10,240, 7,680 (one lane's decode in the dual rally), 1,001,
-              255 and 1, its prep kernel bit for bit with the plain TF32
-              split, its backward against autograd at B = 256; its tiling;
+              255, 100 (the MotionVAE trainer's batch) and 1, its prep kernel
+              bit for bit with the plain TF32 split, its backward against
+              autograd at B = 256 and 100; its tiling;
               time per decode (3 prep + 3 GEMM launches) at B = 10,240 and
               7,680, eager and as a CUDA-graph replay beside the 3xTF32 and
               f32 SIMT bounds, the plain version's, and one cuBLAS GEMM per
@@ -87,12 +88,36 @@ Phases, each printing one line (any failed phase exits non-zero):
   17. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
               the federer MVAE width), two epochs: K2's and K3's launches,
               grad_skip 0, each epoch's ball constants
-  18. profile torch.profiler over a short imitation epoch, a short tennis
+  18. ckpt    the port's checkpoints in the JAX package's layout: the
+              tennis_main learner's save -> load bit for bit;
+              `load_stage_checkpoint` of that file into a stage-2 learner on
+              phase 10's env (every leaf carried, lr dropped to stage 2's)
+              and 8 finite warm-started steps with K3 counted (1 + 2 per
+              step); the dual learner's warm start from the same file (each
+              lane the single policy); the main imitation learner's file
+              (bf16 moments) round-tripped; tennis_main's ball pool and
+              main's motion library round-tripped on the card; save and load
+              times
+  19. mvae parity  two small MotionVAE epochs (hidden 64, 3 experts, batch
+              8) on the card against the CPU with the same draws
+  20. mvae main    mvae_federer at full width (frame 288 -> 290 outputs,
+              latent 32, hidden 256, 6 experts, batch 100, 10-frame
+              windows) on a synthetic pose dataset, 2 epochs x 50 windows
+              (900 optimizer steps) from epoch 75, K2's counters set to 0
+              just before and read just after (2,700 prep + 2,700 GEMM); the
+              forward/backward/Adam split per optimizer step and the device's
+              idle share over one window; K2 at B = 100 (forward and
+              backward held to the plain version on the inputs it times;
+              eager and graph, bound, cuBLAS yardstick, backward); save -> a
+              fresh trainer's load -> `spec_from_trainer` -> the 120-step
+              random-walk report (8 envs); 8 TennisEnv steps at 10,240 envs
+              driven by the trained spec (K2 3 + 3, K3 2 per step)
+  21. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and a short dual rollout: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  19. kernels one JSON line over the ported kernels, each kernel's launches
+  22. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -448,7 +473,7 @@ def main_phase(dev, card: str):
         epoch_env_steps_per_s=NUM_ENVS * HORIZON / epoch_s[-1],
         optimizer_steps_per_epoch=steps_per_epoch, k1_launches=launches,
         peak_mem_gib=peak_gib, metrics=rows)
-    return launches
+    return launches, agent, ts, lib
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +557,7 @@ STAGE2_ENVS, STAGE2_STEPS = 15360, 8
 # `dual_main` runs one epoch (cut from two, as `main` and `tennis_main`)
 DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 1
 LANE_DECODE = DUAL_ENVS // 2    # the dual rally decodes each lane's rows on their own
+MVAE_BATCH = 100                # mvae_federer's batch: the trainer's decodes
 KERNEL_TIMED = 50
 
 
@@ -546,13 +572,14 @@ def _moe_layer_inputs(dev, batch, d_in, d_out, gen):
     return x, coeff, w, b
 
 
-def _k2_times(dev, card: str, batch: int, gen):
-    """One decode's three layers at `batch` rows: the kernels, their plain
-    versions and the cuBLAS yardstick, eager and as graphs, beside the
-    bounds."""
+def _k2_times(dev, card: str, batch: int, gen, layers=None):
+    """One decode's three layers at `batch` rows (`layers`, else fresh
+    inputs): the kernels, their plain versions and the cuBLAS yardstick,
+    eager and as graphs, beside the bounds."""
     from vid2player3d_torch.ops import moe_linear as MOE
 
-    layers = [_moe_layer_inputs(dev, batch, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
+    if layers is None:
+        layers = [_moe_layer_inputs(dev, batch, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
     # the library yardstick: x @ W reshaped to (in, 6*out), one cuBLAS GEMM
     # per layer with the same FLOPs and no blend
     wide = [(x, w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()) for x, _, w, _ in layers]
@@ -598,6 +625,25 @@ def _k2_times(dev, card: str, batch: int, gen):
                 share_of_f32_simt_bound=f32_bound_ms / graph_ms)
 
 
+def _k2_backward_err(MOE, leaves, g):
+    """The largest gap between K2's autograd.Function gradients and autograd
+    of the plain forward on the same leaves; fails beyond 1e-3 relative."""
+    import torch
+
+    lk = [t.clone().requires_grad_(True) for t in leaves]
+    lp = [t.clone().requires_grad_(True) for t in leaves]
+    gk = torch.autograd.grad(MOE.moe_linear(*lk), lk, g)
+    gp = torch.autograd.grad(MOE.moe_linear_ref(*lp), lp, g)
+    err = 0.0
+    for a, c in zip(gk, gp):
+        e = float((a - c).abs().max())
+        err = max(err, e)
+        if not e <= 1e-3 * max(1.0, float(c.abs().max())):
+            fail(f"K2 backward disagrees with autograd at B={g.shape[0]} "
+                 f"{leaves[0].shape[1]}x{g.shape[1]}: {e}")
+    return err
+
+
 def k2_phase(dev, card: str):
     import torch
 
@@ -608,7 +654,7 @@ def k2_phase(dev, card: str):
     # plain version's (cuBLAS, blend after the product) differ by rounding
     tol = 1e-4
     errs = {}
-    for batch in (TENNIS_ENVS, LANE_DECODE, 1001, 255, 1):
+    for batch in (TENNIS_ENVS, LANE_DECODE, 1001, 255, MVAE_BATCH, 1):
         for d_in, d_out in MOE_LAYERS:
             x, coeff, w, b = _moe_layer_inputs(dev, batch, d_in, d_out, gen)
             got = MOE.moe_linear(x, coeff, w, b)
@@ -629,19 +675,9 @@ def k2_phase(dev, card: str):
     if split_err != 0.0:
         fail(f"K2's prep kernel disagrees with its plain version: {split_err}")
     # the autograd.Function's backward against autograd of the plain forward
-    bwd_err = 0.0
-    for d_in, d_out in MOE_LAYERS:
-        leaves = _moe_layer_inputs(dev, 256, d_in, d_out, gen)
-        g = torch.randn(256, d_out, generator=gen, device=dev)
-        lk = [t.clone().requires_grad_(True) for t in leaves]
-        lp = [t.clone().requires_grad_(True) for t in leaves]
-        gk = torch.autograd.grad(MOE.moe_linear(*lk), lk, g)
-        gp = torch.autograd.grad(MOE.moe_linear_ref(*lp), lp, g)
-        for a, c in zip(gk, gp):
-            e = float((a - c).abs().max())
-            bwd_err = max(bwd_err, e)
-            if not e <= 1e-3 * max(1.0, float(c.abs().max())):
-                fail(f"K2 backward disagrees with autograd at {d_in}x{d_out}: {e}")
+    bwd_err = max(_k2_backward_err(MOE, _moe_layer_inputs(dev, batch, d_in, d_out, gen),
+                                   torch.randn(batch, d_out, generator=gen, device=dev))
+                  for batch in (256, MVAE_BATCH) for d_in, d_out in MOE_LAYERS)
     tilings = {f"out{o}": MOE.tiling(o) for o in sorted({o for _, o in MOE_LAYERS})}
     for t in tilings.values():
         if t["ctas_per_sm"] < 1:
@@ -1034,6 +1070,7 @@ def stage2_phase(dev, card: str, agent, ts):
     say("stage2", card=card, envs=STAGE2_ENVS, substeps=6, steps=STAGE2_STEPS,
         obs_finite=finite, setup_s=setup_s, k3_launches=k3, ms_per_step=[s * 1e3 for s in step_s],
         env_steps_per_s=STAGE2_ENVS * (STAGE2_STEPS - 1) / sum(step_s[1:]))
+    return env
 
 
 # ---------------------------------------------------------------------------
@@ -1610,7 +1647,386 @@ def tennis_dr_main_phase(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 18 (tennis and dual parts): where a rollout's time goes
+# phases 18-20: slice 5's checkpoints, the MotionVAE trainer
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+MVAE_EPOCHS, MVAE_BATCHES = 2, 50       # cut from the config's 500 epochs x 500 windows
+MVAE_START_EPOCH = 75                   # mid-curriculum: teacher-forced and regressive windows
+MVAE_REPORT_STEPS, MVAE_REPORT_ENVS, MVAE_TENNIS_STEPS = 120, 8, 8
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same(what, a, b):
+    """Bit-for-bit equality of two tensors, or the phase fails."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        fail(f"{what}: {a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}, "
+             "values differ")
+
+
+def _same_learner_state(what, a, b):
+    for k in a.params:
+        _same(f"{what} param {k}", a.params[k].detach(), b.params[k].detach())
+    for i, (m0, m1, v0, v1) in enumerate(zip(a.opt_state.mu, b.opt_state.mu, a.opt_state.nu,
+                                             b.opt_state.nu)):
+        _same(f"{what} mu[{i}]", m0, m1)
+        _same(f"{what} nu[{i}]", v0, v1)
+    _same(f"{what} count", a.opt_state.count.to(b.opt_state.count.device), b.opt_state.count)
+    for n in ("obs_norm", "val_norm"):
+        for f in ("n", "mean", "var"):
+            _same(f"{what} {n}.{f}", getattr(getattr(a, n), f), getattr(getattr(b, n), f))
+    if a.epoch != b.epoch or float(a.lr) != float(b.lr):
+        fail(f"{what}: epoch/lr {a.epoch}/{float(a.lr)} against {b.epoch}/{float(b.lr)}")
+
+
+def ckpt_phase(dev, card: str, agent, ts, stage2_env, dual_agent, im_agent, im_ts, lib):
+    """The port's checkpoints on the card: the stage-1 learner's file read
+    back bit for bit; its warm start into a stage-2 learner (surgery with
+    unchanged dims: every leaf carried, lr dropped to stage 2's) stepped 8
+    times with K3 counted; into the dual learner (each lane the single
+    policy); the imitation learner's bf16 moments; the ball pool and the
+    motion library."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from vid2player3d_torch.data.motion_lib import MotionLib
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    times = {}
+    path = os.path.join(CKPT_DIR, "stage1.npz")
+    _, times["stage1_save_s"] = _timed(lambda: agent.save_checkpoint(path, ts))
+    back, times["stage1_load_s"] = _timed(lambda: agent.load_checkpoint(path))
+    _same_learner_state("stage-1 checkpoint", ts, back)
+
+    stage2 = V2PPPO(stage2_env, V2PConfig(horizon=32, minibatch_size=16384, mini_epochs=6,
+                                          learning_rate=2e-5, sigma_init=-0.69,
+                                          bounds_loss_coef=10.0), seed=7, device=dev)
+    FK.fk_chain.launches = 0
+    ts2, times["stage2_warm_start_s"] = _timed(lambda: stage2.load_stage_checkpoint(path))
+    expect = dataclasses.replace(back, lr=torch.tensor(2e-5, device=dev))
+    _same_learner_state("stage-2 warm start", expect, ts2)
+    obs, state, finite = ts2.last_obs, ts2.env_state, True
+    step_s = []
+    with torch.no_grad():
+        for _ in range(STAGE2_STEPS):
+            t0 = time.perf_counter()
+            mu, _ = stage2._forward(ts2.params, ts2.obs_norm, obs)
+            state, out = stage2_env.step(state, mu)
+            obs = out.obs
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(out.obs).all()) \
+                and bool(torch.isfinite(out.reward).all())
+    if not finite:
+        fail("stage-2 warm-started steps not finite")
+    k3 = FK.fk_chain.launches
+    if k3 != 1 + 2 * STAGE2_STEPS:
+        fail(f"K3 launched {k3} times in the warm-started reset and {STAGE2_STEPS} steps, "
+             f"expected {1 + 2 * STAGE2_STEPS}")
+
+    dual_ts, times["dual_warm_start_s"] = _timed(lambda: dual_agent.load_stage_checkpoint(path))
+    for k, v in back.params.items():
+        for lane in range(dual_agent.num_policies):
+            _same(f"dual lane {lane} param {k}", dual_ts.params[k][lane].detach(), v.detach())
+    for i, m in enumerate(back.opt_state.mu):
+        _same(f"dual lane 1 mu[{i}]", dual_ts.opt_state.mu[i][1], m)
+
+    im_path = os.path.join(CKPT_DIR, "imitation.npz")
+    _, times["imitation_save_s"] = _timed(lambda: im_agent.save_checkpoint(im_path, im_ts))
+    im_back, times["imitation_load_s"] = _timed(lambda: im_agent.load_checkpoint(im_path))
+    _same_learner_state("imitation checkpoint", im_ts, im_back)
+    if im_back.opt_state.mu[0].dtype != torch.bfloat16:
+        fail(f"imitation moments came back as {im_back.opt_state.mu[0].dtype}")
+
+    gen = agent.env.gen
+    pool_path = os.path.join(CKPT_DIR, "pool.npz")
+    _, times["pool_save_s"] = _timed(lambda: gen.save_npz(pool_path))
+    pool, times["pool_load_s"] = _timed(lambda: TennisBallGenerator.from_npz(pool_path,
+                                                                              device=dev))
+    for name in ("traj_pool", "launch_pos", "launch_vel", "launch_vspin", "x_order"):
+        _same(f"ball pool {name}", getattr(pool, name), getattr(gen, name))
+    lib_path = os.path.join(CKPT_DIR, "motion_lib.npz")
+    _, times["motion_lib_save_s"] = _timed(lambda: lib.save(lib_path))
+    lib2, times["motion_lib_load_s"] = _timed(lambda: MotionLib.load(lib_path, device=dev))
+    for f in dataclasses.fields(MotionLib):
+        _same(f"motion lib {f.name}", getattr(lib2, f.name), getattr(lib, f.name).to(dev))
+    sizes = {os.path.basename(p): os.path.getsize(p)
+             for p in (path, im_path, pool_path, lib_path)}
+    say("ckpt", card=card, nvidia_smi=nvidia_smi(), stage2_envs=STAGE2_ENVS,
+        stage2_steps=STAGE2_STEPS, stage2_k3_launches=k3,
+        stage2_ms_per_step=[s * 1e3 for s in step_s], dual_policies=dual_agent.num_policies,
+        bytes=sizes, pool=gen.pool_size, motion_lib_frames=int(lib.gts.shape[0]),
+        imitation_moments=str(im_back.opt_state.mu[0].dtype), finite=finite,
+        all_finite=all(math.isfinite(v) for v in times.values()), **times)
+    return {"fk_chain": k3}
+
+
+def _mvae_small(device, seed=0):
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
+
+    opt = MVAEOption(latent_size=8, hidden_size=64, num_experts=3, nframes_seq=6, batch_size=8,
+                     predict_phase=True, curriculum_schedule=(0.0, 0.25),
+                     mixed_phase_schedule=((0.0, 1.0), (0.5, 0.1)), softmax_future=True,
+                     n_epochs=4, n_epochs_decay=4, lr=3e-4,
+                     checkpoint_dir=os.path.join(CKPT_DIR, f"mvae_small_{device}"), seed=seed)
+    return MVAETrainer(opt, make_synthetic_pose_dataset(opt, num_seqs=3, T=60, seed=0),
+                       device=device)
+
+
+def mvae_parity_phase(dev):
+    """Two small MVAE epochs (2 windows of 5 optimizer steps) on the card
+    against the CPU with the same reparameterization draws, within the CPU
+    test's bounds against the JAX trainer: losses 1e-5 relative, params
+    2·steps·lr elementwise, the update 1e-3 of its norm."""
+    import numpy as np
+
+    gpu, cpu = _mvae_small(dev), _mvae_small("cpu")
+    p0 = [p.detach().clone() for p in cpu.params]
+    rng = np.random.default_rng(1)
+    losses, steps = [], 0
+    for _ in range(2):
+        eps = rng.standard_normal((2, 5, 8, 8)).astype(np.float32)
+        lg = gpu.train_epoch(batches_per_epoch=2, draws={"eps": eps})
+        lc = cpu.train_epoch(batches_per_epoch=2, draws={"eps": eps})
+        steps += 10
+        for k in lc:
+            if not abs(lg[k] - lc[k]) <= 1e-5 * abs(lc[k]) + 1e-7:
+                fail(f"MVAE parity: loss {k} {lg[k]} on the card, {lc[k]} on the CPU")
+        losses.append({"card": lg, "cpu": lc})
+    err, upd = 0.0, 0.0
+    for a, b, b0 in zip(gpu.params, cpu.params, p0):
+        a, b = a.detach().cpu(), b.detach()
+        err = max(err, float((a - b).abs().max()))
+        rel = float((a - b).norm()) / max(float((b - b0).norm()), 1e-12)
+        upd = max(upd, rel)
+    if not err <= 2 * steps * gpu.opt.lr or not upd <= 1e-3:
+        fail(f"MVAE parity: params differ by {err} (bound {2 * steps * gpu.opt.lr}), update by "
+             f"{upd} of its norm")
+    say("mvae_parity", steps=steps, params_max_abs_err=err, update_rel_err=upd, losses=losses)
+
+
+def _mvae_step_split(trainer, feat, phase, reps: int = 20):
+    """Device time of one optimizer step's forward (with the loss), backward
+    and Adam at the trainer's batch, each timed alone with CUDA events over
+    `reps` runs; Adam on copies of the params and moments."""
+    import torch
+
+    from vid2player3d_torch.learn.optim import AdamState, adam_apply
+
+    B = feat.shape[0]
+    cond, gt, gp = feat[:, :1], feat[:, 1:2], phase[:, 1:2]
+    eps = torch.randn(B, trainer.opt.latent_size, device=feat.device)
+    lr = torch.tensor(trainer.opt.lr, device=feat.device)
+    total, _, _ = trainer.loss(cond, gt, gp, eps, 10.0)
+    grads = torch.autograd.grad(total, trainer.params)
+    params = [p.detach().clone() for p in trainer.params]
+    st = trainer.opt_state
+    state = AdamState(count=st.count.clone(), mu=[m.clone() for m in st.mu],
+                      nu=[v.clone() for v in st.nu])
+
+    def backward():
+        t, _, _ = trainer.loss(cond, gt, gp, eps, 10.0)
+        torch.autograd.grad(t, trainer.params)
+
+    forward_ms = cuda_ms(lambda: trainer.loss(cond, gt, gp, eps, 10.0), reps)
+    return dict(forward_ms=forward_ms,
+                backward_ms=cuda_ms(backward, reps) - forward_ms,
+                adam_ms=cuda_ms(lambda: adam_apply(params, state, grads, lr), reps))
+
+
+def _k2_b100(dev, card: str, gen):
+    """K2 at the trainer's batch (B = 100): on the decoder's three layers,
+    the forward held to its plain version (1e-4 relative, as phase 4) and
+    the backward to autograd of the plain forward (1e-3 relative), then on
+    the same inputs one forward eager and as a graph, its bound, the cuBLAS
+    yardstick, and the backward (the plain `_moe_bwd`)."""
+    import torch
+
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    tol = 1e-4
+    layers = [_moe_layer_inputs(dev, MVAE_BATCH, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
+    gs = [torch.randn(MVAE_BATCH, d_out, generator=gen, device=dev) for _, d_out in MOE_LAYERS]
+    err = 0.0
+    for a in layers:
+        want = MOE.moe_linear_ref(*a)
+        e = float((MOE.moe_linear(*a) - want).abs().max())
+        err = max(err, e)
+        if not e <= tol * max(1.0, float(want.abs().max())):
+            fail(f"K2 disagrees with its plain version at B={MVAE_BATCH} "
+                 f"{a[0].shape[1]}x{want.shape[1]}: {e}")
+    bwd_err = max(_k2_backward_err(MOE, a, g) for a, g in zip(layers, gs))
+    times = _k2_times(dev, card, MVAE_BATCH, gen, layers)
+    bwd = lambda: [MOE._moe_bwd(*a, g) for a, g in zip(layers, gs)]  # noqa: E731
+    keep = ("ms", "graph_ms", "plain_ms", "plain_graph_ms", "library_ms", "library_graph_ms",
+            "split_ms", "split_graph_ms", "bound_ms", "bound_by", "f32_simt_bound_ms",
+            "split_bound_ms", "share_of_3xtf32_bound", "achieved_tflops")
+    return dict({k: times[k] for k in keep}, max_abs_err=err, tol=tol,
+                backward_max_abs_err=bwd_err, backward_ms=cuda_ms(bwd, KERNEL_TIMED),
+                backward_graph_ms=_graph_ms(bwd, KERNEL_TIMED))
+
+
+def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
+    """mvae_federer at full width (frame 288 -> 290 outputs, latent 32,
+    hidden 256, 6 experts, batch 100, 10-frame windows: 9 optimizer steps
+    each) on a synthetic pose dataset, 2 epochs x 50 windows from epoch 75;
+    K2's counters set to 0 just before and read just after (3 prep + 3 GEMM
+    per optimizer step); then save -> a fresh trainer's load -> the spec ->
+    the random-walk report, and 8 TennisEnv steps at federer_train_stage_1's
+    10,240 envs driven by the trained spec."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vid2player3d_torch.envs import TennisConfig, TennisEnv
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
+    from vid2player3d_torch.mvae.eval import report_for_trainer
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import moe_linear as MOE
+    from vid2player3d_torch.tennis import player as P
+
+    t0 = time.perf_counter()
+    opt = MVAEOption.load("federer")
+    if opt.batch_size != MVAE_BATCH:
+        fail(f"mvae_federer's batch is {opt.batch_size}; K2 was checked at {MVAE_BATCH}")
+    opt.checkpoint_dir = os.path.join(CKPT_DIR, "mvae")
+    ds = make_synthetic_pose_dataset(opt, num_seqs=64, T=300, seed=0)
+    trainer = MVAETrainer(opt, ds, device=dev)
+    trainer.epoch = MVAE_START_EPOCH
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nsteps = opt.nframes_seq - opt.num_future_predictions - opt.num_condition_frames + 1
+
+    regs = []
+    regressive = trainer._regressive
+    trainer._regressive = lambda e: regs.append(regressive(e)) or regs[-1]
+    torch.cuda.reset_peak_memory_stats()
+    MOE.moe_linear.launches = MOE.split_weights.launches = 0
+    epoch_s, rows = [], []
+    for _ in range(MVAE_EPOCHS):
+        t0 = time.perf_counter()
+        rows.append(trainer.train_epoch(batches_per_epoch=MVAE_BATCHES))
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    k2, k2_prep = MOE.moe_linear.launches, MOE.split_weights.launches
+    del trainer._regressive
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = MVAE_EPOCHS * MVAE_BATCHES * nsteps
+    if k2 != 3 * steps or k2_prep != 3 * steps:
+        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps in MVAE training, expected "
+             f"{3 * steps} each")
+    if int(trainer.opt_state.count) != steps:
+        fail(f"MVAE optimizer count {int(trainer.opt_state.count)}, expected {steps}")
+    for i, r in enumerate(rows):
+        if not all(math.isfinite(v) for v in r.values()):
+            fail(f"MVAE epoch {i}: non-finite losses {r}")
+
+    # where an optimizer step's time goes, and the device's idle share over
+    # one window (launch counts restored: these are not the main path's)
+    feat, phase = ds.sample_batch(opt.batch_size)
+    feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
+    phase = torch.as_tensor(phase, dtype=torch.float32, device=dev)
+    split = _mvae_step_split(trainer, feat, phase)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_window(feat, phase, False, 10.0, torch.tensor(0.0, device=dev))
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    evs = _device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in evs) * 1e-6
+    k2_busy = sum(e.time_range.elapsed_us() for e in evs
+                  if "moe_linear_kernel" in e.name or "moe_split_w_kernel" in e.name) * 1e-6
+    k2_b100 = _k2_b100(dev, card, torch.Generator(device=dev).manual_seed(5))
+    MOE.moe_linear.launches, MOE.split_weights.launches = k2, k2_prep
+
+    # save -> a fresh trainer's load -> the spec -> the random-walk report
+    _, save_s = _timed(trainer.save_checkpoint)
+    fresh = MVAETrainer(opt, make_synthetic_pose_dataset(opt, num_seqs=4, T=120, seed=1),
+                        device=dev)
+    _, load_s = _timed(fresh.load_checkpoint)
+    for a, b in zip(fresh.params, trainer.params):
+        _same("MVAE checkpoint param", a.detach(), b.detach())
+    if not np.array_equal(fresh.dataset.std, trainer.dataset.std):
+        fail("MVAE checkpoint: std differs")
+    MOE.moe_linear.launches = MOE.split_weights.launches = 0
+    report, report_s = _timed(lambda: report_for_trainer(
+        fresh, num_steps=MVAE_REPORT_STEPS, num_envs=MVAE_REPORT_ENVS))
+    report_k2 = (MOE.moe_linear.launches, MOE.split_weights.launches)
+    if report_k2 != (3 * MVAE_REPORT_STEPS, 3 * MVAE_REPORT_STEPS):
+        fail(f"K2 launched {report_k2} in the {MVAE_REPORT_STEPS}-step random walk")
+    if not report["finite"] or not all(math.isfinite(v) for v in report.values()):
+        fail(f"MVAE random-walk report not finite: {report}")
+
+    # the trained spec drives federer_train_stage_1's env, from the
+    # checkpoint's own init frames
+    spec = P.spec_from_trainer(fresh)
+    init = np.load(os.path.join(fresh.checkpoint_dir(), "init_frames.npy"))
+    src = tennis_agent.env
+    env = TennisEnv(src.cfg, spec, init, ball_generator=src.gen, pi_low=src.pi_low, device=dev)
+    state, obs = env.reset_all()
+    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+    step_s, finite = [], True
+    with torch.no_grad():
+        for _ in range(MVAE_TENNIS_STEPS):
+            t0 = time.perf_counter()
+            mu, _ = tennis_agent._forward(tennis_ts.params, tennis_ts.obs_norm, obs)
+            state, out = env.step(state, mu)
+            obs = out.obs
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            finite = finite and bool(torch.isfinite(out.obs).all())
+    tennis_k = (MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches)
+    if tennis_k != (3 * MVAE_TENNIS_STEPS, 3 * MVAE_TENNIS_STEPS, 2 * MVAE_TENNIS_STEPS):
+        fail(f"the trained spec's tennis steps launched K2/prep/K3 {tennis_k}")
+    if not finite:
+        fail("tennis steps driven by the trained MVAE not finite")
+    MOE.moe_linear.launches, MOE.split_weights.launches = k2, k2_prep
+
+    nbytes = {n: os.path.getsize(os.path.join(fresh.checkpoint_dir(), n))
+              for n in ("latest.npz", "avg.npy", "std.npy", "init_frames.npy")}
+    say("mvae_main", card=card, nvidia_smi=nvidia_smi(), config="mvae_federer",
+        widths="frame 288 -> 290 outputs, latent 32, hidden 256, 6 experts",
+        batch=opt.batch_size, nframes_seq=opt.nframes_seq, optimizer_steps_per_window=nsteps,
+        epochs=MVAE_EPOCHS, windows_per_epoch=MVAE_BATCHES, start_epoch=MVAE_START_EPOCH,
+        cut=f"{MVAE_EPOCHS} epochs x {MVAE_BATCHES} windows of the config's 500 x 500",
+        dataset_frames=int(ds.feature_arr.shape[0]), regressive_windows=int(sum(regs)),
+        setup_s=setup_s, epoch_s=epoch_s,
+        optimizer_steps_per_s=[MVAE_BATCHES * nsteps / e for e in epoch_s],
+        ms_per_optimizer_step=[e / (MVAE_BATCHES * nsteps) * 1e3 for e in epoch_s],
+        step_split_device_ms=split, window_wall_s=window_s, window_device_busy_s=busy,
+        window_device_idle_share=(1.0 - busy / window_s) if evs else "not measured",
+        window_k2_device_share=k2_busy / busy if busy else "not measured",
+        window_device_events=len(evs), k2_launches=k2, k2_prep_launches=k2_prep,
+        peak_mem_gib=peak_gib, losses=rows, k2_B100=k2_b100, save_s=save_s, load_s=load_s,
+        checkpoint_bytes=nbytes, report_s=report_s, report_steps=MVAE_REPORT_STEPS,
+        report_envs=MVAE_REPORT_ENVS, report_k2_launches=report_k2[0], report=report,
+        tennis_envs=env.cfg.num_envs, tennis_steps=MVAE_TENNIS_STEPS,
+        tennis_ms_per_step=[s * 1e3 for s in step_s],
+        tennis_k2_k2prep_k3_launches=list(tennis_k))
+    return {"moe_linear": k2, "moe_split_w": k2_prep}, k2_b100
+
+
+# ---------------------------------------------------------------------------
+# phase 21 (tennis and dual parts): where a rollout's time goes
 # ---------------------------------------------------------------------------
 
 def rollout_profile_phase(name: str, card: str, agent, ts):
@@ -1694,10 +2110,10 @@ def main() -> None:
     k2 = k2_phase(dev, card)
     k3 = k3_phase(dev, card)
     parity_phase(dev)
-    k1_launches = main_phase(dev, card)
+    k1_launches, im_agent, im_ts, im_lib = main_phase(dev, card)
     tennis_parity_phase(dev)
     agent, ts, tennis_launches = tennis_main_phase(dev, card)
-    stage2_phase(dev, card, agent, ts)
+    stage2_env = stage2_phase(dev, card, agent, ts)
     dual_parity_phase(dev)
     dual_agent, dual_ts, dual_launches = dual_main_phase(dev, card)
     dr_parity_phase(dev)
@@ -1705,6 +2121,11 @@ def main() -> None:
     k1_dr = im_dr_main_phase(dev, card)
     k1_ctx = im_ctx_main_phase(dev, card)
     tennis_dr_launches = tennis_dr_main_phase(dev, card)
+    warm_launches = ckpt_phase(dev, card, agent, ts, stage2_env, dual_agent, im_agent, im_ts,
+                               im_lib)
+    del stage2_env, im_lib
+    mvae_parity_phase(dev)
+    mvae_launches, k2_b100 = mvae_main_phase(dev, card, agent, ts)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
     rollout_profile_phase("dual_profile", card, dual_agent, dual_ts)
@@ -1714,18 +2135,22 @@ def main() -> None:
                  "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
     # K1 runs on three main paths (the imitation epochs, amass_im_dr's and
     # amass_im_corrupt's); K2 and K3 on three (the stage-1 tennis epochs, the
-    # dual rally's and federer_train_stage_1_dr's). `launches` is K1's on the
-    # imitation path and K2's and K3's on the dual path, each path's count
-    # beside it
+    # dual rally's and federer_train_stage_1_dr's), K2 also on the MotionVAE
+    # trainer's and K3 on the warm-started stage-2 steps. `launches` is K1's
+    # on the imitation path and K2's and K3's on the dual path, each path's
+    # count beside it
     def k1_paths(kind):
         return {"launches_per_path": {"imitation": k1_launches[kind], "im_dr": k1_dr[kind],
                                       "im_ctx": k1_ctx[kind]}}
 
     def per_path(name):
-        return {"launches": dual_launches[name],
-                "launches_per_path": {"tennis_stage1": tennis_launches[name],
-                                      "dual_rally": dual_launches[name],
-                                      "tennis_stage1_dr": tennis_dr_launches[name]}}
+        paths = {"tennis_stage1": tennis_launches[name], "dual_rally": dual_launches[name],
+                 "tennis_stage1_dr": tennis_dr_launches[name]}
+        if name in mvae_launches:
+            paths["mvae_train"] = mvae_launches[name]
+        if name in warm_launches:
+            paths["stage2_warm_start"] = warm_launches[name]
+        return {"launches": dual_launches[name], "launches_per_path": paths}
 
     kernels = [
         {"name": "fused_adam_norm", **k1_common, "launches": k1_launches["norm"],
@@ -1764,7 +2189,7 @@ def main() -> None:
                                "library_ms")},
          "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240, and per_lane_B7680 "
                  "one lane's decode in the dual rally; bound: 3xTF32",
-         "per_lane_B7680": k2["per_lane_B7680"],
+         "per_lane_B7680": k2["per_lane_B7680"], "mvae_B100": k2_b100,
          "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
          "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
          "backward_max_abs_err": k2["backward_max_abs_err"]},

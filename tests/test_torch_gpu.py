@@ -591,3 +591,42 @@ def test_slice4_imitation_epoch_matches_cpu(cuda, name):
     ref, got = metrics["cpu"], metrics[str(cuda)]
     for k in ref:
         assert abs(got[k] - ref[k]) <= atol.get(k, 1e-5) + 1e-4 * abs(ref[k]), k
+
+
+def _mvae_trainer(device, tmp, seed=0):
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
+
+    opt = MVAEOption(latent_size=8, hidden_size=64, num_experts=3, nframes_seq=6, batch_size=8,
+                     predict_phase=True, curriculum_schedule=(0.0, 0.25),
+                     mixed_phase_schedule=((0.0, 1.0), (0.5, 0.1)), softmax_future=True,
+                     n_epochs=4, n_epochs_decay=4, lr=3e-4, checkpoint_dir=str(tmp), seed=seed)
+    ds = make_synthetic_pose_dataset(opt, num_seqs=3, T=60, seed=0)
+    return MVAETrainer(opt, ds, device=device)
+
+
+def test_mvae_epochs_match_cpu_and_launch_k2(cuda, tmp_path):
+    """Two small MVAE epochs (2 windows of 5 optimizer steps each) on the
+    card against the same on the CPU with the same draws: losses within
+    1e-5 relative, params within 2·steps·lr and the update within 1e-3 of
+    its norm (the CPU test's bounds against the JAX trainer); 3 prep + 3
+    GEMM launches per optimizer step."""
+    import numpy as np
+
+    gpu, cpu = _mvae_trainer(cuda, tmp_path / "gpu"), _mvae_trainer("cpu", tmp_path / "cpu")
+    p0 = [p.detach().cpu().clone() for p in cpu.params]
+    rng = np.random.default_rng(1)
+    steps = 0
+    MOE.moe_linear.launches = MOE.split_weights.launches = 0
+    for _ in range(2):
+        eps = rng.standard_normal((2, 5, 8, 8)).astype(np.float32)
+        lg = gpu.train_epoch(batches_per_epoch=2, draws={"eps": eps})
+        lc = cpu.train_epoch(batches_per_epoch=2, draws={"eps": eps})
+        steps += 10
+        for k in lc:
+            assert lg[k] == pytest.approx(lc[k], rel=1e-5, abs=1e-7), k
+    torch.cuda.synchronize()
+    assert MOE.moe_linear.launches == MOE.split_weights.launches == 3 * steps
+    for a, b, b0 in zip(gpu.params, cpu.params, p0):
+        a, b = a.detach().cpu(), b.detach()
+        torch.testing.assert_close(a, b, atol=2 * steps * gpu.opt.lr, rtol=0)
+        assert float((a - b).norm()) <= 1e-3 * float((b - b0).norm()) + 1e-12

@@ -41,7 +41,10 @@ print(len(names), bad)
 assert not bad, bad
 # the modules of slice 4 (domain randomization, the corrupted-context IK)
 new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
-       "vid2player3d_torch.envs.presets", "vid2player3d_torch.core.ik"}
+       "vid2player3d_torch.envs.presets", "vid2player3d_torch.core.ik",
+       # slice 5: MotionVAE training and its harness
+       "vid2player3d_torch.mvae.dataset", "vid2player3d_torch.mvae.train",
+       "vid2player3d_torch.mvae.eval"}
 assert new <= set(names), new - set(names)
 """
 
@@ -73,6 +76,48 @@ def test_entry_points_need_a_device_without_cuda():
         ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8))
     assert ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8), device="cpu") \
         .device.type == "cpu"
+
+
+def test_slice5_entry_points_need_a_device_without_cuda(tmp_path):
+    """With no CUDA device, the MotionVAE trainer, the library and pool
+    loaders and the constructors that once defaulted to the CPU raise unless
+    given device="cpu"; `load_stage_checkpoint` follows its learner's
+    device and `random_walk_rollout` its spec's."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points default to it")
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.data.amass import build_motion_lib
+    from vid2player3d_torch.data.motion_lib import MotionLib
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
+    from vid2player3d_torch.mvae.eval import random_walk_rollout
+    from vid2player3d_torch.physics.asset import build_humanoid_model
+
+    opt = MVAEOption(latent_size=4, hidden_size=8, num_experts=2, nframes_seq=4, batch_size=2,
+                     checkpoint_dir=str(tmp_path))
+    ds = make_synthetic_pose_dataset(opt, num_seqs=1, T=20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MVAETrainer(opt, ds)
+    trainer = MVAETrainer(opt, ds, device="cpu")
+    assert trainer.model.encoder.fc1.weight.device.type == "cpu"
+    spec = P.spec_from_trainer(trainer)
+    root, _, _ = random_walk_rollout(spec, ds.raw_init_frames(2), num_steps=2)
+    assert root.shape == (2, 2, 3)
+
+    lib = make_synthetic_motion_lib(num_motions=1, T=30, device="cpu")
+    lib.save(str(tmp_path / "lib.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MotionLib.load(str(tmp_path / "lib.npz"))
+    assert MotionLib.load(str(tmp_path / "lib.npz"), device="cpu").device.type == "cpu"
+    pool = TennisBallGenerator(num_candidates=64, device="cpu")
+    pool.save_npz(str(tmp_path / "pool.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TennisBallGenerator.from_npz(str(tmp_path / "pool.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_humanoid_model(S.make_synthetic_smpl(), np.zeros((1, 10), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_motion_lib([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MotionLib.from_motions([])
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"use_context_ik": True},

@@ -73,7 +73,8 @@ def test_asset_model_arrays_match(case):
     1e-6 (abs and rel): f32 einsum order in the shaped vertices and the
     eigen-decomposition of each body's vertex covariance."""
     betas, jm, _, _, _, _ = case
-    tm = TA.build_humanoid_model(TS.make_synthetic_smpl(), betas, self_collision=True)
+    tm = TA.build_humanoid_model(TS.make_synthetic_smpl(), betas, self_collision=True,
+                                device="cpu")
     assert tm.parents == jm.parents
     assert tm.names == jm.names
     assert tm.contact_body == jm.contact_body

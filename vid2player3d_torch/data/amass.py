@@ -15,6 +15,7 @@ import torch
 from ..core import smpl as S
 from ..core.skeleton import SkeletonTree
 from ..physics.asset import mujoco_parents
+from ..utils.runtime import resolve_device
 from .motion_lib import MotionLib
 
 # default key bodies for imitation rewards
@@ -37,9 +38,10 @@ def humanoid_skeleton_tree(smpl_model: S.SMPLModel, betas: np.ndarray,
 
 def build_motion_lib(entries: Sequence[dict],
                      key_bodies: Sequence[str] = DEFAULT_KEY_BODIES,
-                     device="cpu") -> MotionLib:
+                     device=None) -> MotionLib:
     """Pack converted clips (dicts with motion, motion_body, body_scale,
-    min_verts_h) into a MotionLib on `device`."""
+    min_verts_h) into a MotionLib on `device` (the card unless given)."""
+    device = resolve_device(device)
     return MotionLib.from_motions(
         [e["motion"] for e in entries],
         motion_bodies=np.stack([e["motion_body"] for e in entries]),

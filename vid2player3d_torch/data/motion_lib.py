@@ -17,6 +17,10 @@ import torch
 
 from ..core import quat as Q
 from ..core.skeleton import SkeletonMotion
+from ..utils.runtime import resolve_device
+
+# integer fields kept as int64 in memory (int32 in the JAX package's files)
+_INT64_FIELDS = ("length_starts", "key_body_ids")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +42,15 @@ class MotionLib:
     motion_body_scales: torch.Tensor  # (M,)
     motion_min_verts_h: torch.Tensor  # (M,)
     key_body_ids: torch.Tensor   # (K,) int64
+    # optional per-frame video metadata; 0-sized when the source has none
+    kp2d: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0, 24, 3)))          # (F, 24, 3)
+    cam_extrinsics: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0, 4, 4)))           # (M, 4, 4)
+
+    @property
+    def has_kp2d(self) -> bool:
+        return self.kp2d.shape[0] > 0
 
     @property
     def num_motions(self) -> int:
@@ -59,6 +72,49 @@ class MotionLib:
         return MotionLib(**{f.name: getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)})
 
+    def save(self, path: str) -> None:
+        """Write every field to a compressed `.npz` under the JAX package's
+        field names and dtypes (float32; int32 for the integer fields), so
+        its `MotionLib.load` reads the file."""
+        arrs = {}
+        for f in dataclasses.fields(self):
+            a = getattr(self, f.name).cpu().numpy()
+            arrs[f.name] = a.astype(np.int32 if a.dtype.kind in "iu" else np.float32)
+        np.savez_compressed(path, **arrs)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "MotionLib":
+        """A library from a `.npz` that `save` or the JAX package's
+        `MotionLib.save` wrote, on `device` (the card unless given); the
+        index fields become int64."""
+        dev = resolve_device(device)
+        with np.load(path) as z:
+            return cls(**{k: torch.as_tensor(
+                z[k].astype(np.int64 if k in _INT64_FIELDS else z[k].dtype), device=dev)
+                for k in z.files})
+
+    @classmethod
+    def merge(cls, libs: Sequence["MotionLib"]) -> "MotionLib":
+        """Concatenate libraries on one device: frames and per-motion
+        metadata in order, `length_starts` recomputed, weights renormalized,
+        the first library's key bodies. The video metadata survives only
+        when every library has it."""
+        frame_fields = ("gts", "grs", "lrs", "grvs", "gravs", "dvs")
+        motion_fields = ("motion_lengths", "motion_num_frames", "motion_dt", "motion_weights",
+                         "motion_bodies", "motion_body_scales", "motion_min_verts_h")
+        out = {f: torch.cat([getattr(lib, f) for lib in libs]) for f in frame_fields + motion_fields}
+        nf = out["motion_num_frames"].to(torch.int64)
+        out["length_starts"] = torch.cat([nf.new_zeros(1), torch.cumsum(nf, 0)[:-1]])
+        out["motion_weights"] = out["motion_weights"] / out["motion_weights"].sum()
+        out["key_body_ids"] = libs[0].key_body_ids
+        if all(lib.has_kp2d for lib in libs):
+            out["kp2d"] = torch.cat([lib.kp2d for lib in libs])
+            out["cam_extrinsics"] = torch.cat([lib.cam_extrinsics for lib in libs])
+        else:
+            out["kp2d"] = libs[0].kp2d.new_zeros((0, 24, 3))
+            out["cam_extrinsics"] = libs[0].kp2d.new_zeros((0, 4, 4))
+        return cls(**out)
+
     @classmethod
     def from_motions(cls, motions: Sequence[SkeletonMotion],
                      motion_bodies: Optional[np.ndarray] = None,
@@ -66,7 +122,11 @@ class MotionLib:
                      min_verts_h: Optional[np.ndarray] = None,
                      weights: Optional[np.ndarray] = None,
                      key_body_ids: Sequence[int] = (),
-                     device="cpu") -> "MotionLib":
+                     kp2d: Optional[np.ndarray] = None,
+                     cam_extrinsics: Optional[np.ndarray] = None,
+                     device=None) -> "MotionLib":
+        """Pack clips into one library on `device` (the card unless given)."""
+        device = resolve_device(device)
         M = len(motions)
         nf = np.array([m.num_frames for m in motions], dtype=np.int32)
         starts = np.concatenate([[0], np.cumsum(nf)[:-1]]).astype(np.int64)
@@ -106,6 +166,9 @@ class MotionLib:
             motion_min_verts_h=f32(min_verts_h),
             key_body_ids=torch.as_tensor(np.asarray(key_body_ids, dtype=np.int64),
                                          device=device),
+            kp2d=f32(np.zeros((0, 24, 3)) if kp2d is None else kp2d),
+            cam_extrinsics=f32(np.zeros((0, 4, 4)) if cam_extrinsics is None
+                               else cam_extrinsics),
         )
 
 

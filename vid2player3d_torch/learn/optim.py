@@ -11,6 +11,8 @@ dtype does in the JAX package:
   all arithmetic and bias correction in f32.
 
 The fused single-pass version of the same step is K1, ``ops/fused_adam.py``.
+`adam_apply`, the step without the clip, is the MotionVAE trainer's
+`optax.adam`.
 """
 
 from __future__ import annotations
@@ -40,17 +42,16 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_adam_apply(params, state: AdamState, grads, lr, max_norm: float,
-                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> AdamState:
-    """One optimizer step in place on params and the moments; returns the
-    state with the incremented count."""
-    g_norm = global_norm(grads)
-    keep = g_norm < max_norm
+def adam_apply(params, state: AdamState, grads, lr, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8) -> AdamState:
+    """One Adam step in place on params and the moments, with optax.adam's
+    arithmetic (eps_root 0, bias correction from the incremented count, then
+    `p += -lr * update`); returns the state with the incremented count. The
+    MotionVAE trainer's optimizer (`optax.adam` in the JAX package)."""
     count = state.count + 1
     c = count.float()
     c1, c2 = 1.0 - b1 ** c, 1.0 - b2 ** c
     for p, m, v, g in zip(params, state.mu, state.nu, grads):
-        g = torch.where(keep, g, (g / g_norm) * max_norm)
         if m.dtype == torch.float32:
             m.copy_((1 - b1) * g + b1 * m)
             v.copy_((1 - b2) * (g ** 2) + b2 * v)
@@ -63,3 +64,15 @@ def clip_adam_apply(params, state: AdamState, grads, lr, max_norm: float,
             v.copy_(v32)
         p.add_(-lr * step)
     return AdamState(count=count, mu=state.mu, nu=state.nu)
+
+
+@torch.no_grad()
+def clip_adam_apply(params, state: AdamState, grads, lr, max_norm: float,
+                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> AdamState:
+    """One optimizer step in place on params and the moments: the gradient
+    clipped to `max_norm` by its global norm, then `adam_apply`; returns the
+    state with the incremented count."""
+    g_norm = global_norm(grads)
+    keep = g_norm < max_norm
+    grads = [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+    return adam_apply(params, state, grads, lr, b1, b2, eps)

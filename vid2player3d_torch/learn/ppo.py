@@ -191,6 +191,15 @@ class ImitationPPO:
             lr=torch.tensor(self.cfg.learning_rate, device=self.device),
         )
 
+    def save_checkpoint(self, path: str, ts: TrainState) -> None:
+        """Write params, running stats, Adam state, epoch and lr to one
+        `.npz` in the JAX learner's layout (the JAX package's `load_pytree`
+        reads it with its own template); bf16 moments are written as f32."""
+        from ..utils import checkpoint as CK
+
+        CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
+                                                  ts.val_norm, ts.epoch, ts.lr))
+
     def load_checkpoint(self, path: str) -> TrainState:
         """Train state from a JAX-package `.npz` checkpoint (params, running
         stats, Adam state, epoch, lr); a context-IK checkpoint's `ac` and

@@ -28,10 +28,11 @@ mini_epochs × minibatches. The draws (action noise, minibatch permutations,
 the env's per-step draws) come from generators, or from `draws=` so a test
 can feed the JAX learner's.
 
-`load_checkpoint` reads a JAX-package `V2PPPO.save_checkpoint` `.npz`
-(stacked leaves included). Not ported yet (they raise): device meshes and
-per-chip minibatches. The stage checkpoint surgery and the writer wait for
-the port's checkpoint writer.
+`save_checkpoint` writes, and `load_checkpoint` reads, the JAX package's
+`V2PPPO.save_checkpoint` `.npz` (stacked leaves included);
+`load_stage_checkpoint` is the curriculum's warm start with the JAX
+package's surgery. Not ported yet (they raise): device meshes and per-chip
+minibatches.
 """
 
 from __future__ import annotations
@@ -170,6 +171,15 @@ class V2PPPO:
             generator=torch.Generator(self.device).manual_seed(self.seed),
             epoch=0, lr=torch.tensor(self.cfg.learning_rate, device=self.device))
 
+    def save_checkpoint(self, path: str, ts: V2PTrainState) -> None:
+        """Write params, running stats, Adam state, epoch and lr to one
+        `.npz` in the JAX learner's layout; the env state is not saved (a
+        resume resets the envs, as in the JAX learner)."""
+        from ..utils import checkpoint as CK
+
+        CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
+                                                  ts.val_norm, ts.epoch, ts.lr))
+
     def load_checkpoint(self, path: str, reset_draws: Optional[Dict] = None) -> V2PTrainState:
         """Train state from a JAX-package `V2PPPO.save_checkpoint` `.npz`
         (params, Adam state, running stats, epoch, and lr under the adaptive
@@ -177,7 +187,32 @@ class V2PPPO:
         The env state is a fresh reset."""
         from ..utils import checkpoint as CK
 
-        flat = CK.load_npz(path)
+        return self._state_from_flat(CK.load_npz(path), reset_draws)
+
+    def load_stage_checkpoint(self, path: str, discard_sigma: bool = True,
+                              reset_draws: Optional[Dict] = None) -> V2PTrainState:
+        """Warm start from an earlier curriculum stage's checkpoint with the
+        JAX package's surgery (`utils.checkpoint.load_with_surgery` against
+        this learner's fresh state): grown obs/action dims zero-padded in the
+        kernels, biases and Adam moments, the `var` override as the JAX
+        learner passes it, a single-policy file tiled into num_policies > 1,
+        absent keys kept fresh. Epoch, Adam state and running stats carry
+        over; lr only under the adaptive schedule. `discard_sigma` is
+        accepted and unused, as in the JAX learner: sigma is a config
+        constant, not a parameter. Pure: the agent is not changed."""
+        from ..utils import checkpoint as CK
+
+        params = self._initial_params()
+        like = CK.learner_state_to_jax(
+            params, init_adam(list(params.values())),
+            RN.RunningNormState.create(self.obs_dim), RN.RunningNormState.create(1),
+            0, torch.tensor(self.cfg.learning_rate))
+        return self._state_from_flat(CK.load_with_surgery(path, like, {"var": 1.0}),
+                                     reset_draws)
+
+    def _state_from_flat(self, flat, reset_draws) -> V2PTrainState:
+        from ..utils import checkpoint as CK
+
         ts = self.init_state(CK.params_from_jax(flat), reset_draws)
         ts.opt_state, ts.obs_norm, ts.val_norm, ts.epoch, lr = CK.learner_state_from_jax(
             flat, list(ts.params), self.device, self.compute_dtype)

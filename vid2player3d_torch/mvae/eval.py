@@ -1,0 +1,138 @@
+"""MotionVAE random-walk rollout harness (counterpart of
+``vid2player3d_tpu/mvae/eval.py``).
+
+Drives a trained MVAE autoregressively with random latents through the
+tennis player's decode/integrate step (``tennis/player.py``), K2 in every
+decode, and measures whether the generated motion stays body-plausible:
+
+- **bone-length drift**: mean skeleton bone length at the end of the
+  rollout vs the start;
+- **foot skate**: mean horizontal speed of the lower foot while it is near
+  its own low point;
+- **phase step**: mean per-frame phase advance and the fraction of frames
+  with a small step;
+- **root speed**: mean root displacement per frame;
+- **wrist speed**: mean, p99 and max of the world wrist speed.
+
+The rollout runs on the spec's device; its latents come from a generator
+there, or are fed as `draws=` (standard normals, scaled by `latent_scale`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..core.smpl import SMPL_BONE_ORDER_NAMES, SMPL_PARENTS
+from ..tennis import player as P
+from ..utils.runtime import as_draw
+
+
+@torch.no_grad()
+def random_walk_rollout(spec: "P.MVAEPlayerSpec", init_feature_raw,
+                        num_steps: int = 300, seed: int = 0,
+                        latent_scale: float = 1.0, draws=None):
+    """Autoregressive rollout with z = latent_scale * N(0, 1) from raw init
+    frames (N, F). `draws` (num_steps, N, latent) feeds the normals.
+    Returns numpy (T, N, 3) root_pos, (T, N, 23, 3) joint_pos, (T, N)
+    phase."""
+    dev = spec.avg.device
+    state = P.reset(spec, torch.as_tensor(np.asarray(init_feature_raw), dtype=torch.float32,
+                                          device=dev))
+    N = state.root_pos.shape[0]
+    if draws is None:
+        gen = torch.Generator(dev).manual_seed(seed)
+    else:
+        draws = as_draw(draws, torch.float32, dev)
+    roots, joints, phases = [], [], []
+    for t in range(num_steps):
+        z = draws[t] if draws is not None else torch.randn(
+            (N, spec.latent_size), generator=gen, device=dev)
+        state = P.step(spec, state, latent_scale * z, None)
+        roots.append(state.root_pos)
+        joints.append(state.joint_pos_kin)
+        phases.append(state.phase_pred)
+    return (torch.stack(roots).cpu().numpy(), torch.stack(joints).cpu().numpy(),
+            torch.stack(phases).cpu().numpy())
+
+
+def _bone_lengths(root, joints):
+    """Mean bone length per frame. joints (T,N,23,3) ROOT-RELATIVE joints
+    1..23 in SMPL order (the dataset/feature convention, `dataset.py`
+    assemble_features): pelvis sits at the origin of the relative frame."""
+    full = np.concatenate([np.zeros_like(root)[:, :, None], joints], axis=2)
+    lens = []
+    for j in range(1, 24):
+        p = int(SMPL_PARENTS[j])
+        lens.append(np.linalg.norm(full[:, :, j] - full[:, :, p], axis=-1))
+    return np.stack(lens, axis=-1).mean(-1)                    # (T,N)
+
+
+def random_walk_metrics(spec: "P.MVAEPlayerSpec", init_feature_raw,
+                        num_steps: int = 300, seed: int = 0, draws=None
+                        ) -> Dict[str, float]:
+    """The rollout's metrics (see the module docstring); `draws` as for
+    `random_walk_rollout`."""
+    root, joints, phase = random_walk_rollout(spec, init_feature_raw,
+                                              num_steps, seed, draws=draws)
+    T = root.shape[0]
+    report: Dict[str, float] = {"finite": bool(np.isfinite(joints).all())}
+
+    # bone-length drift: late-window mean vs early-window mean
+    bl = _bone_lengths(root, joints)
+    early, late = bl[: T // 5].mean(), bl[-T // 5:].mean()
+    report["bone_len_mean"] = float(bl.mean())
+    report["bone_len_drift"] = float(abs(late - early) / max(early, 1e-6))
+
+    # foot skate: horizontal foot speed while the foot is within 5 cm of its
+    # own per-env minimum height (stance proxy)
+    la = SMPL_BONE_ORDER_NAMES.index("L_Ankle") - 1
+    ra = SMPL_BONE_ORDER_NAMES.index("R_Ankle") - 1
+    # world feet = root + root-relative joint (relative offsets are in world
+    # axes) — skate must be measured in the world frame
+    feet = root[:, :, None] + joints[:, :, (la, ra)]           # (T,N,2,3)
+    vel = np.linalg.norm(np.diff(feet[..., :2], axis=0), axis=-1)  # (T-1,N,2)
+    low = feet[1:, ..., 2] < (feet[..., 2].min(0, keepdims=True) + 0.05)[0]
+    denom = max(low.sum(), 1)
+    report["foot_skate"] = float((vel * low).sum() / denom * 30.0)  # m/s
+
+    # phase channel: smooth forward advance through [0, 2pi)
+    dph = np.diff(phase, axis=0)
+    dph = (dph + np.pi) % (2 * np.pi) - np.pi
+    report["phase_step_mean"] = float(dph.mean())
+    report["phase_smooth_frac"] = float((np.abs(dph) < 1.0).mean())
+
+    # root motion sanity
+    report["root_speed"] = float(
+        np.linalg.norm(np.diff(root[..., :2], axis=0), axis=-1).mean() * 30.0)
+
+    # swing speed: whether the latent space decodes contact-speed swings (a
+    # 10-15 m/s racket head needs ~8-11 m/s at the wrist); p99/max over
+    # frames x envs of the world wrist speed
+    rw = SMPL_BONE_ORDER_NAMES.index("R_Wrist") - 1
+    wrist = root[:, :, None] + joints[:, :, (rw,)]             # (T,N,1,3)
+    wspeed = np.linalg.norm(np.diff(wrist[..., 0, :], axis=0),
+                            axis=-1) * 30.0                    # (T-1,N) m/s
+    report["wrist_speed_mean"] = float(wspeed.mean())
+    report["wrist_speed_p99"] = float(np.percentile(wspeed, 99))
+    report["wrist_speed_max"] = float(wspeed.max())
+    return report
+
+
+def report_for_trainer(trainer, num_steps: int = 300, num_envs: int = 8,
+                       seed: int = 0) -> Dict[str, float]:
+    """Random-walk report for an `MVAETrainer` through `spec_from_trainer`.
+    The init conditions are the checkpoint's own `init_frames.npy` where the
+    trainer's checkpoint directory has one (a decoder trained on one
+    dataset diverges from another's frames), else frames drawn from
+    `trainer.dataset`."""
+    spec = P.spec_from_trainer(trainer)
+    init_path = os.path.join(trainer.checkpoint_dir(), "init_frames.npy")
+    if os.path.exists(init_path):
+        init_raw = np.load(init_path)[:num_envs]
+    else:
+        init_raw = trainer.dataset.raw_init_frames(num_envs)
+    return random_walk_metrics(spec, init_raw, num_steps=num_steps, seed=seed)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core import smpl as S
+from ..utils.runtime import resolve_device
 from .model import ArticulationModel
 
 # per-joint [kp, kd, torque_limit]
@@ -84,10 +85,12 @@ def build_humanoid_model(
     kp_scale: float = 1.0,
     kd_scale: float = 1.0,
     self_collision: bool = False,
-    device="cpu",
+    device=None,
 ) -> ArticulationModel:
     """betas (N, 10) [+ optional per-env scale (N,)] → ArticulationModel with
-    per-env joint offsets / masses / inertias / contact spheres on `device`."""
+    per-env joint offsets / masses / inertias / contact spheres on `device`
+    (the card unless given)."""
+    device = resolve_device(device)
     betas = np.asarray(betas, dtype=np.float32)
     N = betas.shape[0]
     if scale is None:

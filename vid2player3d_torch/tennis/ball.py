@@ -180,6 +180,7 @@ class TennisBallGenerator:
         dev = resolve_device(device)
         cfg = cfg or {}
         self.p = p
+        self.backend = "torch"
         self.traj_length = int(cfg.get("ball_traj_length", 100))
 
         def vec(name, default):
@@ -238,12 +239,29 @@ class TennisBallGenerator:
         dev = resolve_device(device)
         self = cls.__new__(cls)
         self.p = p
+        self.backend = "offline"
 
         def t(a):
             return torch.as_tensor(np.array(a), dtype=torch.float32, device=dev)
 
         self._set_pool(t(traj), t(launch_pos), t(launch_vel), t(launch_vspin))
         return self
+
+    def save_npz(self, path: str) -> None:
+        """Write the pool to a compressed `.npz` with the JAX package's keys
+        (`traj`, `launch_pos`, `launch_vel`, `launch_vspin`)."""
+        np.savez_compressed(
+            path, traj=self.traj_pool.cpu().numpy(), launch_pos=self.launch_pos.cpu().numpy(),
+            launch_vel=self.launch_vel.cpu().numpy(), launch_vspin=self.launch_vspin.cpu().numpy())
+
+    @classmethod
+    def from_npz(cls, path: str, p: BallParams = DEFAULT_PARAMS,
+                 device=None) -> "TennisBallGenerator":
+        """A pre-generated pool from a `.npz` that this class or the JAX
+        package's `save_npz` wrote, on `device` (the card unless given)."""
+        with np.load(path) as data:
+            return cls.from_arrays(data["traj"], data["launch_pos"], data["launch_vel"],
+                                   data["launch_vspin"], p=p, device=device)
 
     def launch_x(self):
         return self.launch_pos[:, 0]

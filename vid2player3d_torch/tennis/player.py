@@ -20,6 +20,7 @@ Per frame (`step`):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -73,7 +74,7 @@ RESIDUAL_TABLES: Dict[str, Tuple[Tuple[int, float, float, int, float], ...]] = {
 @dataclasses.dataclass(frozen=True)
 class MVAEPlayerSpec:
     """Frozen decoder + stats + behavior tables for one player."""
-    decoder: torch.nn.Module     # a PoseMixtureVAE; `sample(z, cond)` decodes
+    decoder: torch.nn.Module     # a PoseMixtureVAE; `first_frame` decodes
     avg: torch.Tensor            # (F,) feature normalization stats
     std: torch.Tensor
     player: str = "federer"
@@ -83,17 +84,17 @@ class MVAEPlayerSpec:
     residual_scale: float = 0.1
     is_train: bool = True
     predict_phase: bool = True
+    num_future_predictions: int = 1
 
     @property
     def residual_joints(self):
         return (R_ELBOW, R_WRIST) if self.righthand else (L_ELBOW, L_WRIST)
 
     def decode(self, z, cond):
-        """(normalized feature (N, F), phase sin/cos (N, 2))."""
-        out = self.decoder.sample(z, cond)
-        if self.predict_phase:
-            return out[:, :-2], out[:, -2:]
-        return out, out.new_zeros((out.shape[0], 2))
+        """(normalized feature (N, F), phase sin/cos (N, 2)) of the first
+        predicted frame."""
+        return self.decoder.first_frame(z, cond, self.num_future_predictions,
+                                        self.predict_phase)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,3 +224,21 @@ def make_random_spec(seed: int = 0, player: str = "federer", latent_size: int = 
         decoder=model, avg=torch.zeros(FRAME_SIZE, device=dev),
         std=torch.ones(FRAME_SIZE, device=dev), player=player, latent_size=latent_size,
         predict_phase=predict_phase)
+
+
+def spec_from_trainer(trainer, player: str = "federer", **kw) -> MVAEPlayerSpec:
+    """A spec from an `MVAETrainer`, on the trainer's device: a frozen
+    snapshot of its model (a copy without gradients, so training on does not
+    move a spec that an env is stepping) with the dataset's normalization
+    stats."""
+    opt, dev = trainer.opt, trainer.device
+    model = copy.deepcopy(trainer.model).requires_grad_(False)
+
+    def stat(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    return MVAEPlayerSpec(
+        decoder=model, avg=stat(trainer.dataset.avg), std=stat(trainer.dataset.std),
+        player=player, latent_size=opt.latent_size,
+        num_condition_frames=opt.num_condition_frames, predict_phase=opt.predict_phase,
+        num_future_predictions=opt.num_future_predictions, **kw)

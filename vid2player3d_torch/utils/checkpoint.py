@@ -1,4 +1,5 @@
-"""Read the JAX package's checkpoints and states into the port.
+"""The JAX package's checkpoints and states, read into the port and written
+from it.
 
 The JAX package saves a pytree to one `.npz` with slash-joined key paths
 (``vid2player3d_tpu/utils/checkpoint.py``); an `ImitationPPO` checkpoint holds
@@ -14,15 +15,25 @@ they map onto the port's `ac.` and `ctx.` submodules, `ctx_mlp/Dense_{0,1}`,
 stacks every leaf (and its Adam moments) on a leading policy axis, which the
 port's stacked params keep. The MVAE's flax tree, a JAX `TennisState` and a
 JAX ball pool map onto the port's `PoseMixtureVAE`, `TennisState` and
-`TennisBallGenerator`. Every float leaf goes through `as_f32`. Load only:
-the port writes no checkpoints of its own yet.
+`TennisBallGenerator`. Every float leaf goes through `as_f32`.
+
+The writers are the readers' inverses (`params_to_jax`, `adam_state_to_jax`,
+`running_norm_to_jax`, `learner_state_to_jax`, `mvae_params_to_jax`): they
+give exactly the keys the JAX package's `_flatten` gives for its learner's
+own tree, so its `load_pytree` reads the port's files; bfloat16 leaves are
+written as float32, as the JAX writer does. `load_with_surgery` is the JAX
+package's `load_pytree_with_surgery` on flat dicts: a leaf lacking one
+leading axis is tiled across it, grown dims are padded (0, or the value of
+the last `fill_overrides` substring found in the key), a key absent
+from the file keeps the template's value, and a shrink raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +60,25 @@ def as_f32(arr) -> np.ndarray:
         raw = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
         return raw.view(torch.bfloat16).float().numpy()
     return np.array(arr, dtype=np.float32, order="C")
+
+
+def save_npz(path: str, flat: Dict[str, np.ndarray]) -> None:
+    """Write flat slash-joined leaves to one `.npz`, as the JAX package's
+    `save_pytree` does (its directory made first; numpy adds `.npz` to a
+    path without it)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def to_numpy(t) -> np.ndarray:
+    """A tensor (or array) as a numpy array on the host; bfloat16 widened to
+    float32, since `.npz` cannot hold bf16."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(t)
 
 
 def _port_name(key: str):
@@ -80,6 +110,30 @@ def _tree_to_state_dict(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, t
     return out
 
 
+def _tree_key(name: str) -> Tuple[str, bool]:
+    """The port's state-dict name → (its flax key path inside the learner's
+    params tree, is_weight): `actor_mlp.0.weight` → `params/actor_mlp/Dense_0/
+    kernel`, `ctx.phis.bias` → `ctx/params/phis/bias`."""
+    parts = name.split(".")
+    sub = parts.pop(0) if parts[0] in ("ac", "ctx") else None
+    kind = parts.pop()
+    layer = f"{parts[0]}/Dense_{parts[1]}" if len(parts) == 2 else parts[0]
+    key = f"params/{layer}/{'kernel' if kind == 'weight' else 'bias'}"
+    return (f"{sub}/{key}" if sub else key), kind == "weight"
+
+
+def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of `params_from_jax`: the learner's params (ActorCritic,
+    `ac.`/`ctx.` trees, stacked dual leaves) as the flattened flax params
+    tree, a weight (..., out, in) written as a kernel (..., in, out)."""
+    out = {}
+    for name, t in params.items():
+        key, is_weight = _tree_key(name)
+        arr = to_numpy(t)
+        out[key] = np.ascontiguousarray(np.swapaxes(arr, -1, -2)) if is_weight else arr
+    return out
+
+
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The port's ActorCritic state dict from flattened flax params: either a
     checkpoint's keys (`params/params/actor_mlp/...`, the optimizer's moments
@@ -95,6 +149,75 @@ def adam_state_from_jax(flat: Dict[str, np.ndarray], prefix: str = "opt_state/1/
     mu = _tree_to_state_dict(flat, prefix + "mu/")
     nu = _tree_to_state_dict(flat, prefix + "nu/")
     return mu, nu, int(flat[prefix + "count"])
+
+
+def adam_state_to_jax(opt, names, prefix: str = "opt_state/1/") -> Dict[str, np.ndarray]:
+    """Inverse of `adam_state_from_jax`: the optax chain's `ScaleByAdamState`
+    (the clip's empty state has no leaves), count as int32, moments as f32."""
+    out = {prefix + "count": np.asarray(to_numpy(opt.count), dtype=np.int32)}
+    for which, moments in (("mu", opt.mu), ("nu", opt.nu)):
+        for k, v in params_to_jax(dict(zip(names, moments))).items():
+            out[f"{prefix}{which}/{k}"] = v
+    return out
+
+
+def running_norm_to_jax(state: RunningNormState, name: str) -> Dict[str, np.ndarray]:
+    """Inverse of `running_norm_from_jax`: `<name>/0..2` (n, mean, var)."""
+    return {f"{name}/{i}": to_numpy(t).astype(np.float32)
+            for i, t in enumerate((state.n, state.mean, state.var))}
+
+
+def learner_state_to_jax(params, opt, obs_norm, val_norm, epoch, lr) -> Dict[str, np.ndarray]:
+    """What a JAX learner's `save_checkpoint` writes: params, the optax
+    chain's Adam state, both running norms, `epoch` as int32 and `lr` as a
+    0-d float32."""
+    flat = {"params/" + k: v for k, v in params_to_jax(params).items()}
+    flat.update(adam_state_to_jax(opt, list(params)))
+    flat.update(running_norm_to_jax(obs_norm, "obs_norm"))
+    flat.update(running_norm_to_jax(val_norm, "val_norm"))
+    flat["epoch"] = np.asarray(int(epoch), dtype=np.int32)
+    flat["lr"] = np.asarray(to_numpy(lr), dtype=np.float32)
+    return flat
+
+
+def _pad_to(src: np.ndarray, shape, fill: float = 0.0) -> np.ndarray:
+    if src.ndim != len(shape) or any(s > t for s, t in zip(src.shape, shape)):
+        raise ValueError(f"cannot pad {src.shape} -> {tuple(shape)}")
+    return np.pad(src, [(0, t - s) for s, t in zip(src.shape, shape)], constant_values=fill)
+
+
+def load_with_surgery(path: str, like: Dict[str, np.ndarray],
+                      fill_overrides: Optional[Dict[str, float]] = None
+                      ) -> Dict[str, np.ndarray]:
+    """The file's leaves fitted to the template `like` (flat key -> array),
+    with the JAX package's `load_pytree_with_surgery` semantics: a leaf with
+    one missing leading axis is tiled across it (a single-policy checkpoint
+    into stacked dual params); grown dims are padded at the end with 0, or
+    with the value of the last `fill_overrides` entry whose key is a
+    substring of the leaf's key; a key the file lacks keeps the template's
+    value; a leaf that would shrink raises. Each leaf takes the template's
+    dtype."""
+    data = load_npz(path)
+    fill_overrides = fill_overrides or {}
+    out = {}
+    for key, tgt in like.items():
+        tgt = np.asarray(tgt)
+        if key not in data:
+            out[key] = tgt
+            continue
+        src = data[key]
+        if src.dtype.kind in "fV":      # float leaves, raw bf16 among them
+            src = as_f32(src)
+        if src.ndim == tgt.ndim - 1 and tgt.ndim >= 1:
+            src = np.repeat(src[None], tgt.shape[0], axis=0)
+        if src.shape != tgt.shape:
+            fill = 0.0
+            for sub, v in fill_overrides.items():
+                if sub in key:
+                    fill = v
+            src = _pad_to(src, tgt.shape, fill)
+        out[key] = src.astype(tgt.dtype)
+    return out
 
 
 def learner_state_from_jax(flat: Dict[str, np.ndarray], names, device, moment_dtype):
@@ -160,6 +283,20 @@ def mvae_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             arr = as_f32(arr)
             out[f"{m.group(1)}.{m.group(2)}.{'weight' if is_kernel else 'bias'}"] = \
                 torch.from_numpy(np.ascontiguousarray(arr.T) if is_kernel else arr)
+    return out
+
+
+def mvae_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of `mvae_params_from_jax`: the keys `_flatten(trainer.params)`
+    gives (`encoder/fc1/kernel`, `decoder/moe0/w`, ...)."""
+    out = {}
+    for name, t in state_dict.items():
+        mod, layer, kind = name.split(".")
+        arr = to_numpy(t)
+        if kind == "weight":
+            out[f"{mod}/{layer}/kernel"] = np.ascontiguousarray(arr.T)
+        else:
+            out[f"{mod}/{layer}/{kind}"] = arr
     return out
 
 
