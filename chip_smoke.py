@@ -78,16 +78,17 @@ Phases, each printing one line (any failed phase exits non-zero):
   14. ctx parity  a small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on
               the card against the CPU, and the context IK alone at B = 512
               (outputs and the gradient into the heads)
-  15. im dr main    amass_im_dr at phase 7's sizes, two epochs: K1's launches,
-              each epoch's perturbed model against the base, the schedule's
-              strength per epoch
-  16. im ctx main   amass_im_corrupt at phase 7's sizes, two epochs (24
-              leaves): K1's launches, finite auxiliary losses, the context
+  15. im dr main    amass_im_dr at phase 7's sizes, one epoch (cut from two):
+              K1's launches, the epoch's perturbed model against the base,
+              the schedule's strength
+  16. im ctx main   amass_im_corrupt at phase 7's sizes, one epoch of 2
+              mini-epochs (cut from two epochs of 6; 24 leaves): K1's
+              launches, finite auxiliary losses, the context
               IK's ms per rollout step and per optimizer step and its host
               syncs
   17. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
-              the federer MVAE width), two epochs: K2's and K3's launches,
-              grad_skip 0, each epoch's ball constants
+              the federer MVAE width), one epoch (cut from two): K2's and
+              K3's launches, grad_skip 0, the epoch's ball constants
   18. ckpt    the port's checkpoints in the JAX package's layout: the
               tennis_main learner's save -> load bit for bit;
               `load_stage_checkpoint` of that file into a stage-2 learner on
@@ -112,12 +113,33 @@ Phases, each printing one line (any failed phase exits non-zero):
               fresh trainer's load -> `spec_from_trainer` -> the 120-step
               random-walk report (8 envs); 8 TennisEnv steps at 10,240 envs
               driven by the trained spec (K2 3 + 3, K3 2 per step)
-  21. profile torch.profiler over a short imitation epoch, a short tennis
+  21. cli     the README's curriculum through the port's entry points, in a
+              directory under build/: `python -m vid2player3d_torch --cfg
+              mvae_federer --epochs 1 --mvae_batches 20` as a process of its
+              own (the MotionVAE at full width) beside `--cfg federer_im
+              --num_envs 4096 --epochs 1` in this one (best.npz,
+              metrics.jsonl; no K1: no named config fuses the optimizer);
+              then, alone, `--cfg federer_train_stage_1 --epochs 1`
+              at its own 10,240 envs, which must embed federer_im/best.npz
+              and the trained MotionVAE with its init frames, K2's and K3's
+              counters set to 0 just before the call and read just after:
+              the epoch exactly tennis_main's 192 + 192 and 128, the rest of
+              the call (init_state's reset) 1 K3, grad_skip 0; `--test
+              --render --select_best` of that stage from its best.npz at 64
+              envs beside `--cfg nadal_federer --test --render` at 64 envs
+              in a process of its own (both host-bound):
+              finite reports with the JAX eval's keys (per lane for the dual
+              rally), both HTML files with their envs, seconds per eval
+              step; the pool CLI with `--backend native` and `--backend
+              torch` at 100,000 candidates, both files loaded on the card,
+              the common survivors' launch states identical, the sizes
+              within 5%, both wall times
+  22. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and a short dual rollout: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  22. kernels one JSON line over the ported kernels, each kernel's launches
+  23. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -145,7 +167,10 @@ TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 tensor cores, dense
 # the imitation phases' sizes; `main` runs one epoch (cut from two to keep the
 # whole run inside its time limit on slow hosts), slice 4's imitation phases two
 NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 1
-SLICE4_EPOCHS = 2
+# slice 4's main phases, cut from two epochs to make room for the cli
+# phase; im_ctx_main's epoch also from 6 mini-epochs to 2 (512 optimizer steps)
+SLICE4_EPOCHS = 1
+CTX_MINI_EPOCHS = 2
 K1_CHECK_STEPS = 4
 # record_function spans on the main paths (the dual env's serve runs inside
 # the masked reset)
@@ -158,8 +183,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, **kw) -> None:
-    print(f"[{phase}] " + json.dumps(kw), flush=True)
+    """One phase's JSON line, with the script's seconds so far (`at_s`)."""
+    print(f"[{phase}] " + json.dumps({**kw, "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -980,12 +1009,19 @@ def tennis_main_phase(dev, card: str):
     MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
     FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
     epoch_s, rows = [], []
-    for _ in range(TENNIS_EPOCHS):
-        t0 = time.perf_counter()
-        ts, m = agent.train_epoch(ts)
-        torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - t0)
-        rows.append({k: float(v) for k, v in m.items()})
+    # the rollout (policy forward + env step) timed inside the epoch, for
+    # env-steps/s
+    rollout_times, unwrap = _timed_rollouts(agent)
+    try:
+        for _ in range(TENNIS_EPOCHS):
+            t0 = time.perf_counter()
+            ts, m = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in m.items()})
+    finally:
+        unwrap()
+    rollout_s = rollout_times[-1]
     k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
     k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1005,13 +1041,7 @@ def tennis_main_phase(dev, card: str):
     if int(ts.opt_state.count) != TENNIS_EPOCHS * steps_per_epoch:
         fail(f"optimizer count {int(ts.opt_state.count)}")
 
-    # the rollout alone (policy forward + env step), for env-steps/s
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    traj, _, _ = agent.rollout(ts)
-    torch.cuda.synchronize()
-    rollout_s = time.perf_counter() - t0
-    if not bool(torch.isfinite(traj["obs"]).all()):
+    if not bool(torch.isfinite(ts.last_obs).all()):
         fail("tennis rollout obs not finite")
 
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
@@ -1410,10 +1440,11 @@ def ctx_parity_phase(dev):
                                           ik_err)))
 
 
-def _imitation_main(dev, name):
-    """Two epochs of a named imitation configuration at the main path's
-    sizes (4096 envs, full width, fused K1) with K1's counters set to 0 just
-    before and read just after; (agent, ts, rows, K1 launches, timings)."""
+def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS):
+    """`epochs` epochs of a named imitation configuration at the main path's
+    sizes (4096 envs, full width, fused K1; `mini_epochs` passes per epoch)
+    with K1's counters set to 0 just before and read just after; (agent, ts,
+    rows, K1 launches, timings)."""
     import dataclasses
     import math
 
@@ -1430,19 +1461,19 @@ def _imitation_main(dev, name):
     lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
     agent = ImitationPPO(HumanoidImEnv(env_cfg, lib, rng=0, device=dev),
                          dataclasses.replace(ppo_cfg, horizon=HORIZON, minibatch_size=MINIBATCH,
-                                             mini_epochs=MINI_EPOCHS, fused_optimizer="on"),
+                                             mini_epochs=mini_epochs, fused_optimizer="on"),
                          seed=7, device=dev)
     ts = agent.init_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    steps_per_epoch = agent.num_minibatches * MINI_EPOCHS
+    steps_per_epoch = agent.num_minibatches * mini_epochs
 
     rollout_s, unwrap = _timed_rollouts(agent)
     torch.cuda.reset_peak_memory_stats()
     FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
     epoch_s, rows, envs = [], [], []
     try:
-        for _ in range(SLICE4_EPOCHS):
+        for _ in range(epochs):
             t0 = time.perf_counter()
             ts, m = agent.train_epoch(ts)
             torch.cuda.synchronize()
@@ -1452,7 +1483,7 @@ def _imitation_main(dev, name):
     finally:
         unwrap()
     launches = {"update": FA.leaf_update.launches, "norm": FA.global_norm_scalars.launches}
-    expected = SLICE4_EPOCHS * steps_per_epoch * -(-len(ts.params) // 64)
+    expected = epochs * steps_per_epoch * -(-len(ts.params) // 64)
     if launches != {"update": expected, "norm": expected}:
         fail(f"{name}: K1 launched {launches} times, expected {expected} each")
     for i, r in enumerate(rows):
@@ -1461,7 +1492,7 @@ def _imitation_main(dev, name):
             fail(f"{name} epoch {i}: non-finite metrics {bad}")
         if not r["alive_ratio"] > 0.5:
             fail(f"{name} epoch {i}: alive_ratio {r['alive_ratio']}")
-    if int(ts.opt_state.count) != SLICE4_EPOCHS * steps_per_epoch:
+    if int(ts.opt_state.count) != epochs * steps_per_epoch:
         fail(f"{name}: optimizer count {int(ts.opt_state.count)}")
     timing = dict(setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
                   update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
@@ -1473,15 +1504,15 @@ def _imitation_main(dev, name):
 
 
 def im_dr_main_phase(dev, card: str):
-    """amass_im_dr at the main path's sizes, two epochs: K1's launches, each
-    epoch's perturbed model (drawn from the base model: the two differ and
-    both lie inside the specs' ranges of the base) and the schedule's
+    """amass_im_dr at the main path's sizes, one epoch: K1's launches, the
+    epoch's perturbed model (drawn from the base model: it differs from the
+    base and lies inside the specs' ranges of it) and the schedule's
     strength per epoch."""
     import torch
 
     from vid2player3d_torch.envs.domain_rand import _sched_scale
 
-    agent, ts, rows, launches, envs, timing = _imitation_main(dev, "amass_im_dr")
+    agent, ts, rows, launches, envs, timing = _imitation_main(dev, "amass_im_dr", SLICE4_EPOCHS)
     base = agent.env.model
     dr = agent.env.randomizer
     ranges = {}
@@ -1491,22 +1522,23 @@ def im_dr_main_phase(dev, card: str):
         for x in r:
             if not (float(x.min()) >= lo - 1e-6 and float(x.max()) <= hi + 1e-6):
                 fail(f"im_dr_main: {sp.field} factor outside [{lo}, {hi}]")
-        if torch.equal(r[0], r[1]):
-            fail(f"im_dr_main: the two epochs stepped the same {sp.field}")
+        if all(torch.equal(x, torch.ones_like(x)) for x in r):
+            fail(f"im_dr_main: the epoch stepped the base {sp.field}")
         ranges[sp.field] = [[float(x.min()), float(x.max())] for x in r]
     scales = {sp.field: [_sched_scale(sp, e * HORIZON) for e in range(SLICE4_EPOCHS)]
               for sp in dr.obs_specs + dr.act_specs}
     keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "clip_frac")
     say("im_dr_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_dr", envs=NUM_ENVS,
         horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS, epochs=SLICE4_EPOCHS,
-        cut="8192 -> 4096 envs", compute_dtype=str(agent.compute_dtype), leaves=len(ts.params),
+        cut="8192 -> 4096 envs, 1 epoch", compute_dtype=str(agent.compute_dtype),
+        leaves=len(ts.params),
         k1_launches=launches, model_factor_ranges=ranges, schedule_scale_per_epoch=scales,
         metrics=[{k: r[k] for k in keep} for r in rows], **timing)
     return launches
 
 
 def im_ctx_main_phase(dev, card: str):
-    """amass_im_corrupt at the main path's sizes, two epochs (24 leaves):
+    """amass_im_corrupt at the main path's sizes, one epoch (24 leaves):
     K1's launches and finite auxiliary losses; then the context IK alone on
     a synchronized host clock, per rollout step (the 4096 envs' targets) and
     per optimizer step (the 512-row minibatch's IK, forward and backward into
@@ -1515,7 +1547,8 @@ def im_ctx_main_phase(dev, card: str):
 
     import torch
 
-    agent, ts, rows, launches, _, timing = _imitation_main(dev, "amass_im_corrupt")
+    agent, ts, rows, launches, _, timing = _imitation_main(dev, "amass_im_corrupt",
+                                                           SLICE4_EPOCHS, CTX_MINI_EPOCHS)
     for i, r in enumerate(rows):
         if not r["aux_dof_loss"] > 0.0:
             fail(f"im_ctx_main epoch {i}: aux_dof_loss {r['aux_dof_loss']}")
@@ -1559,8 +1592,9 @@ def im_ctx_main_phase(dev, card: str):
     keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "aux_dof_loss",
             "aux_pos_loss")
     say("im_ctx_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_corrupt",
-        envs=NUM_ENVS, horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS,
-        epochs=SLICE4_EPOCHS, cut="8192 -> 4096 envs", compute_dtype=str(agent.compute_dtype),
+        envs=NUM_ENVS, horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=CTX_MINI_EPOCHS,
+        epochs=SLICE4_EPOCHS, cut="8192 -> 4096 envs, 1 epoch of 2 mini-epochs",
+        compute_dtype=str(agent.compute_dtype),
         leaves=len(ts.params), k1_launches=launches, ik=out,
         rollout_ms_per_env_step=per_step_ms,
         ik_share_of_rollout_step=out["rollout_step_ms"] / per_step_ms[-1],
@@ -1570,9 +1604,9 @@ def im_ctx_main_phase(dev, card: str):
 
 def tennis_dr_main_phase(dev, card: str):
     """federer_train_stage_1_dr at its own sizes (10,240 envs, the federer
-    MVAE width, full-width pi_low and V2PNet), two epochs: K2 and K3's
-    launches, no skipped update, and each epoch's ball constants (they differ
-    and lie inside the specs' ranges)."""
+    MVAE width, full-width pi_low and V2PNet), one epoch: K2 and K3's
+    launches, no skipped update, and the epoch's ball constants (they differ
+    from the base and lie inside the specs' ranges of it)."""
     import math
 
     import torch
@@ -1627,7 +1661,7 @@ def tennis_dr_main_phase(dev, card: str):
         name = sp.field[len("ball_"):]
         vals = [float(getattr(b, name)) for b in balls]
         f = [v / getattr(base, name) for v in vals]
-        if not all(sp.rng[0] - 1e-6 <= x <= sp.rng[1] + 1e-6 for x in f) or vals[0] == vals[1]:
+        if not all(sp.rng[0] - 1e-6 <= x <= sp.rng[1] + 1e-6 for x in f) or 1.0 in f:
             fail(f"DR tennis: {name} per epoch {vals} against {getattr(base, name)}")
         consts[name] = vals
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "cycles", "done_rate", "reward_mean",
@@ -1635,7 +1669,7 @@ def tennis_dr_main_phase(dev, card: str):
     say("tennis_dr_main", card=card, nvidia_smi=nvidia_smi(), config="federer_train_stage_1_dr",
         envs=env_cfg.num_envs, horizon=horizon, substeps=env_cfg.substeps,
         minibatch=v2p_cfg.minibatch_size, mini_epochs=v2p_cfg.mini_epochs, epochs=SLICE4_EPOCHS,
-        cut="none", compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts",
+        cut="1 epoch", compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts",
         ball_constants_per_epoch=consts, setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
         update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
         rollout_env_steps_per_s=[env_cfg.num_envs * horizon / r for r in rollout_s],
@@ -2026,7 +2060,7 @@ def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
 
 
 # ---------------------------------------------------------------------------
-# phase 21 (tennis and dual parts): where a rollout's time goes
+# phase 22 (tennis and dual parts): where a rollout's time goes
 # ---------------------------------------------------------------------------
 
 def rollout_profile_phase(name: str, card: str, agent, ts):
@@ -2082,6 +2116,282 @@ def rollout_profile_phase(name: str, card: str, agent, ts):
         spans=spans, top_device_s={k[:60]: v for k, v in top})
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the command line
+# ---------------------------------------------------------------------------
+
+# the evaluation runs' env counts (the step is bound by the host issuing
+# kernels, so its wall barely depends on N); even for the dual rally
+CLI_EVAL_ENVS, CLI_DUAL_ENVS = 64, 64
+EVAL_KEYS = {"cycles", "hit_rate", "bounce_in_rate", "bounce_pos_error", "fh_ratio",
+             "reward_mean"}
+
+
+def _cli_call(argv):
+    """`cli.run.main(argv)` in this process: (console text, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vid2player3d_torch.cli.run import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli {' '.join(argv)}: exit {rc}")
+    return buf.getvalue(), secs
+
+
+def _json_block(text: str):
+    """The first JSON object the CLI printed (its indented report)."""
+    start = text.index("{")
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return json.loads(text[start:i + 1])
+    fail("cli: unterminated report")
+
+
+def _check_report(what, rep, lanes=()):
+    import math
+
+    if set(rep) != EVAL_KEYS | set(lanes):
+        fail(f"{what}: report keys {sorted(rep)}")
+    for k, v in list(rep.items()) + [(f"{ln}.{k}", v) for ln in lanes
+                                     for k, v in rep[ln].items()]:
+        if isinstance(v, dict):
+            continue
+        if v is not None and not math.isfinite(v):
+            fail(f"{what}: {k} = {v}")
+
+
+def _cli_subprocess(argv):
+    """`python -m vid2player3d_torch argv` started in a process of its own
+    (the card by default, no --device); (process, start time)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return (subprocess.Popen([sys.executable, "-m", "vid2player3d_torch", *argv], cwd=REPO,
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def _cli_wait(what, started, timeout=900):
+    """Wait for a `_cli_subprocess`; (its stdout, its wall seconds)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"cli {what}: no exit within {timeout} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli {what}: exit {proc.returncode}\n{out[-3000:]}{err[-3000:]}")
+    return out, secs
+
+
+def cli_phase(dev, card: str):
+    """The README's curriculum through the port's entry points, into a
+    directory under build/. `python -m vid2player3d_torch --cfg
+    mvae_federer` runs as a process of its own while federer_im trains at
+    4096 envs in this one; federer_train_stage_1 at its own 10,240 envs
+    must find both, with K2's and K3's counters set to 0 just before the
+    call and read just after, the epoch's share and the rest of the call
+    apart. Then nadal_federer's eval with --render runs as a process of its
+    own while this one evaluates stage 1 with --render and --select_best
+    from its best.npz and runs the pool CLI with the native and the torch
+    backends at 100,000 candidates, both files loaded on the card. The
+    evaluation rollouts are bound by the host issuing kernels, so the two
+    processes overlap them on the machine's cores."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch import eval as EV
+    from vid2player3d_torch.learn import V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+    from vid2player3d_torch.tennis import pool as POOL
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    def counts():
+        return {"moe_linear": MOE.moe_linear.launches, "moe_split_w": MOE.split_weights.launches,
+                "fk_chain": FK.fk_chain.launches}
+
+    D = os.path.join(REPO, "build", f"cli_smoke_{os.getpid()}")
+    shutil.rmtree(D, ignore_errors=True)
+    os.makedirs(D)
+    out = {}
+    t_phase = time.perf_counter()
+    procs = []
+    try:
+        # 1. the MotionVAE at full width through `python -m`, beside 2.
+        mvae = _cli_subprocess(["--cfg", "mvae_federer", "--epochs", "1", "--mvae_batches",
+                                "20", "--out", D])
+        procs.append(mvae[0])
+
+        # 2. the player's imitation policy at bench.py's env count
+        FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+        im_dir = os.path.join(D, "federer_im")
+        _, out["federer_im_s"] = _cli_call(["--cfg", "federer_im", "--num_envs", str(NUM_ENVS),
+                                            "--epochs", "1", "--out", im_dir])
+        for f in ("best.npz", "latest.npz", "metrics.jsonl"):
+            if not os.path.exists(os.path.join(im_dir, f)):
+                fail(f"cli federer_im: no {f}")
+        row = json.loads(open(os.path.join(im_dir, "metrics.jsonl")).readlines()[-1])
+        out["federer_im_metrics"] = {k: row[k] for k in ("reward_mean", "alive_ratio", "kl")}
+        # no named config sets fused_optimizer="on": K1 stays off this path
+        out["federer_im_k1_launches"] = FA.leaf_update.launches + FA.global_norm_scalars.launches
+        if out["federer_im_k1_launches"]:
+            fail(f"cli federer_im: K1 launched {out['federer_im_k1_launches']} times")
+
+        text, out["mvae_subprocess_s"] = _cli_wait("mvae_federer", mvae)
+        mvae_rep = _json_block(text)
+        if mvae_rep.get("finite") is not True:
+            fail(f"cli mvae_federer: random-walk report {mvae_rep}")
+        for f in ("latest.npz", "init_frames.npy", "avg.npy", "std.npy"):
+            if not os.path.exists(os.path.join(D, "mvae_federer", f)):
+                fail(f"cli mvae_federer: no {f}")
+        out["mvae_report"] = mvae_rep
+
+        # 3. stage 1 at its own sizes, alone on the card; the epoch's
+        # launches apart from the rest of the call
+        epoch_counts, epoch_s, save_s = [], [], []
+        orig_epoch, orig_save = V2PPPO.train_epoch, V2PPPO.save_checkpoint
+
+        def counted_epoch(self, ts, draws=None):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            res = orig_epoch(self, ts, draws)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            epoch_counts.append({k: v - c0[k] for k, v in counts().items()})
+            return res
+
+        def timed_save(self, path, ts):
+            t0 = time.perf_counter()
+            orig_save(self, path, ts)
+            save_s.append(time.perf_counter() - t0)
+
+        V2PPPO.train_epoch, V2PPPO.save_checkpoint = counted_epoch, timed_save
+        try:
+            MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+            text, out["stage1_s"] = _cli_call(["--cfg", "federer_train_stage_1", "--epochs", "1",
+                                               "--out", D])
+            total = counts()
+        finally:
+            V2PPPO.train_epoch, V2PPPO.save_checkpoint = orig_epoch, orig_save
+        want_pi = f"embedding frozen low-level policy from {im_dir}/best.npz"
+        if want_pi not in text or "no trained MVAE" in text:
+            fail("cli stage 1 did not find federer_im/best.npz and the trained MotionVAE:\n"
+                 + text[-2000:])
+        steps = TENNIS_HORIZON
+        want = {"moe_linear": 3 * steps, "moe_split_w": 3 * steps, "fk_chain": 2 * steps}
+        if epoch_counts != [want]:
+            fail(f"cli stage 1: the epoch launched {epoch_counts}, expected {want}")
+        rest = {k: total[k] - want[k] for k in total}
+        # the rest of the call: init_state's reset of every env (one FK)
+        if rest != {"moe_linear": 0, "moe_split_w": 0, "fk_chain": 1}:
+            fail(f"cli stage 1: {rest} launches outside the epoch")
+        row = json.loads(open(os.path.join(D, "metrics.jsonl")).readlines()[-1])
+        if row["grad_skip"] != 0.0:
+            fail(f"cli stage 1: grad_skip {row['grad_skip']}")
+        out.update(stage1_epoch_launches=epoch_counts[0], stage1_rest_launches=rest,
+                   stage1_epoch_s=epoch_s[0], stage1_save_s=save_s,
+                   stage1_metrics={k: row[k] for k in ("reward_mean", "grad_skip", "kl",
+                                                      "racket_ball_dist", "cycles")})
+
+        # 4. the dual rally's evaluation in a process of its own, beside the
+        # stage's evaluation (each rollout's seconds per step) and the pools
+        dual_html = os.path.join(D, "dual.html")
+        dual = _cli_subprocess(["--cfg", "nadal_federer", "--num_envs", str(CLI_DUAL_ENVS),
+                                "--test", "--epochs", "1", "--render", dual_html, "--out", D])
+        procs.append(dual[0])
+        rollouts = []
+        orig_roll = EV._tennis_rollout
+
+        def timed_roll(agent, ts, seed, num_steps, draws, record):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig_roll(agent, ts, seed, num_steps, draws, record)
+            torch.cuda.synchronize()
+            rollouts.append(dict(key=seed, steps=num_steps, s=time.perf_counter() - t0))
+            return res
+
+        EV._tennis_rollout = timed_roll
+        try:
+            html = os.path.join(D, "roll.html")
+            text, out["eval_s"] = _cli_call(
+                ["--cfg", "federer_train_stage_1", "--num_envs", str(CLI_EVAL_ENVS), "--test",
+                 "--epochs", "1", "--render", html, "--select_best", "--out", D,
+                 "--checkpoint", os.path.join(D, "best.npz")])
+        finally:
+            EV._tennis_rollout = orig_roll
+        rep = _json_block(text)
+        _check_report("cli eval", rep)
+        ids = json.loads(text.split("select_best env ids: ")[1].splitlines()[0])
+        page = open(html).read() if os.path.exists(html) else ""
+        if f'"envs": {json.dumps(ids)}' not in page or len(ids) != 4:
+            fail(f"cli eval: {html} does not hold the selected envs {ids}")
+        out.update(eval_report=rep, select_best=ids,
+                   eval_rollouts=[dict(r, s_per_step=r["s"] / r["steps"]) for r in rollouts])
+
+        # 5. the pool CLI, both backends, and the two files on the card
+        pools = {}
+        for backend in ("native", "torch"):
+            path = os.path.join(D, f"pool_{backend}.npz")
+            t0 = time.perf_counter()
+            POOL.main(["--out", path, "--backend", backend])
+            torch.cuda.synchronize()
+            out[f"pool_{backend}_s"] = time.perf_counter() - t0
+            pools[backend] = TennisBallGenerator.from_npz(path, device=dev)
+        nat, tor = pools["native"], pools["torch"]
+        if not nat.traj_pool.is_cuda or abs(nat.pool_size - tor.pool_size) > 0.05 * tor.pool_size:
+            fail(f"cli pools: {nat.pool_size} native against {tor.pool_size} torch")
+        # the common survivors, matched by their launch positions' bits
+        where = {r.tobytes(): k for k, r in enumerate(tor.launch_pos.cpu().numpy())}
+        pairs = [(k, where[r.tobytes()]) for k, r in enumerate(nat.launch_pos.cpu().numpy())
+                 if r.tobytes() in where]
+        i, j = (torch.tensor(x, dtype=torch.long, device=dev) for x in zip(*pairs))
+        if i.numel() < 0.95 * min(nat.pool_size, tor.pool_size) \
+                or not torch.equal(nat.launch_vel[i], tor.launch_vel[j]) \
+                or not torch.equal(nat.launch_vspin[i], tor.launch_vspin[j]):
+            fail("cli pools: the common survivors' launch states differ")
+        out.update(pool_sizes={"native": nat.pool_size, "torch": tor.pool_size},
+                   pool_common=int(i.numel()),
+                   pool_traj_max_abs_diff=float((nat.traj_pool[i] - tor.traj_pool[j])
+                                                .abs().max()))
+
+        text, out["dual_eval_s"] = _cli_wait("nadal_federer --test", dual)
+        dual_rep = _json_block(text)
+        _check_report("cli dual eval", dual_rep, lanes=("lane_a", "lane_b"))
+        page = open(dual_html).read() if os.path.exists(dual_html) else ""
+        if '"envs": [0, 2, 4, 6]' not in page:
+            fail(f"cli dual eval: {dual_html} does not hold the paired lanes 0, 2, 4, 6")
+        roll = np.load(os.path.join(D, "dual.npz"))
+        mask = (roll["swing"] == 2) & (roll["phase"] > 2.0) & (roll["phase"] < 5.0)
+        # 64 + 150 steps, with the process's start and set-up
+        out.update(dual_report=dual_rep, dual_s_per_step=out["dual_eval_s"] / 214,
+                   dual_two_hand_frames=int(mask[:, 0::2].sum()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(D, ignore_errors=True)
+    say("cli", card=card, nvidia_smi=nvidia_smi(), im_envs=NUM_ENVS, stage1_envs=TENNIS_ENVS,
+        eval_envs=CLI_EVAL_ENVS, dual_eval_envs=CLI_DUAL_ENVS,
+        phase_s=time.perf_counter() - t_phase, **out)
+    return out["stage1_epoch_launches"]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "vid2player3d_torch")):
         fail(f"no vid2player3d_torch package beside {__file__}")
@@ -2126,6 +2436,7 @@ def main() -> None:
     del stage2_env, im_lib
     mvae_parity_phase(dev)
     mvae_launches, k2_b100 = mvae_main_phase(dev, card, agent, ts)
+    cli_launches = cli_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
     rollout_profile_phase("dual_profile", card, dual_agent, dual_ts)
@@ -2145,7 +2456,7 @@ def main() -> None:
 
     def per_path(name):
         paths = {"tennis_stage1": tennis_launches[name], "dual_rally": dual_launches[name],
-                 "tennis_stage1_dr": tennis_dr_launches[name]}
+                 "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name]}
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
         if name in warm_launches:

@@ -630,3 +630,55 @@ def test_mvae_epochs_match_cpu_and_launch_k2(cuda, tmp_path):
         a, b = a.detach().cpu(), b.detach()
         torch.testing.assert_close(a, b, atol=2 * steps * gpu.opt.lr, rtol=0)
         assert float((a - b).norm()) <= 1e-3 * float((b - b0).norm()) + 1e-12
+
+
+def test_cli_curriculum_runs_on_the_card_by_default(cuda, tmp_path):
+    """`cli.run.main` with no `--device` at test widths: mvae_federer (1
+    epoch of 2 batches) -> federer_im (8 envs) -> federer_train_stage_1 (8
+    envs, horizon 4), then its `--test --render`; each stage finds the last
+    one's files, and the MotionVAE, stage-1 and eval calls launch K2 and K3
+    (a wrapper counts only launches on CUDA tensors)."""
+    import json
+    import os
+
+    from vid2player3d_torch.cli.run import main
+
+    out = str(tmp_path)
+    MOE.moe_linear.launches = FK.fk_chain.launches = 0
+    assert main(["--cfg", "mvae_federer", "--epochs", "1", "--mvae_batches", "2",
+                 "--out", out]) == 0
+    assert MOE.moe_linear.launches > 0
+    assert main(["--cfg", "federer_im", "--num_envs", "8", "--horizon", "4",
+                 "--minibatch_size", "16", "--epochs", "1",
+                 "--out", os.path.join(out, "federer_im")]) == 0
+    MOE.moe_linear.launches = FK.fk_chain.launches = 0
+    assert main(["--cfg", "federer_train_stage_1", "--num_envs", "8", "--horizon", "4",
+                 "--minibatch_size", "16", "--epochs", "1", "--out", out]) == 0
+    torch.cuda.synchronize()
+    # the epoch's 4 steps (3 decodes' GEMMs and 2 FKs each) and the reset
+    assert MOE.moe_linear.launches >= 12 and FK.fk_chain.launches >= 8
+    row = json.loads(open(os.path.join(out, "metrics.jsonl")).readlines()[-1])
+    assert row["grad_skip"] == 0.0
+    html = os.path.join(out, "roll.html")
+    assert main(["--cfg", "federer_train_stage_1", "--num_envs", "4", "--test", "--epochs", "1",
+                 "--out", out, "--checkpoint", os.path.join(out, "best.npz"),
+                 "--render", html]) == 0
+    assert '"envs": [0, 1, 2, 3]' in open(html).read()
+
+
+def test_native_pool_moves_to_the_card(cuda):
+    """`TennisBallGenerator(backend="native")` with no device: flown on the
+    host, the pool on the card; against the torch backend on the card, the
+    candidates both keep carry identical launch states."""
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    nat = TennisBallGenerator(num_candidates=4096, seed=1, backend="native")
+    tor = TennisBallGenerator(num_candidates=4096, seed=1, backend="torch")
+    assert nat.device.type == "cuda" and nat.traj_pool.is_cuda and nat.x_order.is_cuda
+    assert abs(nat.pool_size - tor.pool_size) <= 0.05 * tor.pool_size
+    eq = (nat.launch_pos[:, None] == tor.launch_pos[None]).all(-1)     # (n_nat, n_tor)
+    i, j = torch.nonzero(eq, as_tuple=True)
+    assert i.numel() >= 0.95 * min(nat.pool_size, tor.pool_size)
+    assert torch.equal(nat.launch_vel[i], tor.launch_vel[j])
+    assert torch.equal(nat.launch_vspin[i], tor.launch_vspin[j])
+    assert float((nat.traj_pool[i] - tor.traj_pool[j]).abs().max()) < 2e-2

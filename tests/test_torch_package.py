@@ -44,7 +44,13 @@ new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
        "vid2player3d_torch.envs.presets", "vid2player3d_torch.core.ik",
        # slice 5: MotionVAE training and its harness
        "vid2player3d_torch.mvae.dataset", "vid2player3d_torch.mvae.train",
-       "vid2player3d_torch.mvae.eval"}
+       "vid2player3d_torch.mvae.eval",
+       # slice 6: the command line, eval, the HTML renderer, the native backend
+       "vid2player3d_torch.cli", "vid2player3d_torch.cli.configs",
+       "vid2player3d_torch.cli.run", "vid2player3d_torch.__main__",
+       "vid2player3d_torch.eval", "vid2player3d_torch.vis", "vid2player3d_torch.vis.render",
+       "vid2player3d_torch.native", "vid2player3d_torch.native.ballsim",
+       "vid2player3d_torch.tennis.pool"}
 assert new <= set(names), new - set(names)
 """
 
@@ -240,9 +246,10 @@ def test_v2p_unported_options_raise(kw, error):
 
 
 def test_tennis_unported_options_raise():
-    """The native ball backend is not ported: asking for it raises. Domain
-    randomization is (an unknown target raises), and the two-hand backhand
-    and one spec per lane build."""
+    """The native ball backend builds a pool (on the host, then moved to the
+    pool's device) and an unknown backend raises. Domain randomization is
+    ported (an unknown target raises), and the two-hand backhand and one
+    spec per lane build."""
     from vid2player3d_torch.envs.domain_rand import RandSpec
 
     spec, feats, gen, _ = _tennis_env()
@@ -252,8 +259,10 @@ def test_tennis_unported_options_raise():
         _tennis_env(rand_specs=(RandSpec("ball_bogus"),))
     assert _tennis_env(two_hand_backhand=True)[3].any_two_hand
     TennisEnv(TennisConfig(num_envs=2), (spec, spec), feats, ball_generator=gen, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TennisBallGenerator(num_candidates=16, backend="native", device="cpu")
+    nat = TennisBallGenerator(num_candidates=256, backend="native", device="cpu")
+    assert nat.backend == "native" and nat.pool_size > 0 and nat.device.type == "cpu"
+    with pytest.raises(ValueError):
+        TennisBallGenerator(num_candidates=16, backend="jax", device="cpu")
 
 
 def test_dual_entry_points_need_a_device_without_cuda():

@@ -118,15 +118,21 @@ def test_ball_pool_gathers_match(pools):
 
 def test_ball_generator_makes_a_valid_pool():
     """The port's own pool (its own seeded draws): every kept trajectory
-    clears the net and bounces inside the box, as the filter demands."""
+    clears the net and bounces inside the box, as the filter demands. The
+    native backend flies the same draws on the host: its kept launches
+    clear the net and bounce in the device integrator too."""
     gen = B.TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
     assert 0 < gen.pool_size <= 256
     res = B.simulate_flight(gen.launch_pos, gen.launch_vel, gen.launch_vspin,
                             num_frames=gen.traj_length)
     assert bool(res.pass_net.all()) and bool(res.has_bounce.all())
     torch.testing.assert_close(res.traj, gen.traj_pool, rtol=0.0, atol=0.0)
-    with pytest.raises(NotImplementedError):
-        B.TennisBallGenerator(num_candidates=8, backend="native", device="cpu")
+    nat = B.TennisBallGenerator(num_candidates=256, seed=0, backend="native", device="cpu")
+    assert nat.backend == "native" and 0 < nat.pool_size <= 256
+    res = B.simulate_flight(nat.launch_pos, nat.launch_vel, nat.launch_vspin,
+                            num_frames=nat.traj_length)
+    assert bool(res.has_bounce.all())
+    torch.testing.assert_close(res.traj, nat.traj_pool, rtol=0.0, atol=2e-2)
 
 
 # -- player ---------------------------------------------------------------------

@@ -11,9 +11,10 @@ positive topspin; its world angular-velocity vector is
 
 The pool generator draws its candidate launches from a `torch.Generator`
 seeded by `seed` (on the CPU, so every device gets the same pool), and
-`from_arrays` loads a pool made elsewhere. `estimate_in` is the dual-play
-hand-off: the opponent's outgoing ball mirrored through the net. The native
-C++ backend is not ported yet.
+`from_arrays` loads a pool made elsewhere. Its candidates fly through
+`simulate_flight` on the device, or through the native C++ integrator on the
+host (`backend="native"`, ``native/ballsim.py``). `estimate_in` is the
+dual-play hand-off: the opponent's outgoing ball mirrored through the net.
 """
 
 from __future__ import annotations
@@ -170,17 +171,18 @@ class TennisBallGenerator:
     def __init__(self, cfg: Optional[dict] = None, num_candidates: int = 4096,
                  seed: int = 0, p: BallParams = DEFAULT_PARAMS, backend: str = "auto",
                  device=None):
-        """The candidates are integrated with `simulate_flight` on `device`;
-        backend="native" (the JAX package's C++ host kernel) is not ported
-        and raises."""
-        if backend == "native":
-            raise NotImplementedError("the native ball-simulation backend is not ported yet")
-        if backend != "auto":
+        """backend: "torch" integrates the candidates with `simulate_flight`
+        on `device`; "native" with the C++/OpenMP integrator on the host
+        (``native/ballsim.cpp``), the pool then moved to `device`; "auto" is
+        "torch". Both share the force model and draw the same launches, so
+        their pools agree to float accumulation order. "native" raises when
+        the library does not build or load: there is no fallback."""
+        if backend not in ("auto", "torch", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         dev = resolve_device(device)
         cfg = cfg or {}
         self.p = p
-        self.backend = "torch"
+        self.backend = "native" if backend == "native" else "torch"
         self.traj_length = int(cfg.get("ball_traj_length", 100))
 
         def vec(name, default):
@@ -205,9 +207,16 @@ class TennisBallGenerator:
         vel = torch.stack([speed * torch.cos(theta) * d[:, 0],
                            speed * torch.cos(theta) * d[:, 1],
                            speed * torch.sin(theta)], dim=1)
-        origin, vel, vspin = origin.to(dev), vel.to(dev), vspin.to(dev)
+        if self.backend == "native":
+            from ..native import simulate_flight_native
 
-        res = simulate_flight(origin, vel, vspin, num_frames=self.traj_length, p=p)
+            nat = simulate_flight_native(origin.numpy(), vel.numpy(), vspin.numpy(),
+                                         num_frames=self.traj_length, params=p)
+            res = FlightResult(*(torch.from_numpy(getattr(nat, f)) if f in nat._fields
+                                 else None for f in FlightResult._fields))
+        else:
+            origin, vel, vspin = origin.to(dev), vel.to(dev), vspin.to(dev)
+            res = simulate_flight(origin, vel, vspin, num_frames=self.traj_length, p=p)
         bmin, bmax = bounce_min.tolist(), bounce_max.tolist()
         valid = (res.pass_net & res.has_bounce
                  & (res.bounce_pos[:, 0] > bmin[0]) & (res.bounce_pos[:, 0] < bmax[0])
@@ -216,7 +225,7 @@ class TennisBallGenerator:
         idx = torch.nonzero(valid)[:, 0]
         if idx.numel() == 0:
             raise ValueError("no valid ball trajectories generated")
-        self._set_pool(res.traj[idx], origin[idx], vel[idx], vspin[idx])
+        self._set_pool(*(x[idx].to(dev) for x in (res.traj, origin, vel, vspin)))
 
     def _set_pool(self, traj, launch_pos, launch_vel, launch_vspin):
         self.traj_pool = traj
