@@ -134,12 +134,44 @@ Phases, each printing one line (any failed phase exits non-zero):
               torch` at 100,000 candidates, both files loaded on the card,
               the common survivors' launch states identical, the sizes
               within 5%, both wall times
-  22. profile torch.profiler over a short imitation epoch, a short tennis
-              rollout and a short dual rollout: device busy and idle share,
+  22. dp parity  (beside phase 23's processes; its wall time is printed as
+              overlapped) two gloo ranks share the card (spawned processes, the
+              learners' `mesh=` over envs sharded with `shard`; the group's
+              mesh without a device on the card each rank pinned): small f32
+              imitation epochs (global minibatch with K1; per-rank
+              minibatches with local SGD), a stage-1 tennis epoch (2
+              candidate resets, episodes of 3 steps) and a dual rally with
+              two policies and per-rank minibatches, on global draws; the
+              rollout metrics against one process on the card to 1e-5
+              relative, the params against it (the union minibatches; local
+              SGD against two gloo ranks on the CPU) at the CPU epoch tests'
+              tolerances (imitation within 1% of the update's norm), params
+              and moments bit for bit across the ranks, each kernel's
+              launches per rank, and K1, K2 and K3 against their plain
+              versions on each rank's own inputs, at each of their shapes
+  23. dp cli  `python -m vid2player3d_torch --cfg amass_im --n_devices 1
+              --num_envs 4096 --epochs 1` over NCCL at world size 1 (its
+              checkpoint read back), beside `--n_devices 2`, which must exit
+              non-zero with both counts; both start before dp parity and
+              run beside it
+  24. dp main two gloo ranks on the card at full widths: amass_im at
+              2 x 2048 envs in both sync modes (global minibatch 512 with K1,
+              2 mini-epochs, cut from 6; per-rank minibatches of 512 with
+              local SGD, 6 mini-epochs), federer_train_stage_1 at 2 x 2048
+              and nadal_federer at 2 x 256 (per-rank minibatches of 1024,
+              horizon cut to 8): per rank and path the epoch, the rollout's
+              env-steps/s, the gradient all-reduce's ms per optimizer step
+              and share of the update, the local-SGD sync's ms per
+              mini-epoch, each kernel's launches against one process's count,
+              and K1, K2 and K3 against their plain versions on the inputs
+              each rank's epoch gave them, at every shape (K2 at the rank's
+              envs per lane, K3 at its envs and at the 256 candidate resets)
+  25. profile torch.profiler over a short imitation epoch, a short tennis
+              rollout and one dual step: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  23. kernels one JSON line over the ported kernels, each kernel's launches
+  26. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -2063,10 +2095,10 @@ def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
 # phase 22 (tennis and dual parts): where a rollout's time goes
 # ---------------------------------------------------------------------------
 
-def rollout_profile_phase(name: str, card: str, agent, ts):
-    """A rollout of horizon 2 at a main path's sizes, profiled after that
-    path's warm-up: device busy and idle share, device events per env step,
-    the costliest kernels, K2's and K3's device share, and per span of
+def rollout_profile_phase(name: str, card: str, agent, ts, horizon: int = 2):
+    """A rollout of `horizon` steps at a main path's sizes, profiled after
+    that path's warm-up: device busy and idle share, device events per env
+    step, the costliest kernels, K2's and K3's device share, and per span of
     SPANS its host wall share and the device time of the kernels that ran
     inside its device-side ranges."""
     import dataclasses
@@ -2074,7 +2106,6 @@ def rollout_profile_phase(name: str, card: str, agent, ts):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    horizon = 2
     short = dataclasses.replace(agent.cfg, horizon=horizon)
     cfg0 = agent.cfg
     agent.cfg = short
@@ -2392,6 +2423,640 @@ def cli_phase(dev, card: str):
     return out["stage1_epoch_launches"]
 
 
+# ---------------------------------------------------------------------------
+# slice 7: data parallelism over torch.distributed. Two gloo ranks share the
+# card (spawned processes); the command line runs NCCL at world size 1.
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMEOUT_S = 300.0
+# dp_main: amass_im at 2 x 2048 envs (both sync modes; the per-minibatch
+# epoch cut from 6 mini-epochs to 2: its 1,536 gradient all-reduces took
+# 43 s of a 58.6 s epoch), federer_train_stage_1 at 2 x 2048, nadal_federer
+# at 2 x 256 with per-rank minibatches of 1024 and the horizon cut from 32
+# to 8
+DP_IM_ENVS, DP_TENNIS_ENVS, DP_DUAL_ENVS, DP_DUAL_HORIZON, DP_DUAL_MINIBATCH = \
+    4096, 4096, 512, 8, 1024
+DP_PER_MINIBATCH_MINI_EPOCHS = 2
+DP_KERNELS = ("k1_update", "k1_norm", "k2_prep", "k2_gemm", "k3")
+
+
+def _kernel_counts() -> dict:
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    return {"k1_update": FA.leaf_update.launches, "k1_norm": FA.global_norm_scalars.launches,
+            "k2_prep": MOE.split_weights.launches, "k2_gemm": MOE.moe_linear.launches,
+            "k3": FK.fk_chain.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from vid2player3d_torch.ops import fk as FK
+    from vid2player3d_torch.ops import fused_adam as FA
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+    MOE.split_weights.launches = MOE.moe_linear.launches = FK.fk_chain.launches = 0
+
+
+class _KernelRecorder:
+    """The first inputs this process's path gave each kernel at each of its
+    shapes: the learner's fused step (K1), every MoE layer of the env's
+    decoders (K2, by batch) and the env's FK (K3, by env count), cloned once
+    so the epoch's time hardly moves; `check` holds each kernel against its
+    plain version on them. Installed in a rank process only."""
+
+    def __init__(self):
+        import vid2player3d_torch.envs.tennis as TEN
+        import vid2player3d_torch.learn.ppo as PPO
+
+        self.last = {}
+        k1, fk = PPO.fused_clip_adam_apply, TEN.fk_chain
+
+        def record_k1(params, mu, nu, grads, count, lr, max_norm, *a, **kw):
+            if "k1" not in self.last:
+                self.last["k1"] = ([p.detach().clone() for p in params],
+                                   [m.clone() for m in mu], [v.clone() for v in nu],
+                                   [g.detach().clone() for g in grads], count.clone(), lr,
+                                   max_norm)
+            return k1(params, mu, nu, grads, count, lr, max_norm, *a, **kw)
+
+        def record_fk(rot, off, root_pos, parents):
+            key = f"k3/{rot.shape[0]}"
+            if key not in self.last:
+                self.last[key] = (rot.clone(), off.clone(), root_pos.clone(), tuple(parents))
+            return fk(rot, off, root_pos, parents)
+
+        PPO.fused_clip_adam_apply, TEN.fk_chain = record_k1, record_fk
+
+    def watch(self, env) -> None:
+        from vid2player3d_torch.mvae.model import MoELayer
+
+        for li, spec in enumerate(getattr(env, "_lane_specs", ())):
+            for mi, mod in enumerate(m for m in spec.decoder.modules() if isinstance(m, MoELayer)):
+                def hook(module, args, key=f"k2/{li}/{mi}"):
+                    coeff, h = args
+                    if f"{key}/{h.shape[0]}" not in self.last:
+                        self.last[f"{key}/{h.shape[0]}"] = (
+                            h.detach().clone(), coeff.detach().clone(), module.w.detach(),
+                            module.b.detach())
+                mod.register_forward_pre_hook(hook)
+
+    def shapes(self) -> dict:
+        """The batches K2 and the env counts K3 were checked at."""
+        return {k: sorted({int(key.rsplit("/", 1)[1]) for key in self.last
+                           if key.startswith(k + "/")}) for k in ("k2", "k3")}
+
+    def check(self) -> dict:
+        """max errors of each kernel against its plain PyTorch version on the
+        same inputs, both on the card."""
+        import torch
+
+        from vid2player3d_torch.ops import fk as FK
+        from vid2player3d_torch.ops import fused_adam as FA
+        from vid2player3d_torch.ops import moe_linear as MOE
+
+        errs = {}
+        if "k1" in self.last:
+            params, mu, nu, grads, count, lr, max_norm = self.last["k1"]
+            s_plain, _ = FA.adam_scalars(grads, count, lr, max_norm)
+            s_k, _ = FA.global_norm_scalars(grads, count, lr, max_norm)
+            errs["k1_scalar_rel"] = float(((s_k - s_plain).abs() / s_plain.abs()).max())
+            card = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+            plain = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+            FA.update_leaves(*card, grads, s_plain)
+            for p, m, v, g in zip(*plain, grads):
+                FA._leaf_plain(p, m, v, g.contiguous(), s_plain, 0.9, 0.999, 1e-8)
+            errs["k1_update"] = max(float((a.float() - b.float()).abs().max())
+                                    for ca, pa in zip(card, plain) for a, b in zip(ca, pa))
+        k2 = [v for k, v in self.last.items() if k.startswith("k2/")]
+        if k2:
+            e = 0.0
+            for h, coeff, w, b in k2:
+                want = MOE.moe_linear_ref(h, coeff, w, b)
+                got = MOE.moe_linear(h, coeff, w, b)
+                e = max(e, float((got - want).abs().max()) / max(1.0, float(want.abs().max())))
+            errs["k2"] = e
+        k3 = [v for k, v in self.last.items() if k.startswith("k3/")]
+        if k3:
+            errs["k3"] = 0.0
+            for rot, off, root, parents in k3:
+                got = FK.fk_chain(rot, off, root, parents)
+                want = FK._fk_plain(rot, off, root, parents)
+                errs["k3"] = max([errs["k3"]] + [float((a - b).abs().max())
+                                                 for a, b in zip(got, want)])
+        torch.cuda.synchronize()
+        return errs
+
+
+def _dp_small_cases(pool):
+    """dp_parity's four small cases (f32), each with its global draws: the
+    imitation epoch with K1 and a global minibatch; the imitation epoch with
+    per-rank minibatches and local SGD; a stage-1 tennis epoch (2 candidate
+    resets, episodes of 3 steps, so done envs take candidates across ranks);
+    the dual rally with two policies and per-rank minibatches (its two-hand
+    lane started in a backhand)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    n, t, me, local = 4, 4, 2, 4 * 4 // DP_RANKS
+
+    def perms():
+        return np.stack([np.stack([rng.permutation(local) for _ in range(DP_RANKS)])
+                         for _ in range(me)])
+
+    cases = {}
+    for name, kw in (("im_per_minibatch", dict(minibatch_size=8, fused_optimizer="on")),
+                     ("im_local_sgd", dict(minibatch_size=4, minibatch_per_chip=True,
+                                           dp_sync="per_mini_epoch"))):
+        cases[name] = dict(kind="im", n=n, motion_ids=np.array([0, 1, 1, 0]),
+                           ppo=dict(horizon=t, mini_epochs=me, compute_dtype="f32", **kw),
+                           draws={"motion_times": (rng.random(n) * 0.8).astype(np.float32),
+                                  "noise": rng.standard_normal((t, n, 75)).astype(np.float32),
+                                  "perms": perms()})
+    arrays = [a.cpu().numpy() for a in (pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                        pool.launch_vspin)]
+    for name, dual in (("tennis_stage1", False), ("dual_rally", True)):
+        env = dict(num_envs=n, substeps=2, max_episode_length=3 if not dual else 40,
+                   reset_reaction_nframes=6, reward_type="reach" if not dual
+                   else "return_w_estimate",
+                   use_random_ball_target="continuous" if dual else "discrete",
+                   reset_candidates=0 if dual else 2)
+        learner = dict(horizon=t, mini_epochs=me, actor_units=(64, 32), critic_units=(64, 32),
+                       compute_dtype="f32")
+        learner.update(dict(minibatch_size=4, minibatch_per_chip=True, num_policies=2) if dual
+                       else dict(minibatch_size=8, lr_schedule="adaptive"))
+        reset, draws = _tennis_draws(rng, n, t, me, pool.pool_size, env["reset_candidates"],
+                                     35, n_init=64, dual=dual)
+        draws["perms"] = perms()
+        cases[name] = dict(kind="dual" if dual else "tennis", env=env, learner=learner,
+                           pool=arrays, reset_draws=reset, draws=draws)
+    return cases
+
+
+def _dp_one_process(case):
+    """The one-process counterpart of a dp case: each minibatch the union of
+    the shards' minibatches (a per-rank minibatch becomes a global one of
+    D times its size); None where no such run exists (local SGD)."""
+    import numpy as np
+
+    cfg = case["ppo" if case["kind"] == "im" else "learner"]
+    if cfg.get("dp_sync") == "per_mini_epoch":
+        return None
+    per_chip = cfg.get("minibatch_per_chip", False)
+    mb_local = cfg["minibatch_size"] if per_chip else cfg["minibatch_size"] // DP_RANKS
+    one = dict(cfg, minibatch_per_chip=False, minibatch_size=mb_local * DP_RANKS)
+    perms = []
+    for p in case["draws"]["perms"]:
+        parts = [(p[r] + r * p.shape[1]).reshape(-1, mb_local) for r in range(DP_RANKS)]
+        perms.append(np.concatenate(parts, axis=1).reshape(-1))
+    return dict(case, **{"ppo" if case["kind"] == "im" else "learner": one},
+                draws=dict(case["draws"], perms=np.stack(perms)))
+
+
+def _dp_build(dev, case, mesh=None):
+    """(learner, train state) of a dp_parity case on `dev`, sharded over
+    `mesh` when given."""
+    import dataclasses
+
+    import torch
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv, TennisConfig
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig, V2PConfig, V2PPPO
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    if case["kind"] == "im":
+        lib = make_synthetic_motion_lib(num_motions=2, T=60, seed=0, device=dev)
+        env = HumanoidImEnv(HumanoidImConfig(num_envs=case["n"], substeps=2), lib,
+                            motion_ids=case["motion_ids"], device=dev)
+        env = env.shard(mesh) if mesh is not None else env
+        agent = ImitationPPO(env, PPOConfig(**case["ppo"]), seed=7, mesh=mesh, device=dev)
+        return agent, agent.init_state()
+    gen = TennisBallGenerator.from_arrays(*case["pool"], device=dev)
+    make = _dual_env if case["kind"] == "dual" else _tennis_env
+    env = make(dev, TennisConfig(**case["env"]), hidden=64, experts=3, gen=gen)
+    env = env.shard(mesh) if mesh is not None else env
+    agent = V2PPPO(env, V2PConfig(**case["learner"]), seed=7, mesh=mesh, device=dev)
+    ts = agent.init_state(reset_draws=case["reset_draws"])
+    if case["kind"] == "dual":
+        # the two-hand lane starts in a backhand, so the IK runs
+        mvae = ts.env_state.mvae
+        swing = torch.where(env.two_hand_mask, 2, mvae.swing_type).to(torch.int32)
+        ts.env_state = dataclasses.replace(ts.env_state,
+                                           mvae=dataclasses.replace(mvae, swing_type=swing))
+    return agent, ts
+
+
+def _dp_epoch(dev, case, mesh=None, recorder=None) -> dict:
+    """One epoch of a dp_parity case: metrics, params and moments (on the
+    CPU), the step count and the kernels' launches in the epoch."""
+    import torch
+
+    agent, ts = _dp_build(dev, case, mesh)
+    if recorder is not None:
+        recorder.watch(agent.env)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _zero_kernel_counts()
+    ts, m = agent.train_epoch(ts, draws=case["draws"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"launches": _kernel_counts(), "metrics": {k: float(v) for k, v in m.items()},
+            "params": {k: v.detach().cpu() for k, v in ts.params.items()},
+            "moments": [t.float().cpu() for t in ts.opt_state.mu + ts.opt_state.nu],
+            "count": int(ts.opt_state.count), "steps": agent.num_minibatches}
+
+
+def _dp_parity_rank(mesh, cases):
+    """One rank of dp_parity: each case's epoch on this rank's shard; on the
+    card also each kernel against its plain version on this rank's inputs."""
+    from vid2player3d_torch import parallel
+
+    # the group's mesh asked for without a device: the card the rank pinned
+    out = {"default_device": str(parallel.data_parallel_mesh().device)}
+    rec = _KernelRecorder() if mesh.device.type == "cuda" else None
+    for name, case in cases.items():
+        out[name] = _dp_epoch(mesh.device, case, mesh, rec)
+        if rec is not None:
+            out[name]["kernel_errs"] = rec.check()
+            rec.last.clear()
+    return out
+
+
+def _expected_launches(kind: str, steps: int, horizon: int, fused: bool) -> dict:
+    """Each kernel's launches in one epoch on one rank: the world-size-1
+    count for the rank's share (K1 two per optimizer step when fused, K2 3
+    prep + 3 GEMM per decode, one decode per lane per env step, K3 two per
+    env step: the FK targets and the masked reset)."""
+    k1 = steps if fused else 0
+    decodes = {"im": 0, "tennis": 1, "dual": 2}[kind] * horizon
+    return {"k1_update": k1, "k1_norm": k1, "k2_prep": 3 * decodes, "k2_gemm": 3 * decodes,
+            "k3": 0 if kind == "im" else 2 * horizon}
+
+
+def _close(what, got, want, atol, norm_frac, init=None):
+    """Params (dicts of CPU tensors) elementwise within `atol` and, as an
+    update from `init` (or as values), within `norm_frac` of its norm."""
+    diff2 = ref2 = 0.0
+    for k, w in want.items():
+        g = got[k]
+        err = float((g - w).abs().max())
+        if not err <= atol:
+            fail(f"{what}: {k} off by {err} (atol {atol})")
+        diff2 += float(((g - w) ** 2).sum())
+        base = w if init is None else w - init[k]
+        ref2 += float((base ** 2).sum())
+    if not diff2 ** 0.5 <= norm_frac * ref2 ** 0.5:
+        fail(f"{what}: update off by {diff2 ** 0.5} of {ref2 ** 0.5}")
+    return diff2 ** 0.5 / max(ref2 ** 0.5, 1e-30)
+
+
+def dp_parity_phase(dev, card: str):
+    """dp_parity: two gloo ranks share the card; the same cases at world size
+    1 on the card and (local SGD, which has no one-process counterpart) two
+    gloo ranks on the CPU."""
+    import torch
+
+    from vid2player3d_torch import parallel
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    t0 = time.perf_counter()
+    cases = _dp_small_cases(TennisBallGenerator(num_candidates=256, seed=0, device="cpu"))
+    ranks = parallel.spawn(_dp_parity_rank, DP_RANKS, args=(cases,), backend="gloo",
+                           device=dev, timeout_s=DP_TIMEOUT_S)
+    host = parallel.spawn(_dp_parity_rank, DP_RANKS, args=({"im_local_sgd":
+                                                            cases["im_local_sgd"]},),
+                          device="cpu", timeout_s=DP_TIMEOUT_S)
+    if [r["default_device"] for r in ranks] != [str(dev)] * DP_RANKS:
+        fail(f"dp_parity: the group's mesh without a device is on "
+             f"{[r['default_device'] for r in ranks]}, the ranks pinned {dev}")
+    rows = {}
+    for name, case in cases.items():
+        r0, r1 = ranks[0][name], ranks[1][name]
+        for k in r0["params"]:
+            if not torch.equal(r0["params"][k], r1["params"][k]):
+                fail(f"dp_parity {name}: ranks' params differ at {k}")
+        if not all(torch.equal(a, b) for a, b in zip(r0["moments"], r1["moments"])) \
+                or r0["count"] != r1["count"]:
+            fail(f"dp_parity {name}: ranks' Adam state differs")
+        cfg = case["ppo" if case["kind"] == "im" else "learner"]
+        want = _expected_launches(case["kind"], cfg["mini_epochs"] * r0["steps"], cfg["horizon"],
+                                  cfg.get("fused_optimizer") == "on"
+                                  and cfg.get("dp_sync") != "per_mini_epoch")
+        for r, out in enumerate((r0, r1)):
+            if out["launches"] != want:
+                fail(f"dp_parity {name} rank {r}: launches {out['launches']}, expected {want}")
+            errs = out["kernel_errs"]
+            need = DP_CHECKED[name]
+            if set(errs) != set(need) or any(not errs[k] <= DP_HELD[k] for k in errs):
+                fail(f"dp_parity {name} rank {r}: kernels against their plain versions {errs}")
+        one_case = _dp_one_process(case)
+        row = {"launches_per_rank": r0["launches"], "kernel_errs": [r0["kernel_errs"],
+                                                                     r1["kernel_errs"]]}
+        if one_case is not None:
+            one = _dp_epoch(dev, one_case)
+            rel = {k: abs(r0["metrics"][k] - one["metrics"][k]) / max(abs(one["metrics"][k]),
+                                                                      1e-30)
+                   for k in DP_ROLLOUT_KEYS[case["kind"]]}
+            bad = {k: v for k, v in rel.items() if not v <= 1e-5}
+            if bad:
+                fail(f"dp_parity {name}: rollout differs from one process {bad}")
+            row["rollout_rel_err"] = max(rel.values())
+            ref, tol = one["params"], DP_PARAM_TOL[case["kind"]]
+        else:
+            ref, tol = host[0][name]["params"], DP_PARAM_TOL["im"]
+            row["reference"] = "two gloo ranks on the CPU"
+        # imitation: 2·steps·lr elementwise (lr the config's 2e-5)
+        steps = cfg["mini_epochs"] * r0["steps"]
+        atol = tol[0] * steps * 2e-5 if case["kind"] == "im" else tol[0]
+        _, init = _dp_build(torch.device("cpu"), case)
+        row["update_rel_err"] = _close(f"dp_parity {name}", r0["params"], ref, atol, tol[1],
+                                       {k: v.detach() for k, v in init.params.items()})
+        rows[name] = row
+    say("dp_parity", card=card, nvidia_smi=nvidia_smi(), ranks=DP_RANKS,
+        backend="gloo, one card shared", overlapped_wall_s=time.perf_counter() - t0,
+        overlapped_with="dp_cli's two command-line processes", cases=rows)
+    return {name: row["launches_per_rank"] for name, row in rows.items()}
+
+
+# the kernels each dp case's path runs, held on its inputs
+DP_CHECKED = {"im_per_minibatch": ("k1_scalar_rel", "k1_update"), "im_local_sgd": (),
+              "tennis_stage1": ("k2", "k3"), "dual_rally": ("k2", "k3")}
+DP_MAIN_CHECKED = {"amass_im_per_minibatch": DP_CHECKED["im_per_minibatch"],
+                   "amass_im_local_sgd": (), "federer_train_stage_1": ("k2", "k3"),
+                   "nadal_federer": ("k2", "k3")}
+# each kernel against its plain version on a rank's inputs: K1's norm sums in
+# f64 against the plain f32 tree (relative 1e-6), its update bit for bit
+# under the same scalars; K2 to 1e-4 of its output's scale (3xTF32); K3 bit
+# for bit
+DP_HELD = {"k1_scalar_rel": 1e-6, "k1_update": 0.0, "k2": 1e-4, "k3": 0.0}
+# rollout metrics a dp case holds to the one-process run
+DP_ROLLOUT_KEYS = {
+    "im": ("reward_mean", "alive_ratio", "episode_return", "success_rate"),
+    "tennis": ("reward_mean", "done_rate", "episode_return", "racket_ball_dist"),
+    "dual": ("reward_mean", "done_rate", "episode_return", "racket_ball_dist")}
+# parameter tolerances: imitation 2·steps·lr elementwise and 1% of the
+# update's norm (tests/test_torch_dp_imitation.py's one-process bound), tennis
+# 2e-6 and 1e-3 (tests/test_torch_dp_tennis.py)
+DP_PARAM_TOL = {"im": (2.0, 0.01), "tennis": (2e-6, 1e-3), "dual": (2e-6, 1e-3)}
+
+
+class _DPTimers:
+    """Host-clock times of the learners' flat all-reduces in this process
+    (synchronized before and after): the per-step gradient bucket and the
+    local-SGD average (`mean=True`)."""
+
+    def __init__(self):
+        import torch
+
+        import vid2player3d_torch.parallel.mesh as PM
+
+        self.grad, self.sync = [], []
+        orig = PM.flat_all_reduce
+
+        def timed(tensors, mesh, mean=False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(tensors, mesh, mean)
+            torch.cuda.synchronize()
+            (self.sync if mean else self.grad).append(time.perf_counter() - t)
+            return out
+
+        PM.flat_all_reduce = timed
+
+    def reset(self):
+        self.grad.clear()
+        self.sync.clear()
+
+
+def _dp_main_builds(dev, mesh, pool):
+    """dp_main's four paths as (name, kind, build function) at full widths."""
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv, TennisConfig
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig, V2PConfig, V2PPPO
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    def imitation(**kw):
+        def build():
+            lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
+            env = HumanoidImEnv(HumanoidImConfig(num_envs=DP_IM_ENVS, substeps=SUBSTEPS), lib,
+                                rng=0, device=dev).shard(mesh)
+            return ImitationPPO(env, PPOConfig(horizon=HORIZON, **kw), seed=7, mesh=mesh)
+        return build
+
+    def stage1():
+        env_cfg = TennisConfig(num_envs=DP_TENNIS_ENVS, substeps=2, max_episode_length=600,
+                               reward_type="reach", use_random_ball_target="discrete",
+                               reset_reaction_nframes=70, reset_candidates=256)
+        env = _tennis_env(dev, env_cfg, hidden=256, experts=6,
+                          gen=TennisBallGenerator.from_arrays(*pool, device=dev)).shard(mesh)
+        return V2PPPO(env, V2PConfig(horizon=TENNIS_HORIZON, minibatch_size=TENNIS_MINIBATCH,
+                                     mini_epochs=TENNIS_MINI_EPOCHS, learning_rate=1e-4,
+                                     sigma_init=-0.69, bounds_loss_coef=10.0), seed=7, mesh=mesh)
+
+    def dual():
+        env_cfg = TennisConfig(num_envs=DP_DUAL_ENVS, substeps=6, max_episode_length=300,
+                               reward_type="return_w_estimate",
+                               use_random_ball_target="continuous", reset_reaction_nframes=70,
+                               reset_candidates=0, ball_reaction_force=True,
+                               ball_body_contact=True)
+        env = _dual_env(dev, env_cfg, hidden=256, experts=6,
+                        gen=TennisBallGenerator.from_arrays(*pool, device=dev)).shard(mesh)
+        return V2PPPO(env, V2PConfig(horizon=DP_DUAL_HORIZON, minibatch_size=DP_DUAL_MINIBATCH,
+                                     minibatch_per_chip=True, mini_epochs=DUAL_MINI_EPOCHS,
+                                     learning_rate=1e-5, sigma_init=-2.9, bounds_loss_coef=10.0,
+                                     num_policies=2), seed=7, mesh=mesh)
+
+    return (("amass_im_per_minibatch", "im",
+             imitation(minibatch_size=MINIBATCH, mini_epochs=DP_PER_MINIBATCH_MINI_EPOCHS,
+                       fused_optimizer="on")),
+            ("amass_im_local_sgd", "im",
+             imitation(minibatch_size=MINIBATCH, mini_epochs=MINI_EPOCHS,
+                       minibatch_per_chip=True, dp_sync="per_mini_epoch")),
+            ("federer_train_stage_1", "tennis", stage1),
+            ("nadal_federer", "dual", dual))
+
+
+def _dp_main_rank(mesh, pool):
+    """One rank of dp_main: each path's epoch at full width on this rank's
+    shard, timed; the kernels' launches in the epoch, and each kernel held
+    against its plain version on the inputs this epoch gave it, at each of
+    its shapes."""
+    import math
+
+    import torch
+
+    timers = _DPTimers()
+    rec = _KernelRecorder()
+    out = {}
+    for name, kind, build in _dp_main_builds(mesh.device, mesh, pool):
+        t0 = time.perf_counter()
+        agent = build()
+        ts = agent.init_state()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rollout_s, unwrap = _timed_rollouts(agent)
+        rec.watch(agent.env)
+        timers.reset()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        ts, m = agent.train_epoch(ts)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = _kernel_counts()
+        kernel_errs, kernel_shapes = rec.check(), rec.shapes()
+        rec.last.clear()
+        unwrap()
+        metrics = {k: float(v) for k, v in m.items()}
+        update_s = epoch_s - rollout_s[-1]
+        n = agent.env.cfg.num_envs
+        out[name] = dict(
+            kind=kind, envs_per_rank=n, envs=agent.num_envs_global, horizon=agent.cfg.horizon,
+            setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s[-1], update_s=update_s,
+            rollout_env_steps_per_s=agent.num_envs_global * agent.cfg.horizon / rollout_s[-1],
+            optimizer_steps=agent.cfg.mini_epochs * agent.num_minibatches,
+            grad_all_reduces=len(timers.grad),
+            all_reduce_ms_per_step=1e3 * sum(timers.grad) / max(len(timers.grad), 1),
+            all_reduce_share_of_update=sum(timers.grad) / update_s,
+            local_sgd_syncs=len(timers.sync),
+            sync_ms_per_mini_epoch=1e3 * sum(timers.sync) / max(len(timers.sync), 1),
+            launches=launches, kernel_errs=kernel_errs, kernel_shapes=kernel_shapes,
+            lanes=len(getattr(agent.env, "_lane_specs", ())),
+            reset_candidates=getattr(agent.env.cfg, "reset_candidates", 0),
+            count=int(ts.opt_state.count),
+            fused=getattr(agent, "use_fused", False) and not getattr(agent, "local_sgd", False),
+            finite=all(math.isfinite(v) for v in metrics.values()),
+            metrics={k: metrics[k] for k in ("reward_mean", "kl", "c_loss") if k in metrics},
+            grad_skip=metrics.get("grad_skip", 0.0),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del agent, ts
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_main_phase(dev, card: str):
+    """dp_main: the DP paths at full widths, two gloo ranks sharing the card."""
+    from vid2player3d_torch import parallel
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    t0 = time.perf_counter()
+    pool = TennisBallGenerator(num_candidates=4096, seed=0, device="cpu")
+    arrays = [a.numpy() for a in (pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                  pool.launch_vspin)]
+    ranks = parallel.spawn(_dp_main_rank, DP_RANKS, args=(arrays,), backend="gloo", device=dev,
+                           timeout_s=DP_TIMEOUT_S)
+    launches = {}
+    for name in ranks[0]:
+        rows = [r[name] for r in ranks]
+        kind = rows[0]["kind"]
+        want = _expected_launches(kind, rows[0]["optimizer_steps"], rows[0]["horizon"],
+                                  rows[0]["fused"])
+        for r, row in enumerate(rows):
+            if row["launches"] != want:
+                fail(f"dp_main {name} rank {r}: launches {row['launches']}, expected {want}")
+            errs = row["kernel_errs"]
+            if set(errs) != set(DP_MAIN_CHECKED[name]) \
+                    or any(not errs[k] <= DP_HELD[k] for k in errs):
+                fail(f"dp_main {name} rank {r}: kernels against their plain versions {errs}")
+            # every shape the epoch gave a kernel is checked; among them the
+            # path's own: K2 at the rank's envs per lane, K3 at the rank's
+            # envs and at the global candidate resets
+            n, K = row["envs_per_rank"], row["reset_candidates"]
+            need = {"k2": {n // row["lanes"]} if "k2" in errs else set(),
+                    "k3": ({n} | ({K} if 0 < K < row["envs"] else set()))
+                    if "k3" in errs else set()}
+            if any(not need[k] <= set(row["kernel_shapes"][k]) for k in need):
+                fail(f"dp_main {name} rank {r}: kernels checked at {row['kernel_shapes']}, the "
+                     f"path's shapes are {need}")
+            if not row["finite"] or row["grad_skip"] != 0.0:
+                fail(f"dp_main {name} rank {r}: metrics {row['metrics']}, grad_skip "
+                     f"{row['grad_skip']}")
+            if row["count"] != row["optimizer_steps"]:
+                fail(f"dp_main {name} rank {r}: optimizer count {row['count']}")
+            syncs = MINI_EPOCHS if name.endswith("local_sgd") else 0
+            if row["local_sgd_syncs"] != syncs or \
+                    row["grad_all_reduces"] != (0 if syncs else row["optimizer_steps"]):
+                fail(f"dp_main {name} rank {r}: {row['grad_all_reduces']} gradient all-reduces "
+                     f"and {row['local_sgd_syncs']} local-SGD syncs")
+        launches[name] = want
+        say("dp_main", path=name, card=card, nvidia_smi=nvidia_smi(), ranks=DP_RANKS,
+            backend="gloo, one card shared", per_rank=rows)
+    say("dp_main_total", card=card, nvidia_smi=nvidia_smi(), seconds=time.perf_counter() - t0)
+    return launches
+
+
+def dp_cli_start():
+    """dp_cli's two processes, started: `--n_devices 1` (NCCL at world size
+    1) and `--n_devices 2` on this one-card machine. They run beside
+    dp_parity: neither phase's wall time is a measurement."""
+    import shutil
+
+    out = os.path.join(REPO, "build", f"dp_cli_{os.getpid()}")
+    shutil.rmtree(out, ignore_errors=True)
+    return out, time.perf_counter(), (
+        _cli_subprocess(["--cfg", "amass_im", "--n_devices", "1", "--num_envs", "4096",
+                         "--epochs", "1", "--out", out]),
+        _cli_subprocess(["--cfg", "amass_im", "--n_devices", "2", "--num_envs", "4096",
+                         "--epochs", "1", "--out", out + "_two"]))
+
+
+def _beside(started, phase, *args):
+    """Run `phase(*args)` while dp_cli's processes run; if it fails, stop
+    them before the script exits."""
+    try:
+        return phase(*args)
+    except BaseException:
+        for proc, _ in started[2]:
+            proc.kill()
+            proc.communicate()
+        raise
+
+
+def dp_cli_phase(dev, card: str, started):
+    """dp_cli: `--n_devices 1` ran over NCCL at world size 1 and its
+    checkpoint reads back; `--n_devices 2` on this one-card machine failed
+    with both counts."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from vid2player3d_torch.learn import FrozenImitator
+    from vid2player3d_torch.utils import checkpoint as CK
+
+    out, t0, (one, two) = started
+    try:
+        proc, _ = two
+        two_out, two_err = proc.communicate(timeout=300)
+        if proc.returncode == 0 or "--n_devices 2 needs 2 cards" not in two_err \
+                or "1 visible" not in two_err:
+            fail(f"--n_devices 2 on one card: exit {proc.returncode}\n{two_err[-2000:]}")
+        text, _ = _cli_wait("amass_im --n_devices 1", one)
+        if "1 rank(s) over nccl" not in text:
+            fail(f"--n_devices 1 did not run NCCL: {text[-1000:]}")
+        path = os.path.join(out, "latest.npz")
+        flat = CK.load_npz(path)
+        frozen = FrozenImitator.from_checkpoint(path, device=dev)
+        if int(flat["epoch"]) != 1 or not all(np.isfinite(v).all() for v in flat.values()) \
+                or not all(math.isfinite(float(p.abs().sum()))
+                           for p in frozen.net.parameters()):
+            fail("--n_devices 1 checkpoint does not read back")
+        say("dp_cli", card=card, nvidia_smi=nvidia_smi(),
+            overlapped_wall_s=time.perf_counter() - t0, overlapped_with="dp_parity",
+            files=sorted(os.listdir(out)), epoch=int(flat["epoch"]),
+            refusal=two_err.strip().splitlines()[-1])
+    finally:
+        for proc, _ in (one, two):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(out + "_two", ignore_errors=True)
+
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "vid2player3d_torch")):
         fail(f"no vid2player3d_torch package beside {__file__}")
@@ -2437,9 +3102,17 @@ def main() -> None:
     mvae_parity_phase(dev)
     mvae_launches, k2_b100 = mvae_main_phase(dev, card, agent, ts)
     cli_launches = cli_phase(dev, card)
+    # dp_parity and dp_cli only check: they run side by side, and their wall
+    # times, printed as overlapped, measure nothing
+    started = dp_cli_start()
+    _beside(started, dp_parity_phase, dev, card)
+    dp_cli_phase(dev, card, started)
+    dp_launches = dp_main_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
-    rollout_profile_phase("dual_profile", card, dual_agent, dual_ts)
+    # one dual step (~105 k device events, each step runs the serve and the
+    # hand-off): cut from two, whose events took ~100 s to read back
+    rollout_profile_phase("dual_profile", card, dual_agent, dual_ts, horizon=1)
 
     b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
     k1_common = {"route": "cuda", "source": "vid2player3d_torch/csrc/fused_adam.cu",
@@ -2450,9 +3123,15 @@ def main() -> None:
     # trainer's and K3 on the warm-started stage-2 steps. `launches` is K1's
     # on the imitation path and K2's and K3's on the dual path, each path's
     # count beside it
+    # under data parallelism every rank launches the one-process count for
+    # its share: `dp_*` is one rank's count of a two-rank epoch
+    def dp_paths(key, names):
+        return {f"dp_{n}_per_rank": dp_launches[n][key] for n in names}
+
     def k1_paths(kind):
-        return {"launches_per_path": {"imitation": k1_launches[kind], "im_dr": k1_dr[kind],
-                                      "im_ctx": k1_ctx[kind]}}
+        return {"launches_per_path": {
+            "imitation": k1_launches[kind], "im_dr": k1_dr[kind], "im_ctx": k1_ctx[kind],
+            **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
         paths = {"tennis_stage1": tennis_launches[name], "dual_rally": dual_launches[name],
@@ -2461,6 +3140,8 @@ def main() -> None:
             paths["mvae_train"] = mvae_launches[name]
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
+        key = {"moe_linear": "k2_gemm", "moe_split_w": "k2_prep", "fk_chain": "k3"}[name]
+        paths.update(dp_paths(key, ("federer_train_stage_1", "nadal_federer")))
         return {"launches": dual_launches[name], "launches_per_path": paths}
 
     kernels = [

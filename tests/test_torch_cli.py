@@ -255,16 +255,50 @@ def test_train_loop_profile_and_saves(tmp_path):
     assert int(CK.load_npz(os.path.join(out, "latest.npz"))["epoch"]) == 5
 
 
+def test_cli_data_parallel_cpu(tmp_path, monkeypatch):
+    """`--n_devices 2 --device cpu` trains amass_im over two gloo ranks for an
+    epoch at 4 envs (a 120 s collective timeout): rank 0 alone logs (one
+    metrics row) and writes the checkpoints, which the JAX package's
+    `load_pytree` reads with the JAX learner's template, every leaf equal to
+    the file's."""
+    from vid2player3d_tpu.data.synthetic import make_synthetic_motion_lib as j_make_lib
+    from vid2player3d_tpu.envs import HumanoidImEnv as JEnv
+    from vid2player3d_tpu.learn import ImitationPPO as JPPO
+    from vid2player3d_torch.parallel import mesh as PM
+
+    monkeypatch.setattr(PM, "DEFAULT_TIMEOUT_S", 120.0)
+    out = str(tmp_path / "dp")
+    assert R.main(["--cfg", "amass_im", "--num_envs", "4", "--horizon", "2", "--minibatch_size",
+                   "8", "--epochs", "1", "--n_devices", "2", "--out", out] + CPU) == 0
+    assert sorted(os.listdir(out)) == ["best.npz", "latest.npz", "metrics.jsonl"]
+    assert len(open(os.path.join(out, "metrics.jsonl")).readlines()) == 1
+    cfg = JC.get_config("amass_im")
+    jenv = JEnv(dataclasses.replace(cfg.env_im, num_envs=4),
+                j_make_lib(num_motions=1, T=30, fps=30.0, seed=0), rng=0)
+    jinit = JPPO(jenv, dataclasses.replace(cfg.ppo, horizon=2, minibatch_size=8))._init
+    like = {"params": jinit.params, "obs_norm": jinit.obs_norm, "val_norm": jinit.val_norm,
+            "opt_state": jinit.opt_state, "epoch": jinit.epoch, "lr": jinit.lr}
+    path = os.path.join(out, "latest.npz")
+    flat = CK.load_npz(path)
+    got = JCK._flatten(JCK.load_pytree(path, like))
+    assert set(got) == set(flat) and int(flat["epoch"]) == 1
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, flat[k], err_msg=k)
+
+
 def test_cli_raises(tmp_path):
-    """`--n_devices` raises until multi-GPU is ported; with no card and no
-    `--device` the CLI raises instead of running on the CPU."""
+    """`--n_devices` below 1 raises; with no card and no `--device` the CLI
+    raises instead of running on the CPU, `--n_devices` included (its ranks
+    run on the CPU only with `--device cpu`)."""
     argv = ["--cfg", "amass_im", "--num_envs", "4", "--out", str(tmp_path)]
-    with pytest.raises(NotImplementedError):
-        R.main(argv + ["--n_devices", "2"] + CPU)
+    with pytest.raises(ValueError, match="--n_devices 0"):
+        R.main(argv + ["--n_devices", "0"] + CPU)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CLI defaults to it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         R.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.main(argv + ["--n_devices", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         R.main(["--cfg", "mvae_federer", "--out", str(tmp_path)])
 

@@ -50,7 +50,10 @@ new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
        "vid2player3d_torch.cli.run", "vid2player3d_torch.__main__",
        "vid2player3d_torch.eval", "vid2player3d_torch.vis", "vid2player3d_torch.vis.render",
        "vid2player3d_torch.native", "vid2player3d_torch.native.ballsim",
-       "vid2player3d_torch.tennis.pool"}
+       "vid2player3d_torch.tennis.pool",
+       # slice 7: data parallelism over torch.distributed
+       "vid2player3d_torch.parallel", "vid2player3d_torch.parallel.mesh",
+       "vid2player3d_torch.parallel.dryrun"}
 assert new <= set(names), new - set(names)
 """
 
@@ -130,22 +133,41 @@ def test_slice5_entry_points_need_a_device_without_cuda(tmp_path):
                                 {"minibatch_per_chip": True}, {"dp_sync": "per_mini_epoch"}],
                          ids=["mesh", "context_ik", "minibatch_per_chip", "dp_sync"])
 def test_learner_unported_options_raise(kw):
-    """A mesh, per-chip minibatches and local-SGD sync are not ported: asking
-    for any of them raises instead of running without it. The context IK is
-    ported: it builds the {ac, ctx} params (16 + 8 leaves), and with a mesh
-    it raises too."""
+    """Every learner option is ported; each builds and its invalid values
+    raise. A mesh must be the port's `DataParallelMesh` (anything else raises
+    TypeError), and one of a single rank builds on an unsharded env. The
+    context IK builds the {ac, ctx} params (16 + 8 leaves). Per-chip
+    minibatches build (at one rank the local batch is the batch) and a local
+    batch the minibatch does not divide raises. Local SGD builds (at one rank
+    it is the per-minibatch path) and an unknown sync mode raises."""
+    from vid2player3d_torch.parallel import DataParallelMesh
+
     lib = make_synthetic_motion_lib(num_motions=1, T=30, device="cpu")
     env = HumanoidImEnv(HumanoidImConfig(num_envs=2), lib, device="cpu")
     cfg_kw = {k: v for k, v in kw.items() if k != "mesh"}
+    if "mesh" in kw:
+        with pytest.raises(TypeError):
+            ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8), mesh=kw["mesh"],
+                         device="cpu")
+        one = DataParallelMesh(dp=1, rank=0, device=torch.device("cpu"))
+        assert ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8), mesh=one).dp == 1
+        return
+    agent = ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw), device="cpu")
     if cfg_kw.get("use_context_ik"):
-        agent = ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw),
-                             device="cpu")
         names = list(agent.init_state().params)
         assert len(names) == 24 and sum(n.startswith("ctx.") for n in names) == 8
-        kw = dict(kw, mesh=object())
-    with pytest.raises(NotImplementedError):
-        ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw),
-                     mesh=kw.get("mesh"), device="cpu")
+        with pytest.raises(TypeError):
+            ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, **cfg_kw), mesh=object(),
+                         device="cpu")
+    elif "minibatch_per_chip" in cfg_kw:
+        assert (agent.num_minibatches, agent.mb_local) == (1, 8)
+        with pytest.raises(ValueError, match="local batch 8 not divisible"):
+            ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=3, **cfg_kw), device="cpu")
+    else:
+        assert not agent.local_sgd and agent.num_minibatches == 1
+        with pytest.raises(ValueError, match="dp_sync"):
+            ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, dp_sync="never"),
+                         device="cpu")
 
 
 def _leaf(n, device="cpu", mdt=torch.float32):
@@ -228,18 +250,24 @@ def test_tennis_entry_points_need_a_device_without_cuda():
 
 
 @pytest.mark.parametrize("kw,error", [({"num_policies": 0}, ValueError),
-                                      ({"mesh": object()}, NotImplementedError),
-                                      ({"minibatch_per_chip": True}, NotImplementedError)],
+                                      ({"mesh": object()}, TypeError),
+                                      ({"minibatch_per_chip": True}, ValueError)],
                          ids=["num_policies", "mesh", "minibatch_per_chip"])
 def test_v2p_unported_options_raise(kw, error):
-    """A mesh and per-chip minibatches are not ported: asking for either
-    raises. Lane-routed policies are: two build stacked params, fewer than
-    one raises."""
+    """Every option of the tennis learner is ported, and its invalid values
+    raise: fewer than one policy; a mesh that is not the port's
+    `DataParallelMesh`; per-chip minibatches that do not divide the local
+    batch (a dividing one builds). Lane-routed policies build stacked params."""
     _, _, _, env = _tennis_env()
     cfg_kw = {k: v for k, v in kw.items() if k != "mesh"}
+    if "minibatch_per_chip" in cfg_kw:
+        agent = V2PPPO(env, V2PConfig(horizon=4, minibatch_size=4, actor_units=(8,),
+                                      critic_units=(8,), **cfg_kw), device="cpu")
+        assert (agent.num_minibatches, agent.mb_local) == (2, 4)
+        cfg_kw["minibatch_size"] = 3
     with pytest.raises(error):
-        V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, **cfg_kw), mesh=kw.get("mesh"),
-               device="cpu")
+        V2PPPO(env, V2PConfig(**{"horizon": 4, "minibatch_size": 8, **cfg_kw}),
+               mesh=kw.get("mesh"), device="cpu")
     agent = V2PPPO(env, V2PConfig(horizon=4, minibatch_size=8, num_policies=2, actor_units=(8,),
                                   critic_units=(8,)), device="cpu")
     assert all(v.shape[0] == 2 for v in agent._initial_params().values())

@@ -2,7 +2,7 @@
 
     python -m vid2player3d_torch --cfg amass_im [--num_envs N] [--epochs E]
         [--seed S] [--checkpoint PATH] [--motion_file PATH] [--out DIR]
-        [--test [--render OUT.html [--select_best]]] [--device DEV]
+        [--test [--render OUT.html [--select_best]]] [--device DEV] [--n_devices D]
 
 Training writes `metrics.jsonl` (one JSON line per epoch) and `latest.npz` /
 `best.npz` checkpoints in the JAX package's layout into `--out`; a tennis
@@ -10,14 +10,23 @@ config finds its curriculum's earlier stages there (the player's imitation
 policy, the MotionVAE, the warm-start stage). Everything runs on the card
 unless `--device` names another device; with no card and no `--device` the
 run raises.
+
+`--n_devices D` trains data-parallel over D ranks (``parallel/``): under
+torchrun the process joins its group; otherwise the command starts the D
+ranks itself, one per visible card over NCCL, or D gloo ranks with
+`--device cpu`. D larger than the visible cards raises. Rank 0 alone
+prints, writes `--out`'s files and runs `--test`, which evaluates in one
+process.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Optional
 
@@ -50,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="results",
                    help="output dir for checkpoints + metrics.jsonl")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel mesh size (not ported yet: raises)")
+                   help="data-parallel ranks: joins torchrun's group, else starts D "
+                        "ranks (one per card over NCCL; gloo ranks with --device cpu)")
     p.add_argument("--save_every", type=int, default=50)
     p.add_argument("--render", default=None, metavar="OUT.html",
                    help="with --test: export a rollout and write a "
@@ -135,7 +145,7 @@ def _learner_overrides(cfg, args):
     return cfg
 
 
-def _build_im(run_cfg, args, device):
+def _build_im(run_cfg, args, device, mesh=None):
     from vid2player3d_torch.data.motion_lib import MotionLib
     from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
     from vid2player3d_torch.envs import HumanoidImEnv
@@ -154,10 +164,12 @@ def _build_im(run_cfg, args, device):
                                         device=device)
     seed = args.seed or run_cfg.seed
     env = HumanoidImEnv(env_cfg, lib, rng=seed, device=device)
-    return ImitationPPO(env, ppo_cfg, seed=seed, device=device)
+    if mesh is not None:
+        env = env.shard(mesh)
+    return ImitationPPO(env, ppo_cfg, seed=seed, mesh=mesh, device=device)
 
 
-def _build_tennis(run_cfg, args, device):
+def _build_tennis(run_cfg, args, device, mesh=None):
     import numpy as np
 
     from vid2player3d_torch.envs import DualTennisEnv, TennisEnv
@@ -211,7 +223,9 @@ def _build_tennis(run_cfg, args, device):
     else:
         env = TennisEnv(env_cfg, spec, feats, ball_generator=pool, pi_low=pi_low,
                         device=device)
-    return V2PPPO(env, v2p_cfg, seed=seed, device=device)
+    if mesh is not None:
+        env = env.shard(mesh)
+    return V2PPPO(env, v2p_cfg, seed=seed, mesh=mesh, device=device)
 
 
 def _load_pi_low(run_cfg, args, device):
@@ -273,13 +287,13 @@ def _train_loop(agent, run_cfg, args, logger, ts0=None):
 
     best = float("-inf")
     ts = ts0 if ts0 is not None else agent.init_state()
-    env_steps = agent.env.cfg.num_envs * agent.cfg.horizon
+    env_steps = agent.num_envs_global * agent.cfg.horizon
     epochs = args.epochs or run_cfg.max_epochs
     prof = None
     try:
         for e in range(1, epochs + 1):
             # trace epochs 2-4, after the first epoch's warm-up
-            if args.profile and e == 2:
+            if args.profile and e == 2 and agent.rank == 0:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if agent.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -295,7 +309,9 @@ def _train_loop(agent, run_cfg, args, logger, ts0=None):
                 prof.export_chrome_trace(path)
                 prof = None
                 print(f"profiler trace written to {path}")
-            logger.log(e, metrics, env_steps)
+            if logger is not None:
+                logger.log(e, metrics, env_steps)
+            # the metrics are global: every rank takes the same branches
             r = float(metrics.get("reward_mean", 0.0))
             if e % args.save_every == 0 or e == epochs:
                 agent.save_checkpoint(os.path.join(args.out, "latest.npz"), ts)
@@ -305,7 +321,8 @@ def _train_loop(agent, run_cfg, args, logger, ts0=None):
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-        logger.close()
+        if logger is not None:
+            logger.close()
     return ts
 
 
@@ -386,22 +403,98 @@ def _run_mvae(run_cfg, args, device) -> int:
     return 0
 
 
+def _start_ranks(args, argv) -> int:
+    """`--n_devices D` outside torchrun: D ranks, one per visible card over
+    NCCL (in this process at D = 1), or D gloo ranks with `--device cpu`."""
+    from vid2player3d_torch import parallel
+    from vid2player3d_torch.parallel import mesh as PM
+
+    D = args.n_devices
+    cpu = args.device is not None and args.device.startswith("cpu")
+    if not cpu:
+        import torch
+
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards == 0:
+            raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
+                               "ranks on the CPU")
+        if D > cards:
+            raise RuntimeError(f"--n_devices {D} needs {D} cards (one NCCL rank each); "
+                               f"{cards} visible")
+    if D == 1:
+        import tempfile
+
+        import torch.distributed as dist
+
+        with tempfile.TemporaryDirectory(prefix="v2p_dp_") as tmp:
+            dev = parallel.init_process_group(0, 1, "file://" + os.path.join(tmp, "rendezvous"),
+                                              device="cpu" if cpu else None,
+                                              timeout_s=PM.DEFAULT_TIMEOUT_S)
+            try:
+                return _rank_main(parallel.data_parallel_mesh(1, device=dev), argv)
+            finally:
+                dist.destroy_process_group()
+    return max(parallel.spawn(_rank_main, D, args=(argv,), device="cpu" if cpu else None,
+                              timeout_s=PM.DEFAULT_TIMEOUT_S))
+
+
+def _rank_main(mesh, argv) -> int:
+    """One rank of a data-parallel run: ranks above 0 print nothing."""
+    quiet = open(os.devnull, "w") if mesh.rank else None
+    try:
+        with contextlib.redirect_stdout(quiet) if quiet else contextlib.nullcontext():
+            print(f"data parallel: {mesh.dp} rank(s) over {mesh.backend}, rank 0 on "
+                  f"{mesh.device}", flush=True)
+            return _run(build_parser().parse_args(argv), mesh)
+    finally:
+        if quiet:
+            quiet.close()
+
+
 def main(argv: Optional[list] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.n_devices is not None:
-        raise NotImplementedError("data-parallel meshes (--n_devices) are not ported yet")
+    if args.n_devices is not None and args.n_devices < 1:
+        raise ValueError(f"--n_devices {args.n_devices}")
+    if args.n_devices is None or args.test:
+        if args.test and args.n_devices is not None:
+            print("NOTE: --test evaluates in one process (rank 0)")
+        return _run(args)
+    from vid2player3d_torch.cli.configs import get_config
+
+    if get_config(args.cfg).kind == "mvae":
+        # the JAX CLI builds no mesh for the MotionVAE either
+        print("NOTE: the MotionVAE trains in one process; --n_devices applies to the PPO "
+              "learners")
+        return _run(args)
+    from vid2player3d_torch import parallel
+
+    if parallel.initialize_distributed(device="cpu" if args.device == "cpu" else None,
+                                       timeout_s=parallel.mesh.DEFAULT_TIMEOUT_S):
+        try:
+            return _rank_main(parallel.data_parallel_mesh(args.n_devices), argv)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return _start_ranks(args, argv)
+
+
+def _run(args, mesh=None) -> int:
+    """Build, load and train or evaluate; under a mesh this process is one
+    rank."""
     from vid2player3d_torch.cli.configs import get_config
     from vid2player3d_torch.utils.runtime import resolve_device
 
     run_cfg = get_config(args.cfg)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
 
     if run_cfg.kind == "mvae":
         return _run_mvae(run_cfg, args, device)
 
-    agent = _build_im(run_cfg, args, device) if run_cfg.kind == "im" \
-        else _build_tennis(run_cfg, args, device)
+    agent = _build_im(run_cfg, args, device, mesh) if run_cfg.kind == "im" \
+        else _build_tennis(run_cfg, args, device, mesh)
 
     ck = args.checkpoint
     if ck is None and run_cfg.warm_start:
@@ -419,7 +512,8 @@ def main(argv: Optional[list] = None) -> int:
         _eval_loop(agent, run_cfg, args, ts=ts0)
         return 0
 
-    logger = MetricsLogger(args.out, args.epochs or run_cfg.max_epochs)
+    logger = MetricsLogger(args.out, args.epochs or run_cfg.max_epochs) \
+        if mesh is None or mesh.rank == 0 else None
     _train_loop(agent, run_cfg, args, logger, ts0=ts0)
     return 0
 

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.smpl import SMPL_BONE_ORDER_NAMES
+from ..parallel.mesh import draw_rows, global_rows
 from ..utils.runtime import as_draw
 
 _SQRT3 = 1.7320508075688772
@@ -52,22 +53,27 @@ class TransformSpecs:
                 or self.mask_random_joints_prob > 0.0)
 
 
-def _draw(draws, name, shape, device, generator, normal=False):
+def _draw(draws, name, shape, device, generator, normal=False, shard=None):
+    """A standard draw of `shape` (leading env axis): handed in, or from
+    `generator`; with a data-parallel `shard` both are global and this
+    rank's rows are kept."""
     if draws is not None:
-        return as_draw(draws[name], torch.float32, device).reshape(shape)
-    if normal:
-        return torch.randn(shape, generator=generator, device=device)
-    return torch.rand(shape, generator=generator, device=device)
+        full = shape if shard is None else (shard.num_envs,) + tuple(shape[1:])
+        return global_rows(shard, as_draw(draws[name], torch.float32, device).reshape(full))
+    fn = torch.randn if normal else torch.rand
+    return draw_rows(shard, shape, lambda sh: fn(sh, generator=generator, device=device))
 
 
 def corrupt_body_pos(body_pos: torch.Tensor, specs: Optional[TransformSpecs],
                      body_names: Sequence[str] = tuple(SMPL_BONE_ORDER_NAMES),
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[Dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     draws: Optional[Dict] = None, shard=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The configured corruptions of (..., J, 3) joint positions, whose joint
     axis is ordered as `body_names`. Returns (corrupted positions, joint
     confidence (..., J)); with `specs=None` the identity with all-ones
-    confidence."""
+    confidence. `shard` (a sharded env's `EnvShard`): the leading axis is
+    this rank's block of the envs, the draws global."""
     conf = torch.ones(body_pos.shape[:-1], dtype=body_pos.dtype, device=body_pos.device)
     if specs is None or not specs.active:
         return body_pos, conf
@@ -79,9 +85,9 @@ def corrupt_body_pos(body_pos: torch.Tensor, specs: Optional[TransformSpecs],
         body_pos = body_pos * conf[..., None]
 
     if specs.noisy_joints_prob > 0.0:
-        selected = _draw(draws, "sel_u", conf.shape, dev, generator) < specs.noisy_joints_prob
+        selected = _draw(draws, "sel_u", conf.shape, dev, generator, shard=shard) < specs.noisy_joints_prob
         std = torch.where(selected, specs.noisy_joints_noise_std, 0.0)
-        noise = _draw(draws, "noise", body_pos.shape, dev, generator, normal=True) * std[..., None]
+        noise = _draw(draws, "noise", body_pos.shape, dev, generator, True, shard) * std[..., None]
         noise_norm = torch.sqrt(torch.sum(noise * noise, dim=-1)) / (
             _SQRT3 * specs.noisy_joints_conf_std)
         new_conf = (1.0 - torch.special.ndtr(noise_norm)) * 2.0
@@ -92,7 +98,7 @@ def corrupt_body_pos(body_pos: torch.Tensor, specs: Optional[TransformSpecs],
         body_pos = torch.where(occluded[..., None], 0.0, body_pos)
 
     if specs.mask_random_joints_prob > 0.0:
-        drop = _draw(draws, "drop_u", conf.shape, dev, generator) < specs.mask_random_joints_prob
+        drop = _draw(draws, "drop_u", conf.shape, dev, generator, shard=shard) < specs.mask_random_joints_prob
         drop[..., 0] = False   # never drop the root
         conf = torch.where(drop, 0.0, conf)
         body_pos = torch.where(drop[..., None], 0.0, body_pos)

@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows, global_rows
 from ..utils.runtime import as_draw
 
 
@@ -103,25 +104,33 @@ class DomainRandomizer:
         self.act_specs = tuple(s for s in specs if s.field == "actions")
 
     @staticmethod
-    def _standard(spec, shape, device, generator, draws, i) -> torch.Tensor:
-        """Spec i's standard draw: handed in, or from `generator`."""
+    def _standard(spec, shape, device, generator, draws, i, shard=None) -> torch.Tensor:
+        """Spec i's standard draw: handed in, or from `generator`. With a
+        data-parallel `shard` the leading axis is this rank's envs: the draw
+        is global (handed in or drawn) and its rows are kept."""
         if draws is not None:
-            return as_draw(draws[i], torch.float32, device).reshape(shape)
-        if spec.distribution == "gaussian":
-            return torch.randn(shape, generator=generator, device=device)
-        return torch.rand(shape, generator=generator, device=device)
+            full = shape if shard is None else (shard.num_envs,) + tuple(shape[1:])
+            return global_rows(shard, as_draw(draws[i], torch.float32, device).reshape(full))
+        fn = torch.randn if spec.distribution == "gaussian" else torch.rand
+        return draw_rows(shard, shape, lambda sh: fn(sh, generator=generator, device=device))
 
-    def randomize_model(self, model, step=0, generator=None, draws=None):
+    def model_draws(self, n: int, generator=None, device=None):
+        """The standard draws `randomize_model` takes from `generator` for n
+        envs, one (n,) tensor per model spec."""
+        return [self._standard(sp, (n,), device, generator, None, i)
+                for i, sp in enumerate(self.model_specs)]
+
+    def randomize_model(self, model, step=0, generator=None, draws=None, shard=None):
         """Per-env perturbed copy of the articulation model: one draw per env
         per field, broadcast over the field's trailing dims. `draws[i]` holds
-        model spec i's N standard draws."""
+        model spec i's N standard draws (global ones with a `shard`)."""
         if not self.model_specs:
             return model
         updates = {}
         for i, sp in enumerate(self.model_specs):
             value = getattr(model, sp.field)
             shape = (value.shape[0],) + (1,) * (value.dim() - 1)
-            d = self._standard(sp, shape, value.device, generator, draws, i)
+            d = self._standard(sp, shape, value.device, generator, draws, i, shard)
             updates[sp.field] = _apply(value, _value(sp, d, step).to(value.dtype), sp.operation)
         return dataclasses.replace(model, **updates)
 
@@ -138,18 +147,18 @@ class DomainRandomizer:
             updates[name] = _apply(getattr(params, name), _value(sp, d, step), sp.operation)
         return params._replace(**updates)
 
-    def randomize_obs(self, obs, step=0, generator=None, draws=None):
+    def randomize_obs(self, obs, step=0, generator=None, draws=None, shard=None):
         """Per-element observation noise; `draws[i]` is obs spec i's draw of
-        obs's shape."""
+        obs's shape (the global one with a `shard`)."""
         for i, sp in enumerate(self.obs_specs):
-            d = self._standard(sp, obs.shape, obs.device, generator, draws, i)
+            d = self._standard(sp, obs.shape, obs.device, generator, draws, i, shard)
             obs = _apply(obs, _value(sp, d, step).to(obs.dtype), sp.operation)
         return obs
 
-    def randomize_actions(self, actions, step=0, generator=None, draws=None):
+    def randomize_actions(self, actions, step=0, generator=None, draws=None, shard=None):
         """Per-element action noise; `draws[i]` is action spec i's draw of
-        the actions' shape."""
+        the actions' shape (the global one with a `shard`)."""
         for i, sp in enumerate(self.act_specs):
-            d = self._standard(sp, actions.shape, actions.device, generator, draws, i)
+            d = self._standard(sp, actions.shape, actions.device, generator, draws, i, shard)
             actions = _apply(actions, _value(sp, d, step).to(actions.dtype), sp.operation)
         return actions

@@ -18,6 +18,11 @@ observed block of the motion context; the ground-truth blocks stay clean for
 the context-IK learner's auxiliary losses. Domain randomization
 (`rand_specs`, ``envs/domain_rand.py``) is applied by the learner: a
 perturbed model per epoch through `with_model`, noise per step.
+
+Data parallelism: `shard(mesh)` gives this rank's block of the envs. Every
+draw of a sharded env (reset times, the corruption) is made at the global
+env count and the block kept, so D ranks step exactly the envs one process
+steps; draws handed in (`motion_times=`, `corrupt_draws=`) are global too.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..core import quat as Q
 from ..core import smpl as S
 from ..data import motion_lib as ML
 from ..physics import asset, engine
+from ..parallel import mesh as PM
 from ..physics.model import ArticulationState, ContactParams
 from ..utils.runtime import resolve_device
 from . import corrupt, domain_rand
@@ -162,6 +168,27 @@ class HumanoidImEnv:
         self._safe_obs[72:168] = torch.tensor([0.0, 0.0, 0.0, 1.0]).repeat(24)
         self.obs_dim = self._safe_obs.shape[0]
         self.num_actions = cfg.num_actions
+        # this env's place in a data-parallel batch (`shard`); None: all envs
+        self.shard_info: Optional[PM.EnvShard] = None
+
+    def shard(self, mesh: PM.DataParallelMesh) -> "HumanoidImEnv":
+        """A copy of this env holding this rank's contiguous block of the
+        envs: `cfg.num_envs` becomes the block's size, the per-env arrays
+        (motion ids and bodies, the model, the rest joints) its rows. The
+        motion library and the termination heights stay whole."""
+        if self.shard_info is not None:
+            raise ValueError("this env is sharded already")
+        info = PM.EnvShard(mesh, self.cfg.num_envs)
+        env = copy.copy(self)
+        rows = info.rows
+        env.cfg = dataclasses.replace(self.cfg, num_envs=rows.stop - rows.start)
+        env.model = PM.tree_map(lambda x: x[rows], self.model)
+        env.motion_ids = self.motion_ids[rows]
+        env.motion_bodies = self.motion_bodies[rows]
+        env.rest_joints_smpl = self.rest_joints_smpl[rows]
+        env._all_motion_ids = self.motion_ids
+        env.shard_info = info
+        return env
 
     def with_model(self, model) -> "HumanoidImEnv":
         """A shallow copy of this env stepping `model` (a randomized one for
@@ -218,13 +245,16 @@ class HumanoidImEnv:
         cfg = self.cfg
         N = cfg.num_envs
         if motion_times is not None:
-            motion_times = torch.as_tensor(motion_times, dtype=torch.float32, device=self.device)
+            motion_times = PM.global_rows(self.shard_info, torch.as_tensor(
+                motion_times, dtype=torch.float32, device=self.device))
         elif cfg.state_init == "Start":
             motion_times = torch.zeros(N, device=self.device)
         else:
             trunc = cfg.context_length * cfg.control_dt if cfg.truncate_time else None
+            phase = PM.draw_rows(self.shard_info, (N,), lambda sh: torch.rand(
+                sh, generator=generator, device=self.device))
             motion_times = ML.sample_time(self.lib, self.motion_ids, truncate_time=trunc,
-                                          generator=generator)
+                                          phase=phase)
 
         ref = ML.get_motion_state(self.lib, self.motion_ids, motion_times,
                                   adjust_height=True, ground_tolerance=cfg.ground_tolerance)
@@ -262,7 +292,8 @@ class HumanoidImEnv:
         # rb_pos is MuJoCo-ordered: named masks resolve against that list
         obs_pos, conf = corrupt.corrupt_body_pos(
             rb_pos.reshape(N, L, 24, 3), cfg.transform_specs,
-            body_names=tuple(S.MUJOCO_JOINT_NAMES), generator=generator, draws=corrupt_draws)
+            body_names=tuple(S.MUJOCO_JOINT_NAMES), generator=generator, draws=corrupt_draws,
+            shard=self.shard_info)
         feat = torch.cat([obs_pos.reshape(N, L, -1), rb_rot, dof, rb_pos, dof], dim=-1)
 
         lens = self.lib.motion_lengths[self.motion_ids]

@@ -39,7 +39,15 @@ Domain randomization (`rand_specs`, ``envs/domain_rand.py``) is applied by
 the learner: `with_model` gives a shallow copy stepping a perturbed model and
 perturbed ball constants for one epoch (a randomized `BallParams` field is a
 0-d tensor on the device, read without a host sync), and noise goes on the
-actions and observations every step. Not ported yet: mesh sharding.
+actions and observations every step.
+
+Data parallelism: `shard(mesh)` gives this rank's block of the envs (each
+rank's envs per lane count must divide, so lane i % lanes stays inside the
+rank). Every draw of a sharded env is made at the global env count and the
+block kept, and draws handed in are global, so D ranks step exactly the
+envs one process steps. The candidate resets are the global K rows on every
+rank; a done env takes the candidate of its place among all ranks' done
+envs (one all-gather of the done counts per step).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ..core import quat as Q
 from ..core import rot as R
 from ..core import smpl as S
 from ..ops.fk import fk_chain
+from ..parallel import mesh as PM
 from ..physics import asset, engine
 from ..physics.model import ArticulationModel, ArticulationState, ContactParams
 from ..tennis import ball as B
@@ -279,6 +288,48 @@ class TennisEnv:
         self._smpl_2_mujoco = torch.as_tensor(S.SMPL_2_MUJOCO, dtype=torch.long,
                                               device=self.device)
         self._candidates = None
+        # data parallelism (`shard`): this env's place in the global batch,
+        # and the global candidate-reset env and its model
+        self.shard_info: Optional[PM.EnvShard] = None
+        self._cand_base = None
+        self._cand_model = None
+
+    # per-env fields besides the model and the body channel
+    _ENV_FIELDS = ("righthand", "wrist_id", "hand_id", "free_hand_id", "racket_dir_c",
+                   "racket_normal_c", "two_hand_mask")
+
+    def shard(self, mesh: PM.DataParallelMesh) -> "TennisEnv":
+        """A copy of this env holding this rank's contiguous block of the
+        envs: `cfg.num_envs` becomes the block's size; the model, the body
+        channel and the per-env hand and racket fields are its rows. The init
+        conditions, the lane specs, the frozen policies and the ball pool
+        stay whole, and so do the candidate resets (the global first K
+        envs)."""
+        if self.shard_info is not None:
+            raise ValueError("this env is sharded already")
+        info = PM.EnvShard(mesh, self.cfg.num_envs)
+        rows = info.rows
+        n, lanes = rows.stop - rows.start, len(self._lane_specs)
+        if n % lanes:
+            raise ValueError(f"{n} envs per rank do not split into {lanes} lanes: env i's lane "
+                             f"(i % {lanes}) must stay inside its rank")
+        env = copy.copy(self)
+        K = self.cfg.reset_candidates
+        if 0 < K < self.cfg.num_envs:
+            env._cand_base = self._sliced_env(K)
+        env.cfg = dataclasses.replace(self.cfg, num_envs=n)
+        env.model = PM.tree_map(lambda x: x[rows], self.model)
+        env.motion_bodies = self.motion_bodies[rows]
+        for f in self._ENV_FIELDS:
+            setattr(env, f, getattr(self, f)[rows])
+        env.shard_info = info
+        env._candidates = None
+        return env
+
+    @property
+    def num_envs_global(self) -> int:
+        """The envs of every rank together (`cfg.num_envs` unsharded)."""
+        return self.cfg.num_envs if self.shard_info is None else self.shard_info.num_envs
 
     def with_model(self, model=None, ball_params=None) -> "TennisEnv":
         """A shallow copy of this env stepping `model` and `ball_params`
@@ -290,6 +341,24 @@ class TennisEnv:
         if ball_params is not None:
             env.ball_params = ball_params
         env._candidates = None
+        return env
+
+    def with_randomized_model(self, dr, step, generator=None, draws=None) -> "TennisEnv":
+        """A shallow copy of this env stepping its model perturbed by the
+        randomizer `dr` at schedule `step`: `draws[i]` holds model spec i's
+        standard draws for every env (the global ones when sharded), else
+        they come from `generator`. A sharded env's candidate resets are the
+        global first K envs, so their model takes those envs' draws."""
+        shard = self.shard_info
+        if self._cand_base is None:
+            return self.with_model(dr.randomize_model(self.model, step, generator, draws, shard))
+        if draws is None:
+            draws = dr.model_draws(shard.num_envs, generator, self.device)
+        K = self.cfg.reset_candidates
+        env = self.with_model(dr.randomize_model(self.model, step, None, draws, shard))
+        env._cand_model = dr.randomize_model(
+            self._cand_base.model, step, None,
+            [as_draw(x, torch.float32, self.device)[:K] for x in draws])
         return env
 
     def _bind_lane_arrays(self):
@@ -355,14 +424,18 @@ class TennisEnv:
     def _mvae_reset(self, draws, root_xy) -> P.MVAEPlayerState:
         """MVAE init states from each lane's init frames; `init_idx` (N,)
         indexes the set of the env's lane."""
-        idx = as_draw(draws["init_idx"], torch.long, self.device) \
+        idx = PM.global_rows(self.shard_info, as_draw(draws["init_idx"], torch.long, self.device)) \
             if draws is not None and "init_idx" in draws else None
+        # a lane's rows of a rank's block are a block of that lane's rows
+        lane_shard = None if self.shard_info is None else PM.EnvShard(
+            self.shard_info.mesh, self.shard_info.num_envs // len(self._lane_specs))
         parts = []
         for l, sp in enumerate(self._lane_specs):
             r = self._lane_rows(l)
             n = root_xy[r].shape[0]
-            i = idx[r] if idx is not None else torch.randint(
-                0, self._init_per_lane, (n,), generator=self.generator, device=self.device)
+            i = idx[r] if idx is not None else PM.draw_rows(lane_shard, (n,), lambda sh: (
+                torch.randint(0, self._init_per_lane, sh, generator=self.generator,
+                              device=self.device)))
             parts.append(P.reset(sp, self._lane_init_conditions(l)[i], root_xy=root_xy[r]))
         return self._interleave_lanes(parts)
 
@@ -438,13 +511,24 @@ class TennisEnv:
 
     def _rand(self, draws, name, shape):
         if draws is not None and name in draws:
-            return as_draw(draws[name], torch.float32, self.device)
-        return torch.rand(shape, generator=self.generator, device=self.device)
+            return PM.global_rows(self.shard_info, as_draw(draws[name], torch.float32,
+                                                           self.device))
+        return PM.draw_rows(self.shard_info, shape, lambda sh: torch.rand(
+            sh, generator=self.generator, device=self.device))
 
     def _randint(self, draws, name, low, high, n):
         if draws is not None and name in draws:
-            return as_draw(draws[name], torch.long, self.device)
-        return torch.randint(low, high, (n,), generator=self.generator, device=self.device)
+            return PM.global_rows(self.shard_info, as_draw(draws[name], torch.long, self.device))
+        return PM.draw_rows(self.shard_info, (n,), lambda sh: torch.randint(
+            low, high, sh, generator=self.generator, device=self.device))
+
+    def _pool_sample(self, draws, n):
+        """`n` incoming balls from the pool: rows `ball_idx` or drawn."""
+        idx = None if draws is None else draws.get("ball_idx")
+        idx = PM.draw_rows(self.shard_info, (n,), lambda sh: self.gen.pool_idx(
+            sh[0], self.generator)) if idx is None \
+            else PM.global_rows(self.shard_info, as_draw(idx, torch.long, self.device))
+        return self.gen.sample(n, idx=idx)
 
     # -- kinematic targets -------------------------------------------------------
 
@@ -493,7 +577,8 @@ class TennisEnv:
         for rh in sorted(hands):
             rm = twohand.optimize_two_hand_backhand(
                 rm, self.rest_joints_smpl, righthand=rh, iters=self.cfg.two_hand_iters,
-                mask=mask & (self.righthand == rh))
+                mask=mask & (self.righthand == rh),
+                num_rows=None if self.shard_info is None else self.num_envs_global)
         return dataclasses.replace(mvae, joint_rotmat=rm)
 
     def _kinematic_targets(self, mvae: P.MVAEPlayerState, res_root=None):
@@ -572,12 +657,12 @@ class TennisEnv:
         hand-offs that clear the net (always true for pool samples; the dual
         env's mirrored partner ball can be netted)."""
         N = self.cfg.num_envs
-        traj, lpos, lvel, lspin = self.gen.sample(N, self.generator,
-                                                  idx=None if draws is None
-                                                  else draws.get("ball_idx"))
-        n_traj, n_pos, n_vel, n_spin = self.gen.sample_near(
-            state.ball_pos[:, 0], self.generator,
-            jitter=None if draws is None else draws.get("near_jitter"))
+        traj, lpos, lvel, lspin = self._pool_sample(draws, N)
+        jitter = None if draws is None else draws.get("near_jitter")
+        jitter = PM.draw_rows(self.shard_info, (N,), lambda sh: self.gen.near_jitter(
+            sh[0], self.generator)) if jitter is None \
+            else PM.global_rows(self.shard_info, as_draw(jitter, torch.long, self.device))
+        n_traj, n_pos, n_vel, n_spin = self.gen.sample_near(state.ball_pos[:, 0], jitter=jitter)
         other = state.ball_pos[:, 1] > 0.0
         return (_rows_where(other, n_traj, traj), _rows_where(other, n_pos, lpos),
                 _rows_where(other, n_vel, lvel), torch.where(other, n_spin, lspin),
@@ -605,8 +690,7 @@ class TennisEnv:
             traj, lpos, lvel, lspin = self._serve_toss(
                 bp[torch.arange(N, device=dev), self.free_hand_id])
         else:
-            traj, lpos, lvel, lspin = self.gen.sample(
-                N, self.generator, idx=None if draws is None else draws.get("ball_idx"))
+            traj, lpos, lvel, lspin = self._pool_sample(draws, N)
         tt = cfg.reset_reaction_nframes + self._randint(draws, "tt", -5, 5, N)
 
         racket_pos, racket_normal = self._racket(*self._wrist_state(sim))
@@ -633,29 +717,42 @@ class TennisEnv:
         `reset_candidates=K`, only K fresh states are computed and gathered
         onto the done envs (slot = running count of done envs, clipped);
         otherwise a full fresh reset is masked in."""
-        N = self.cfg.num_envs
         done = state.reset_buf == 1
         K = self.cfg.reset_candidates
-        if K <= 0 or K >= N:
+        if K <= 0 or K >= self.num_envs_global:
             fresh, _ = self.reset_all(draws)
             return _zip_envs(lambda a, b: _rows_where(done, a, b), fresh, state)
         if self._candidates is None:
-            self._candidates = self._sliced_env(K)
+            self._candidates = self._sliced_env(K) if self.shard_info is None \
+                else self._global_candidates()
         fresh, _ = self._candidates.reset_all(draws)
-        slot = torch.clamp(torch.cumsum(done, 0) - 1, 0, K - 1)
+        slot = torch.cumsum(done, 0) - 1
+        if self.shard_info is not None:
+            # the lower ranks' done envs come first in the global count
+            mesh = self.shard_info.mesh
+            counts = PM.all_gather_rows(done.sum().reshape(1), mesh).reshape(-1)
+            slot = slot + counts[:mesh.rank].sum()
+        slot = torch.clamp(slot, 0, K - 1)
         return _zip_envs(lambda a, b: _rows_where(done, a[slot], b), fresh, state)
+
+    def _global_candidates(self) -> "TennisEnv":
+        """A sharded env's candidate-reset env: the global first K envs with
+        this env's ball constants and, under model randomization, the
+        epoch's model of those envs."""
+        env = copy.copy(self._cand_base)
+        env.ball_params = self.ball_params
+        if self._cand_model is not None:
+            env.model = self._cand_model
+        return env
 
     def _sliced_env(self, K: int) -> "TennisEnv":
         """View of this env with num_envs=K (per-env arrays row-sliced) for
         the candidate resets; bodies are the same in every env."""
         env = copy.copy(self)
         env.cfg = dataclasses.replace(self.cfg, num_envs=K)
-        env.model = dataclasses.replace(self.model, **{
-            f.name: getattr(self.model, f.name)[:K] for f in dataclasses.fields(self.model)
-            if f.init and isinstance(getattr(self.model, f.name), torch.Tensor)})
+        env.model = PM.tree_map(lambda x: x[:K], self.model)
         env.motion_bodies = self.motion_bodies[:K]
-        for f in ("righthand", "wrist_id", "hand_id", "free_hand_id", "racket_dir_c",
-                  "racket_normal_c", "two_hand_mask"):
+        for f in self._ENV_FIELDS:
             setattr(env, f, getattr(self, f)[:K])
         env._candidates = None
         return env
@@ -859,9 +956,11 @@ class TennisEnv:
         latents = action[:, :cfg.num_latents] * cfg.vae_action_scale
         if cfg.random_walk_in_recovery:
             if draws is not None and "rw_noise" in draws:
-                noise = as_draw(draws["rw_noise"], torch.float32, dev)
+                noise = PM.global_rows(self.shard_info,
+                                       as_draw(draws["rw_noise"], torch.float32, dev))
             else:
-                noise = torch.randn(latents.shape, generator=self.generator, device=dev)
+                noise = PM.draw_rows(self.shard_info, latents.shape, lambda sh: torch.randn(
+                    sh, generator=self.generator, device=dev))
             latents = torch.where((state.tar_action == 0)[:, None],
                                   torch.clamp(noise, -5.0, 5.0), latents)
         residual = action[:, cfg.num_latents:cfg.num_latents + 3] \

@@ -49,6 +49,19 @@ class DualTennisEnv(TennisEnv):
         self._lane = torch.arange(N, device=self.device) % 2
         self._mirror = torch.tensor(_MIRROR, device=self.device)
 
+    def shard(self, mesh) -> "DualTennisEnv":
+        """This rank's block of the envs (``TennisEnv.shard``); the pairs
+        (i, i ^ 1) must stay inside a rank, so each rank's count is even."""
+        N = self.cfg.num_envs
+        if N % mesh.dp or (N // mesh.dp) % 2:
+            raise ValueError(f"dual rallies pair envs inside a rank: {N} envs over {mesh.dp} "
+                             "ranks must give each rank an even count")
+        env = super().shard(mesh)
+        n = env.cfg.num_envs
+        env._swap = torch.arange(n, device=self.device) ^ 1
+        env._lane = torch.arange(n, device=self.device) % 2
+        return env
+
     def _init_tar_action(self, N) -> torch.Tensor:
         # even = near player receives first; odd waits for the hand-off
         return (1 - self._lane).to(torch.int32)

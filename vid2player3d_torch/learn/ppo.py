@@ -35,8 +35,23 @@ noise, the randomization's draws, minibatch permutations) come from the
 train state's generator, or from `draws=` so a test can feed the JAX
 learner's draws.
 
-Not ported yet: multi-device meshes, per-chip minibatches and local-SGD sync;
-asking for them raises.
+Data parallelism (`mesh=`, a ``parallel.DataParallelMesh``; the env sharded
+with `env.shard(mesh)`): each of the D ranks steps its block of the envs, the
+params and Adam state are replicated, and the batch is laid out env-major
+as the JAX learner's (dp, local_B). Each mini-epoch draws one permutation
+per shard (every rank draws all D and keeps its own); a minibatch is each
+shard's `mb_local` rows. The running norms, the advantage normalization and
+every metric are global. Two sync modes, as in the JAX learner:
+- `dp_sync="per_minibatch"`: the loss is the alive-masked mean over the
+  global minibatch (each rank's masked sum over the all-reduced alive
+  count); the gradients and the step's stats are summed over the ranks in
+  one flat bucket per optimizer step, then the clip and Adam (K1 when
+  fused) run on identical gradients on every rank;
+- `dp_sync="per_mini_epoch"` (local SGD): each rank steps its own
+  minibatches with the optax-chain Adam (never K1, as the JAX learner's
+  `mini_epoch_local`), the adaptive lr reads the ranks' mean kl, and the
+  params and both moments are averaged in float32 once per mini-epoch.
+`minibatch_per_chip=True` makes `minibatch_size` per rank (`mb_local`).
 """
 
 from __future__ import annotations
@@ -55,7 +70,8 @@ from ..core import rot as Rt
 from ..core import smpl as S
 from ..envs.humanoid_im import HumanoidImEnv
 from ..ops.fused_adam import fused_clip_adam_apply
-from ..utils.runtime import resolve_device
+from ..parallel import mesh as PM
+from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import ContextHeads, ImitatorNet
 from .optim import AdamState, clip_adam_apply, init_adam
@@ -84,9 +100,10 @@ class PPOConfig:
     max_lr: float = 1e-2
     lr_decay_epochs: int = 2000
     lr_min_frac: float = 0.05
-    # not ported yet: must keep these defaults
+    # data parallelism: `minibatch_size` per rank instead of global, and the
+    # gradient sync every optimizer step or (local SGD) once per mini-epoch
     minibatch_per_chip: bool = False
-    dp_sync: str = "per_minibatch"
+    dp_sync: str = "per_minibatch"         # per_minibatch | per_mini_epoch
     # the context-IK pipeline and its auxiliary losses' weights
     use_context_ik: bool = False
     aux_w_dof: float = 1.0
@@ -129,16 +146,75 @@ def policy_kl(mu0, sigma0, mu1, sigma1):
     return torch.sum(c1 + c2 - 0.5, dim=-1)
 
 
+def _check_mesh(mesh, env, cfg):
+    """A learner's (mesh, dp, rank): the mesh must be the port's, and with
+    more than one rank the env must be this rank's shard of it."""
+    if cfg.dp_sync not in ("per_minibatch", "per_mini_epoch"):
+        raise ValueError(f"unknown dp_sync {cfg.dp_sync!r}")
+    info = getattr(env, "shard_info", None)
+    if mesh is None:
+        if info is not None:
+            raise ValueError("the env is sharded: pass its mesh")
+        return None, 1, 0
+    if not isinstance(mesh, PM.DataParallelMesh):
+        raise TypeError(f"mesh must be a parallel.DataParallelMesh, not {type(mesh).__name__}")
+    if mesh.dp > 1 and (info is None or (info.mesh.dp, info.mesh.rank) != (mesh.dp, mesh.rank)):
+        raise ValueError(f"rank {mesh.rank} of {mesh.dp} needs its shard of the env: "
+                         "env.shard(mesh)")
+    return mesh, mesh.dp, mesh.rank
+
+
+def _minibatches(nbatch: int, cfg, dp: int):
+    """(optimizer steps per mini-epoch, rows each rank gives a minibatch) for
+    a global batch of `nbatch` samples over `dp` ranks."""
+    mb = cfg.minibatch_size
+    if cfg.minibatch_per_chip:
+        local = nbatch // dp
+        if local % mb:
+            raise ValueError(f"local batch {local} not divisible by minibatch {mb}")
+        return local // mb, mb
+    if mb % dp:
+        raise ValueError(f"minibatch {mb} does not split over {dp} ranks")
+    if nbatch % mb:
+        raise ValueError(f"batch {nbatch} not divisible by minibatch {mb}")
+    return nbatch // mb, mb // dp
+
+
+def _replicate_state(ts, mesh):
+    """Every rank's train state set to rank 0's (params, Adam state, running
+    norms, lr, epoch)."""
+    if mesh is None or not mesh.collective:
+        return ts
+    for f in ("params", "opt_state", "obs_norm", "val_norm", "lr"):
+        setattr(ts, f, PM.replicate(getattr(ts, f), mesh))
+    ts.epoch = int(PM.replicate(torch.tensor(ts.epoch, device=ts.lr.device), mesh))
+    return ts
+
+
+def _shard_perm(draws, e: int, n: int, generator, dp: int, rank: int, device):
+    """This rank's permutation of its `n` samples in mini-epoch `e`: one
+    permutation per shard drawn in shard order (all ranks draw them all), or
+    `draws["perms"][e]`, (dp, n) (at dp 1 also (n,))."""
+    if draws is None:
+        perms = [torch.randperm(n, generator=generator, device=device) for _ in range(dp)]
+        return perms[rank]
+    perm = as_draw(draws["perms"][e], torch.long, device)
+    if perm.dim() == 2:
+        return perm[rank]
+    if dp != 1:
+        raise ValueError(f"under {dp} ranks perms[e] is (dp, local batch), got {tuple(perm.shape)}")
+    return perm
+
+
 class ImitationPPO:
     """Owns the env and the network; the training state flows through
     `init_state` / `train_epoch`."""
 
     def __init__(self, env: HumanoidImEnv, cfg: PPOConfig = PPOConfig(), seed: int = 7,
                  mesh=None, device=None):
-        if mesh is not None or cfg.minibatch_per_chip or cfg.dp_sync != "per_minibatch":
-            raise NotImplementedError(
-                "device meshes, per-chip minibatches and local-SGD sync are not ported yet")
-        self.device = resolve_device(device)
+        self.mesh, self.dp, self.rank = _check_mesh(mesh, env, cfg)
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, learner on {self.device}")
         self.env = env
@@ -166,10 +242,18 @@ class ImitationPPO:
         self._mujoco_2_smpl = torch.as_tensor(S.MUJOCO_2_SMPL, dtype=torch.long,
                                               device=self.device)
 
-        nbatch = env.cfg.num_envs * cfg.horizon
-        if nbatch % cfg.minibatch_size:
-            raise ValueError(f"batch {nbatch} not divisible by minibatch {cfg.minibatch_size}")
-        self.num_minibatches = nbatch // cfg.minibatch_size
+        # the envs of every rank together
+        info = getattr(env, "shard_info", None)
+        self.num_envs_global = env.cfg.num_envs if info is None else info.num_envs
+        self.num_minibatches, self.mb_local = _minibatches(
+            self.num_envs_global * cfg.horizon, cfg, self.dp)
+        # local SGD only means something across ranks; at dp 1 it is the
+        # per-minibatch path (K1 included), as in the JAX learner
+        self.local_sgd = cfg.dp_sync == "per_mini_epoch" and self.dp > 1
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks (itself without collectives)."""
+        return PM.all_reduce_sum(t, self.mesh)
 
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A fresh train state (the network's initial params unless `params`
@@ -182,7 +266,7 @@ class ImitationPPO:
         params = {k: v.detach().to(self.device, torch.float32).clone().requires_grad_(True)
                   for k, v in src.items()}
         return TrainState(
-            params=params,
+            params=PM.replicate(params, self.mesh),
             opt_state=init_adam(list(params.values()), self.compute_dtype),
             obs_norm=RN.RunningNormState.create(self.obs_dim, self.device),
             val_norm=RN.RunningNormState.create(1, self.device),
@@ -194,25 +278,32 @@ class ImitationPPO:
     def save_checkpoint(self, path: str, ts: TrainState) -> None:
         """Write params, running stats, Adam state, epoch and lr to one
         `.npz` in the JAX learner's layout (the JAX package's `load_pytree`
-        reads it with its own template); bf16 moments are written as f32."""
+        reads it with its own template); bf16 moments are written as f32.
+        Under a mesh rank 0 writes the file one process would, and every rank
+        returns once it is written."""
         from ..utils import checkpoint as CK
 
-        CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
-                                                  ts.val_norm, ts.epoch, ts.lr))
+        if self.rank == 0:
+            CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
+                                                      ts.val_norm, ts.epoch, ts.lr))
+        PM.barrier(self.mesh)
 
     def load_checkpoint(self, path: str) -> TrainState:
         """Train state from a JAX-package `.npz` checkpoint (params, running
         stats, Adam state, epoch, lr); a context-IK checkpoint's `ac` and
-        `ctx` trees included."""
+        `ctx` trees included. Under a mesh rank 0 reads the file and every
+        rank takes its values."""
         from ..utils import checkpoint as CK
 
+        if self.rank != 0:
+            return _replicate_state(self.init_state(), self.mesh)
         flat = CK.load_npz(path)
         ts = self.init_state(CK.params_from_jax(flat))
         ts.opt_state, ts.obs_norm, ts.val_norm, ts.epoch, lr = CK.learner_state_from_jax(
             flat, list(ts.params), self.device, self.compute_dtype)
         if self.cfg.lr_schedule == "adaptive":
             ts.lr = torch.tensor(lr, device=self.device)
-        return ts
+        return _replicate_state(ts, self.mesh)
 
     # -- policy forward -------------------------------------------------------
 
@@ -314,13 +405,15 @@ class ImitationPPO:
                         gt_pos=torch.empty(T, N, 24, 3, device=dev),
                         gt_dof=torch.empty(T, N, 69, device=dev))
 
+        shard = env.shard_info
         for t in range(T):
             io, _, mu, v_norm, c_dof = self._forward(ts.params, ts.obs_norm, raw_obs,
                                                      ctx_feat, t, ctx_conf)
             if draws is None:
-                noise = torch.randn(mu.shape, generator=ts.generator, device=dev)
+                noise = PM.draw_rows(shard, mu.shape, lambda sh: torch.randn(
+                    sh, generator=ts.generator, device=dev))
             else:
-                noise = torch.as_tensor(draws["noise"][t], device=dev)
+                noise = PM.global_rows(shard, torch.as_tensor(draws["noise"][t], device=dev))
             action = mu + self.sigma[None] * noise
             traj["alive"][t] = (env_state.reset_buf == 0).float()
             if cfg.use_context_ik:
@@ -335,7 +428,8 @@ class ImitationPPO:
             env_action = action
             if dr is not None and dr.act_specs:
                 env_action = dr.randomize_actions(action, dr_step, ts.generator,
-                                                  None if draws is None else draws["dr_act"][t])
+                                                  None if draws is None else draws["dr_act"][t],
+                                                  shard)
             env_state, out = env.step(env_state, env_action)
             traj["obs"][t] = io
             traj["action"][t] = action
@@ -350,7 +444,7 @@ class ImitationPPO:
             raw_obs = out.obs
             if dr is not None and dr.obs_specs:
                 raw_obs = dr.randomize_obs(raw_obs, dr_step, ts.generator,
-                                           None if draws is None else draws["dr_obs"][t])
+                                           None if draws is None else draws["dr_obs"][t], shard)
 
         # v(obs_{t+1}) is the value computed at step t+1; one extra forward
         # for the final obs closes the horizon
@@ -389,7 +483,11 @@ class ImitationPPO:
                "aux_pos_loss": ((tgt_pos - batch["gt_pos"]) ** 2).mean((-1, -2))}
         return io, tgt_dof, aux
 
-    def _loss(self, params, batch, obs_norm):
+    def _loss(self, params, batch, obs_norm, denom=None):
+        """The PPO loss and its stats as alive-masked means over the batch;
+        `denom` (the global minibatch's alive count under a mesh) replaces
+        the batch's own count, so the ranks' values sum to the global
+        mean."""
         cfg = self.cfg
         if cfg.use_context_ik:
             io, ctx_dof, aux = self._context_obs(params, batch)
@@ -414,7 +512,7 @@ class ImitationPPO:
                   + torch.clamp_max(mu + soft_bound, 0.0) ** 2).sum(-1)
 
         mask = batch["alive"]
-        denom = torch.clamp_min(mask.sum(), 1.0)
+        denom = torch.clamp_min(mask.sum() if denom is None else denom, 1.0)
 
         def masked(x):
             return (x * mask).sum() / denom
@@ -451,7 +549,8 @@ class ImitationPPO:
         if dr is None or not dr.model_specs:
             return self.env
         model = dr.randomize_model(self.env.model, ts.epoch * self.cfg.horizon, ts.generator,
-                                   None if draws is None else draws["dr_model"])
+                                   None if draws is None else draws["dr_model"],
+                                   self.env.shard_info)
         return self.env.with_model(model)
 
     def train_epoch(self, ts: TrainState, draws: Optional[Dict] = None
@@ -462,9 +561,11 @@ class ImitationPPO:
         reset's corruption draws, ``envs/corrupt.py``); under domain
         randomization `dr_model` (per model spec (N,)), `dr_act` (T, per
         action spec (N, A)) and `dr_obs` (T, per obs spec (N, obs_dim)) as
-        standard draws. Returns the new state (params and moments are updated
-        in place) and the metrics as 0-d tensors on the device; the env the
-        epoch stepped is kept as `last_env`."""
+        standard draws. Under a mesh N is every rank's envs (each rank keeps
+        its block) and `perms` is (mini_epochs, dp, T·N/dp), one per shard.
+        Returns the new state (params and moments are updated in place) and
+        the metrics, global under a mesh, as 0-d tensors on the device; the
+        env the epoch stepped is kept as `last_env`."""
         cfg = self.cfg
         dev = self.device
         env = self.epoch_env(ts, draws)
@@ -474,10 +575,11 @@ class ImitationPPO:
         returns = advs + traj["value"]
 
         T, N = cfg.horizon, self.env.cfg.num_envs
-        B = T * N
+        B = T * N          # this rank's samples (the JAX learner's local_B)
 
         def flat(x):
-            """(T, N, ...) → (N·T, ...), env-major."""
+            """(T, N, ...) → (N·T, ...), env-major: this rank's row of the
+            JAX learner's (dp, local_B) layout."""
             return x.transpose(0, 1).reshape((B,) + x.shape[2:])
 
         obs_f = flat(traj["obs"])
@@ -486,10 +588,10 @@ class ImitationPPO:
         # Running obs stats update once per epoch on the full batch and take
         # effect NEXT epoch: this epoch's training must normalize with the
         # same stats the rollout used, or old_neglogp and the new mu disagree.
-        obs_norm_next = RN.update(ts.obs_norm, obs_f)
+        obs_norm_next = RN.update(ts.obs_norm, obs_f, self.mesh)
         obs_norm = ts.obs_norm
 
-        val_norm = RN.update(ts.val_norm, returns.reshape(-1, 1)) \
+        val_norm = RN.update(ts.val_norm, returns.reshape(-1, 1), self.mesh) \
             if cfg.normalize_value else ts.val_norm
         returns_f = flat(returns)
         ret_norm_f = RN.normalize_value(val_norm, returns_f[:, None])[:, 0] \
@@ -497,9 +599,11 @@ class ImitationPPO:
 
         adv_f = flat(advs)
         if cfg.normalize_advantage:
-            denom = torch.clamp_min(alive_f.sum(), 1.0)
-            mean = (adv_f * alive_f).sum() / denom
-            var = (((adv_f - mean) ** 2) * alive_f).sum() / denom
+            # the masked mean and variance of the global batch
+            s = self._sum(torch.stack([alive_f.sum(), (adv_f * alive_f).sum()]))
+            denom = torch.clamp_min(s[0], 1.0)
+            mean = s[1] / denom
+            var = self._sum((((adv_f - mean) ** 2) * alive_f).sum()) / denom
             adv_f = (adv_f - mean) / torch.sqrt(var + 1e-8)
 
         batch_all = dict(obs=obs_f, action=flat(traj["action"]), old_mu=flat(traj["mu"]),
@@ -521,41 +625,68 @@ class ImitationPPO:
         names = list(ts.params)
         plist = [ts.params[k] for k in names]
         opt = ts.opt_state
-        mb = cfg.minibatch_size
+        mb, nmb = self.mb_local, self.num_minibatches
+        collective = self.mesh is not None and self.mesh.collective
+        # per-minibatch sync all-reduces each step's gradient and stats; local
+        # SGD steps each rank on its own minibatches with the optax-chain Adam,
+        # as the JAX learner's `mini_epoch_local`, and shares only the kl
+        sync = collective and not self.local_sgd
+        fused = self.use_fused and not self.local_sgd
         stats_rows = []
         for e in range(cfg.mini_epochs):
-            if draws is None:
-                perm = torch.randperm(B, generator=ts.generator, device=dev)
-            else:
-                perm = torch.as_tensor(draws["perms"][e], device=dev)
-            for i in range(self.num_minibatches):
+            perm = _shard_perm(draws, e, B, ts.generator, self.dp, self.rank, dev)
+            if sync:
+                # each global minibatch's alive count, for all of the
+                # mini-epoch's steps in one collective
+                counts = self._sum(alive_f[perm[:nmb * mb]].reshape(nmb, mb).sum(1))
+            for i in range(nmb):
                 idx = perm[i * mb:(i + 1) * mb]
                 batch = {k: v[idx] for k, v in batch_all.items()}
-                loss, stats = self._loss(ts.params, batch, obs_norm)
+                loss, stats = self._loss(ts.params, batch, obs_norm, counts[i] if sync else None)
                 grads = torch.autograd.grad(loss, plist)
-                if self.use_fused:
+                svals = torch.stack([v.detach() for v in stats.values()])
+                if sync:
+                    # the global gradient and stats: one flat bucket per step
+                    *grads, svals = PM.flat_all_reduce(list(grads) + [svals], self.mesh)
+                if fused:
                     count = fused_clip_adam_apply(plist, opt.mu, opt.nu, grads, opt.count,
                                                   lr, cfg.grad_norm)
                     opt = AdamState(count=count, mu=opt.mu, nu=opt.nu)
                 else:
                     opt = clip_adam_apply(plist, opt, grads, lr, cfg.grad_norm)
-                lr = self._adapt_lr(lr, stats["kl"].detach())
-                stats_rows.append(torch.stack([v.detach() for v in stats.values()]))
+                kl = svals[list(stats).index("kl")]
+                if self.local_sgd and cfg.lr_schedule == "adaptive":
+                    kl = self._sum(kl) / self.dp
+                lr = self._adapt_lr(lr, kl)
+                stats_rows.append(svals)
+            if self.local_sgd and collective:
+                # the local-SGD sync: params and both moments averaged in f32
+                with torch.no_grad():
+                    leaves = plist + opt.mu + opt.nu
+                    for t, m in zip(leaves, PM.flat_all_reduce(leaves, self.mesh, mean=True)):
+                        t.copy_(m)
 
         stat_means = torch.stack(stats_rows).mean(0)
+        if self.local_sgd:
+            stat_means = self._sum(stat_means) / self.dp
         metrics = dict(zip(stats.keys(), stat_means))
-        alive_sum = torch.clamp_min(traj["alive"].sum(), 1.0)
-        metrics["reward_mean"] = (traj["reward"] * traj["alive"]).sum() / alive_sum
-        metrics["alive_ratio"] = traj["alive"].mean()
-        metrics["episode_return"] = traj["reward"].sum(0).mean()
-        subs = (traj["sub_rewards"] * traj["alive"][..., None]).sum((0, 1)) / alive_sum
+        # the rollout's metrics over every rank's envs, in one collective
+        alive, reward = traj["alive"], traj["reward"]
+        sums = self._sum(torch.cat([
+            torch.stack([alive.sum(), (reward * alive).sum(), reward.sum(),
+                         (traj["done"] * (1.0 - traj["terminate"])).sum(), traj["done"].sum()]),
+            (traj["sub_rewards"] * alive[..., None]).sum((0, 1))]))
+        alive_sum = torch.clamp_min(sums[0], 1.0)
+        n_all = self.num_envs_global
+        metrics["reward_mean"] = sums[1] / alive_sum
+        metrics["alive_ratio"] = sums[0] / (T * n_all)
+        metrics["episode_return"] = sums[2] / n_all
         for i, name in enumerate(["dof_reward", "vel_reward", "body_pos_reward",
                                   "body_rot_reward"]):
-            metrics[name] = subs[i]
+            metrics[name] = sums[5 + i] / alive_sum
         # success = episode ended by reaching the motion's end rather than a
         # tracking failure
-        succ = (traj["done"] * (1.0 - traj["terminate"])).sum()
-        metrics["success_rate"] = succ / torch.clamp_min(traj["done"].sum(), 1.0)
+        metrics["success_rate"] = sums[3] / torch.clamp_min(sums[4], 1.0)
         metrics["lr"] = torch.as_tensor(lr, device=dev)
 
         new_ts = TrainState(params=ts.params, opt_state=opt, obs_norm=obs_norm_next,

@@ -31,8 +31,19 @@ can feed the JAX learner's.
 `save_checkpoint` writes, and `load_checkpoint` reads, the JAX package's
 `V2PPPO.save_checkpoint` `.npz` (stacked leaves included);
 `load_stage_checkpoint` is the curriculum's warm start with the JAX
-package's surgery. Not ported yet (they raise): device meshes and per-chip
-minibatches.
+package's surgery.
+
+Data parallelism (`mesh=`, the env sharded with `env.shard(mesh)`), as the
+JAX learner's: the env state and the last obs are this rank's block, the
+rest is replicated; the batch is env-major (dp, local_B) with one
+permutation per shard; the advantage is normalized by the global unmasked
+mean and population std; a minibatch is each shard's `mb_local` rows
+(`minibatch_size / D`, or `minibatch_size` with `minibatch_per_chip`). The
+gradients and the step's stats are summed over the ranks in one flat bucket
+per optimizer step, so the non-finite guard reads the global gradient and
+every rank skips together. Each rank's envs per lane must divide, so lane
+i % num_policies stays inside the rank. There is no local SGD here, as in
+the JAX learner: `dp_sync="per_mini_epoch"` raises.
 """
 
 from __future__ import annotations
@@ -45,11 +56,13 @@ import torch
 from torch.func import functional_call
 
 from ..envs.tennis import TennisEnv
+from ..parallel import mesh as PM
 from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import V2PNet
 from .optim import AdamState, clip_adam_apply, init_adam
-from .ppo import PPOConfig, diag_gaussian_neglogp, policy_kl, resolve_compute_dtype
+from .ppo import (PPOConfig, _check_mesh, _minibatches, _replicate_state, _shard_perm,
+                  diag_gaussian_neglogp, policy_kl, resolve_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +122,17 @@ class V2PPPO:
 
     def __init__(self, env: TennisEnv, cfg: V2PConfig = V2PConfig(), seed: int = 7,
                  mesh=None, device=None):
-        if mesh is not None or cfg.minibatch_per_chip:
-            raise NotImplementedError("device meshes and per-chip minibatches are not ported yet")
         if cfg.num_policies < 1:
             raise ValueError(f"num_policies {cfg.num_policies}")
-        self.device = resolve_device(device)
+        if cfg.dp_sync != "per_minibatch":
+            raise ValueError(f"dp_sync {cfg.dp_sync!r}: V2PPPO syncs every minibatch (the JAX "
+                             "learner has no local SGD)")
+        self.mesh, self.dp, self.rank = _check_mesh(mesh, env, cfg)
+        if env.cfg.num_envs % cfg.num_policies:
+            raise ValueError(f"{env.cfg.num_envs} envs per rank do not split into "
+                             f"{cfg.num_policies} policy lanes")
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, learner on {self.device}")
         self.env = env
@@ -134,10 +153,11 @@ class V2PPPO:
         self._lane = torch.arange(env.cfg.num_envs, device=self.device) % self.num_policies
         self.sigma = torch.full((self.num_actions,), float(np.exp(cfg.sigma_init)),
                                 device=self.device)
-        nbatch = env.cfg.num_envs * cfg.horizon
-        if nbatch % cfg.minibatch_size:
-            raise ValueError(f"batch {nbatch} not divisible by minibatch {cfg.minibatch_size}")
-        self.num_minibatches = nbatch // cfg.minibatch_size
+        # the envs of every rank together
+        info = getattr(env, "shard_info", None)
+        self.num_envs_global = env.cfg.num_envs if info is None else info.num_envs
+        self.num_minibatches, self.mb_local = _minibatches(
+            self.num_envs_global * cfg.horizon, cfg, self.dp)
         # the env the last epoch stepped (a randomized copy under DR)
         self.last_env = env
 
@@ -163,7 +183,7 @@ class V2PPPO:
                   for k, v in src.items()}
         env_state, obs = self.env.reset_all(reset_draws)
         return V2PTrainState(
-            params=params,
+            params=PM.replicate(params, self.mesh),
             opt_state=init_adam(list(params.values()), self.compute_dtype),
             obs_norm=RN.RunningNormState.create(self.obs_dim, self.device),
             val_norm=RN.RunningNormState.create(1, self.device),
@@ -174,19 +194,25 @@ class V2PPPO:
     def save_checkpoint(self, path: str, ts: V2PTrainState) -> None:
         """Write params, running stats, Adam state, epoch and lr to one
         `.npz` in the JAX learner's layout; the env state is not saved (a
-        resume resets the envs, as in the JAX learner)."""
+        resume resets the envs, as in the JAX learner). Under a mesh rank 0
+        writes and every rank returns once it is written."""
         from ..utils import checkpoint as CK
 
-        CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
-                                                  ts.val_norm, ts.epoch, ts.lr))
+        if self.rank == 0:
+            CK.save_npz(path, CK.learner_state_to_jax(ts.params, ts.opt_state, ts.obs_norm,
+                                                      ts.val_norm, ts.epoch, ts.lr))
+        PM.barrier(self.mesh)
 
     def load_checkpoint(self, path: str, reset_draws: Optional[Dict] = None) -> V2PTrainState:
         """Train state from a JAX-package `V2PPPO.save_checkpoint` `.npz`
         (params, Adam state, running stats, epoch, and lr under the adaptive
         schedule); with num_policies > 1 its leaves carry the policy axis.
-        The env state is a fresh reset."""
+        The env state is a fresh reset. Under a mesh rank 0 reads the file and
+        every rank takes its values."""
         from ..utils import checkpoint as CK
 
+        if self.rank != 0:
+            return _replicate_state(self.init_state(reset_draws=reset_draws), self.mesh)
         return self._state_from_flat(CK.load_npz(path), reset_draws)
 
     def load_stage_checkpoint(self, path: str, discard_sigma: bool = True,
@@ -202,6 +228,8 @@ class V2PPPO:
         constant, not a parameter. Pure: the agent is not changed."""
         from ..utils import checkpoint as CK
 
+        if self.rank != 0:
+            return _replicate_state(self.init_state(reset_draws=reset_draws), self.mesh)
         params = self._initial_params()
         like = CK.learner_state_to_jax(
             params, init_adam(list(params.values())),
@@ -218,7 +246,7 @@ class V2PPPO:
             flat, list(ts.params), self.device, self.compute_dtype)
         if self.cfg.lr_schedule == "adaptive":
             ts.lr = torch.tensor(lr, device=self.device)
-        return ts
+        return _replicate_state(ts, self.mesh)
 
     # -- forward ----------------------------------------------------------------
 
@@ -267,19 +295,22 @@ class V2PPPO:
             traj[k] = torch.empty(T, N, device=dev)
         subs, extras = [], []
         env_state, obs = ts.env_state, ts.last_obs
+        shard = env.shard_info
         for t in range(T):
             mu, v_norm = self._forward(ts.params, ts.obs_norm, obs)
             if draws is None:
-                noise = torch.randn(mu.shape, generator=ts.generator, device=dev)
+                noise = PM.draw_rows(shard, mu.shape, lambda sh: torch.randn(
+                    sh, generator=ts.generator, device=dev))
             else:
-                noise = as_draw(draws["noise"][t], torch.float32, dev)
+                noise = PM.global_rows(shard, as_draw(draws["noise"][t], torch.float32, dev))
             action = mu + self.sigma[None] * noise
             # randomization's action noise goes on what the env executes;
             # the stored action stays the policy's
             env_action = action
             if dr is not None and dr.act_specs:
                 env_action = dr.randomize_actions(action, dr_step, ts.generator,
-                                                  None if draws is None else draws["dr_act"][t])
+                                                  None if draws is None else draws["dr_act"][t],
+                                                  shard)
             env_state, out = env.step(env_state, env_action,
                                       None if draws is None else draws["env"][t])
             traj["obs"][t] = obs
@@ -297,7 +328,7 @@ class V2PPPO:
             obs = out.obs
             if dr is not None and dr.obs_specs:
                 obs = dr.randomize_obs(obs, dr_step, ts.generator,
-                                       None if draws is None else draws["dr_obs"][t])
+                                       None if draws is None else draws["dr_obs"][t], shard)
         traj["sub_rewards"] = torch.stack(subs)
         traj["extras"] = {k: torch.stack([e[k] for e in extras]) for k in extras[0]}
 
@@ -321,25 +352,36 @@ class V2PPPO:
 
     # -- update -----------------------------------------------------------------
 
-    def _loss(self, params, mb, obs_norm):
+    def _loss(self, params, mb, obs_norm, count=None):
+        """The PPO loss and its stats as means over the minibatch; `count`
+        (the global minibatch's size under a mesh) replaces the rows' own
+        count, so the ranks' values sum to the global mean."""
         cfg = self.cfg
+
+        def mean(x):
+            return x.mean() if count is None else x.sum() / count
+
         mu, v_norm = self._forward(params, obs_norm, mb["obs"], mb["lane"])
         sigma = self.sigma[None]
         neglogp = diag_gaussian_neglogp(mb["action"], mu, sigma)
         ratio = torch.exp(mb["old_neglogp"] - neglogp)
         surr1 = mb["adv"] * ratio
         surr2 = mb["adv"] * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)
-        a_loss = torch.maximum(-surr1, -surr2).mean()
-        c_loss = ((v_norm - mb["return_norm"]) ** 2).mean()
-        b_loss = ((torch.clamp_min(mu - 1.0, 0.0) ** 2
-                   + torch.clamp_max(mu + 1.0, 0.0) ** 2).sum(-1)).mean()
+        a_loss = mean(torch.maximum(-surr1, -surr2))
+        c_loss = mean((v_norm - mb["return_norm"]) ** 2)
+        b_loss = mean((torch.clamp_min(mu - 1.0, 0.0) ** 2
+                       + torch.clamp_max(mu + 1.0, 0.0) ** 2).sum(-1))
         # aux: residual dof close to 0
         nl = self.env.cfg.num_latents
-        aux = (mu[:, nl:nl + 3] ** 2).sum(-1).mean() if self.env.cfg.add_residual_dof else 0.0
+        aux = mean((mu[:, nl:nl + 3] ** 2).sum(-1)) if self.env.cfg.add_residual_dof else 0.0
         loss = (a_loss + cfg.critic_coef * c_loss + cfg.bounds_loss_coef * b_loss
                 + cfg.aux_dof_res_coef * aux)
-        kl = policy_kl(mu, sigma, mb["old_mu"], sigma).mean()
+        kl = mean(policy_kl(mu, sigma, mb["old_mu"], sigma))
         return loss, dict(a_loss=a_loss, c_loss=c_loss, b_loss=b_loss, kl=kl)
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks (itself without collectives)."""
+        return PM.all_reduce_sum(t, self.mesh)
 
     def _adapt_lr(self, lr, kl):
         cfg = self.cfg
@@ -362,13 +404,14 @@ class V2PPPO:
         if dr is None or not (dr.model_specs or dr.ball_specs):
             return env
         step = ts.epoch * self.cfg.horizon
-        model = dr.randomize_model(env.model, step, ts.generator,
-                                   None if draws is None else draws["dr_model"]) \
-            if dr.model_specs else None
-        ball = dr.randomize_ball(env.ball_params, step, ts.generator,
-                                 None if draws is None else draws["dr_ball"], device=self.device) \
-            if dr.ball_specs else None
-        return env.with_model(model, ball)
+        if dr.model_specs:
+            env = env.with_randomized_model(dr, step, ts.generator,
+                                            None if draws is None else draws["dr_model"])
+        if dr.ball_specs:
+            env = env.with_model(ball_params=dr.randomize_ball(
+                env.ball_params, step, ts.generator, None if draws is None else draws["dr_ball"],
+                device=self.device))
+        return env
 
     def train_epoch(self, ts: V2PTrainState, draws: Optional[Dict] = None
                     ) -> Tuple[V2PTrainState, Dict[str, torch.Tensor]]:
@@ -388,24 +431,33 @@ class V2PPPO:
         returns = advs + traj["value"]
 
         T, N = cfg.horizon, self.env.cfg.num_envs
-        B = T * N
+        B = T * N          # this rank's samples (the JAX learner's local_B)
+        collective = self.mesh is not None and self.mesh.collective
 
         def flat(x):
-            """(T, N, ...) → (N·T, ...), env-major."""
+            """(T, N, ...) → (N·T, ...), env-major: this rank's row of the
+            JAX learner's (dp, local_B) layout."""
             return x.transpose(0, 1).reshape((B,) + x.shape[2:])
 
         obs_f = flat(traj["obs"])
         # running obs stats take effect NEXT epoch; this epoch trains with
         # the stats the rollout used
-        obs_norm_next = RN.update(ts.obs_norm, obs_f)
-        val_norm = RN.update(ts.val_norm, returns.reshape(-1, 1)) \
+        obs_norm_next = RN.update(ts.obs_norm, obs_f, self.mesh)
+        val_norm = RN.update(ts.val_norm, returns.reshape(-1, 1), self.mesh) \
             if cfg.normalize_value else ts.val_norm
         ret_f = flat(returns)
         ret_norm_f = RN.normalize_value(val_norm, ret_f[:, None])[:, 0] \
             if cfg.normalize_value else ret_f
         adv_f = flat(advs)
         if cfg.normalize_advantage:
-            adv_f = (adv_f - adv_f.mean()) / (adv_f.std(unbiased=False) + 1e-8)
+            if collective:
+                # the global batch's mean and population std
+                n_all = B * self.dp
+                mean = self._sum(adv_f.sum()) / n_all
+                std = torch.sqrt(self._sum(((adv_f - mean) ** 2).sum()) / n_all)
+            else:
+                mean, std = adv_f.mean(), adv_f.std(unbiased=False)
+            adv_f = (adv_f - mean) / (std + 1e-8)
         batch_all = dict(obs=obs_f, action=flat(traj["action"]), old_mu=flat(traj["mu"]),
                          old_neglogp=flat(traj["neglogp"]), adv=adv_f, return_norm=ret_norm_f,
                          lane=flat(self._lane[None].expand(T, N)))
@@ -419,47 +471,54 @@ class V2PPPO:
         names = list(ts.params)
         plist = [ts.params[k] for k in names]
         opt = ts.opt_state
-        mb = cfg.minibatch_size
+        mb = self.mb_local
         stats_rows = []
         for e in range(cfg.mini_epochs):
-            if draws is None:
-                perm = torch.randperm(B, generator=ts.generator, device=dev)
-            else:
-                perm = as_draw(draws["perms"][e], torch.long, dev)
+            perm = _shard_perm(draws, e, B, ts.generator, self.dp, self.rank, dev)
             for i in range(self.num_minibatches):
                 idx = perm[i * mb:(i + 1) * mb]
                 batch = {k: v[idx] for k, v in batch_all.items()}
-                loss, stats = self._loss(ts.params, batch, ts.obs_norm)
+                loss, stats = self._loss(ts.params, batch, ts.obs_norm,
+                                         mb * self.dp if collective else None)
                 grads = torch.autograd.grad(loss, plist)
+                svals = torch.stack([v.detach() for v in stats.values()])
+                if collective:
+                    # the global gradient and stats in one flat bucket: the
+                    # guard below sees the same gradient on every rank
+                    *grads, svals = PM.flat_all_reduce(list(grads) + [svals], self.mesh)
                 opt, ok = _guarded_adam_step(plist, opt, grads, lr, cfg.grad_norm)
-                stats["grad_skip"] = (~ok).float()
-                lr = self._adapt_lr(lr, stats["kl"].detach())
-                stats_rows.append(torch.stack([v.detach() for v in stats.values()]))
+                lr = self._adapt_lr(lr, svals[list(stats).index("kl")])
+                stats_rows.append(torch.cat([svals, (~ok).float()[None]]))
 
-        metrics = dict(zip(stats.keys(), torch.stack(stats_rows).mean(0)))
-        metrics["reward_mean"] = traj["reward"].mean()
-        metrics["episode_return"] = traj["reward"].sum(0).mean()
-        metrics["done_rate"] = traj["done"].mean()
-        subs = traj["sub_rewards"].mean((0, 1))
+        metrics = dict(zip(list(stats) + ["grad_skip"], torch.stack(stats_rows).mean(0)))
+        # the rollout's metrics over every rank's envs, in one collective
+        ex = traj["extras"]
+        sums = self._sum(torch.cat([
+            torch.stack([x.sum().float() for x in (
+                traj["reward"], traj["done"], ex["cycle_end"], ex["contact_now"],
+                ex["cycle_hit"], ex["contact_est_in"], ex["swing_fh"], ex["swing_bh"])]),
+            traj["sub_rewards"].sum((0, 1))]))
+        n_all = self.num_envs_global
+        metrics["reward_mean"] = sums[0] / (T * n_all)
+        metrics["episode_return"] = sums[0] / n_all
+        metrics["done_rate"] = sums[1] / (T * n_all)
         for i, name in enumerate(("pos_reward", "ball_pos_reward", "quality_reward",
-                                  "swing_speed_reward")[:subs.shape[-1]]):
-            metrics[name] = subs[i]
+                                  "swing_speed_reward")[:sums.shape[0] - 8]):
+            metrics[name] = sums[8 + i] / (T * n_all)
         metrics["lr"] = torch.as_tensor(lr, device=dev)
         # behavioral instrumentation: is it swinging, hitting, landing in?
-        ex = traj["extras"]
-        n_cyc = ex["cycle_end"].sum()
-        n_contact = ex["contact_now"].sum()
+        n_cyc, n_contact = sums[2], sums[3]
         metrics["cycles"] = n_cyc
-        metrics["hit_rate"] = ex["cycle_hit"].sum() / torch.clamp_min(n_cyc, 1)
-        metrics["contact_rate"] = ex["contact_now"].mean()
-        metrics["est_bounce_in_rate"] = ex["contact_est_in"].sum() / torch.clamp_min(n_contact, 1)
-        metrics["fh_ratio"] = ex["swing_fh"].sum() / torch.clamp_min(n_cyc, 1)
-        metrics["bh_ratio"] = ex["swing_bh"].sum() / torch.clamp_min(n_cyc, 1)
+        metrics["hit_rate"] = sums[4] / torch.clamp_min(n_cyc, 1)
+        metrics["contact_rate"] = n_contact / (T * n_all)
+        metrics["est_bounce_in_rate"] = sums[5] / torch.clamp_min(n_contact, 1)
+        metrics["fh_ratio"] = sums[6] / torch.clamp_min(n_cyc, 1)
+        metrics["bh_ratio"] = sums[7] / torch.clamp_min(n_cyc, 1)
         # median and P90 over in-reaction, court-gated frames (NaN marks the
-        # others)
-        rbd = ex["racket_ball_dist"]
+        # others), of every rank's envs
+        rbd = PM.all_gather_rows(ex["racket_ball_dist"], self.mesh).reshape(-1)
         metrics["racket_ball_dist"] = nanmedian(rbd)
-        metrics["racket_ball_dist_p90"] = torch.nanquantile(rbd.reshape(-1), 0.9)
+        metrics["racket_ball_dist_p90"] = torch.nanquantile(rbd, 0.9)
 
         new_ts = V2PTrainState(params=ts.params, opt_state=opt, obs_norm=obs_norm_next,
                                val_norm=val_norm, env_state=env_state, last_obs=last_obs,

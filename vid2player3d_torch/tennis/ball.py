@@ -283,27 +283,29 @@ class TennisBallGenerator:
         """Random pool gather: (traj (n,T,3), launch_pos, launch_vel,
         launch_vspin). The pool indices are drawn from `generator` unless
         `idx` (n,) is given."""
-        if idx is None:
-            idx = torch.randint(0, self.pool_size, (n,), generator=generator,
-                                device=self.device)
-        else:
-            idx = as_draw(idx, torch.long, self.device)
+        idx = self.pool_idx(n, generator) if idx is None else as_draw(idx, torch.long,
+                                                                        self.device)
         return self._gather(idx)
+
+    def pool_idx(self, n: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`sample`'s draw: n uniform pool rows."""
+        return torch.randint(0, self.pool_size, (n,), generator=generator, device=self.device)
+
+    def near_jitter(self, n: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`sample_near`'s draw: n offsets in [-win//2, win//2], win = pool/8."""
+        win = max(1, self.pool_size // 8)
+        return torch.randint(-win // 2, win // 2 + 1, (n,), generator=generator,
+                             device=self.device)
 
     def sample_near(self, x, generator: Optional[torch.Generator] = None, jitter=None):
         """Opponent-position-conditioned gather among the pool entries whose
         launch x is closest to `x`: a jitter in [-win//2, win//2] around the
         sorted position, win = pool/8. The jitter is drawn from `generator`
         unless given."""
-        n = x.shape[0]
         xs = self.launch_pos[self.x_order, 0]
         pos = torch.searchsorted(xs, x.contiguous())
-        win = max(1, self.pool_size // 8)
-        if jitter is None:
-            jitter = torch.randint(-win // 2, win // 2 + 1, (n,), generator=generator,
-                                   device=self.device)
-        else:
-            jitter = as_draw(jitter, torch.long, self.device)
+        jitter = self.near_jitter(x.shape[0], generator) if jitter is None \
+            else as_draw(jitter, torch.long, self.device)
         idx = self.x_order[torch.clamp(pos + jitter, 0, self.pool_size - 1)]
         return self._gather(idx)
 

@@ -45,13 +45,15 @@ def two_hand_target(posed_joints, righthand: bool = True):
 
 def optimize_two_hand_backhand(joint_rotmat, rest_smpl, righthand: bool = True,
                                iters: int = 50, lr: float = 0.05, w_reg: float = 0.1,
-                               mask=None):
+                               mask=None, num_rows=None):
     """Adjust the free arm so both hands hold the racket.
 
     joint_rotmat: (N, 24, 3, 3) SMPL-order local rotations.
     rest_smpl: (N, 24, 3) SMPL-order rest joint positions.
     mask: optional (N,) bool, the rows where the fix applies; the other rows
       pass through unchanged.
+    num_rows: the row count the loss's means are over (a data-parallel
+      rank's N rows are a block of `num_rows`); default N.
 
     Returns the adjusted (N, 24, 3, 3) rotations (no autograd history)."""
     ik = list(_IK_RIGHT if righthand else _IK_LEFT)
@@ -70,10 +72,13 @@ def optimize_two_hand_backhand(joint_rotmat, rest_smpl, righthand: bool = True,
         rm[:, ik] = R.angle_axis_to_rotmat(aa.reshape(-1, 3)).reshape(N, 4, 3, 3)
         return rm
 
+    def mean(x):
+        return x.mean() if num_rows is None else x.sum() / (num_rows * (x.numel() // N))
+
     def loss_fn(delta):
         posed, _ = batch_rigid_transform(with_arm(aa0 + delta), rest_smpl)
-        l_target = abs_jax(posed[:, fh] - target).mean()
-        l_reg = abs_jax(delta).mean()
+        l_target = mean(abs_jax(posed[:, fh] - target))
+        l_reg = mean(abs_jax(delta))
         return l_target + w_reg * l_reg
 
     # Adam (betas 0.9 / 0.999), bias corrections in float32 as the JAX loop
