@@ -166,12 +166,31 @@ Phases, each printing one line (any failed phase exits non-zero):
               and K1, K2 and K3 against their plain versions on the inputs
               each rank's epoch gave them, at every shape (K2 at the rank's
               envs per lane, K3 at its envs and at the 256 candidate resets)
-  25. profile torch.profiler over a short imitation epoch, a short tennis
+  25. data    the host-side data tools at the sizes users run them, in a
+              directory under build/: an AMASS-layout directory (32 SMPLH
+              clips, 1200 frames at 120 Hz, mixed genders, one clip too short
+              and one broken file) through `convert_amass_dir` on the card
+              and on the CPU (32 motions at 30 fps; every field within 1e-5;
+              `get_motion_state` at 4096 random times within 1e-5 plus twice
+              the CPU's float32 gap to float64), its saved file read back into
+              one amass_im epoch at phase 7's sizes (K1 1,536 + 1,536);
+              `python -m vid2player3d_torch.data.tennis_motion` at its
+              defaults (96 sequences x 6 cycles), then `--cfg mvae_federer
+              --dataset_dir` on it in this process (1 epoch x 50 windows at
+              full width; K2 3 prep + 3 GEMM per optimizer step in the epoch,
+              and in the 120-step random-walk report after it); the tennis
+              motion library (32 sequences x 5 cycles) built on the card and
+              on the CPU (every field within 1e-5) and `--cfg federer_im
+              --motion_file` on it at 4096 envs for one epoch; a 24-joint
+              FBX chain written as ASCII and as binary, both imported and
+              equal, retargeted onto the humanoid tree into a library on the
+              card with finite states; each step's seconds
+  26. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and one dual step: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  26. kernels one JSON line over the ported kernels, each kernel's launches
+  27. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -1472,11 +1491,12 @@ def ctx_parity_phase(dev):
                                           ik_err)))
 
 
-def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS):
+def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None):
     """`epochs` epochs of a named imitation configuration at the main path's
     sizes (4096 envs, full width, fused K1; `mini_epochs` passes per epoch)
-    with K1's counters set to 0 just before and read just after; (agent, ts,
-    rows, K1 launches, timings)."""
+    on `lib` (by default the synthetic 8 motions x 300 frames) with K1's
+    counters set to 0 just before and read just after; (agent, ts, rows, K1
+    launches, timings)."""
     import dataclasses
     import math
 
@@ -1490,7 +1510,8 @@ def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS):
 
     t0 = time.perf_counter()
     env_cfg, ppo_cfg = preset(name, num_envs=NUM_ENVS, substeps=SUBSTEPS)
-    lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
+    if lib is None:
+        lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
     agent = ImitationPPO(HumanoidImEnv(env_cfg, lib, rng=0, device=dev),
                          dataclasses.replace(ppo_cfg, horizon=HORIZON, minibatch_size=MINIBATCH,
                                              mini_epochs=mini_epochs, fused_optimizer="on"),
@@ -3056,6 +3077,422 @@ def dp_cli_phase(dev, card: str, started):
         shutil.rmtree(out + "_two", ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the host-side data tools, their outputs driven into the card paths
+# ---------------------------------------------------------------------------
+
+AMASS_CLIPS, AMASS_FRAMES, AMASS_FPS = 32, 1200, 120.0   # 10 s at 120 Hz -> 300 frames at 30
+FBX_SECONDS, FBX_KEYS_PER_S = 4.0, 30
+DATA_STATE_SAMPLES = 4096
+DATA_MVAE_BATCHES = 50
+
+
+def _mvae_steps_per_window() -> int:
+    from vid2player3d_torch.mvae import MVAEOption
+
+    opt = MVAEOption.load("federer")
+    return opt.nframes_seq - opt.num_future_predictions - opt.num_condition_frames + 1
+
+
+def write_amass_fixture(d: str, n: int = AMASS_CLIPS, T: int = AMASS_FRAMES,
+                        fps: float = AMASS_FPS, seed: int = 0) -> None:
+    """An AMASS-layout directory: `n` SMPLH clips (poses (T, 156) with hand
+    dims, trans (T, 3), 16 betas, genders neutral/male/female in turn,
+    `mocap_framerate`) in four subject folders, upright (the SMPL body's y
+    axis to the world's z), walking with joint swings; plus one clip too
+    short to keep after downsampling and one file that is no npz."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / fps
+    for i in range(n):
+        sub = os.path.join(d, f"subject_{i % 4}")
+        os.makedirs(sub, exist_ok=True)
+        poses = np.zeros((T, 156), np.float32)
+        poses[:, 3:66] = 0.25 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0, 63) * t[:, None]
+                                       + rng.uniform(0, 2 * np.pi, 63))
+        poses[:, 66:] = 0.1 * rng.standard_normal(90)          # hands: dropped
+        # root: yaw(t) after the base rotation (120 deg about (1, 1, 1))
+        yaw = 0.3 * np.sin(2 * np.pi * 0.2 * t)
+        qb = np.array([0.5, 0.5, 0.5, 0.5])
+        qz = np.stack([np.zeros(T), np.zeros(T), np.sin(yaw / 2), np.cos(yaw / 2)], -1)
+        w = qz[:, 3] * qb[3] - qz[:, 2] * qb[2]
+        v = qz[:, 3:4] * qb[:3] + qb[3] * qz[:, :3] + np.cross(qz[:, :3], qb[:3])
+        s = np.linalg.norm(v, axis=-1, keepdims=True)
+        poses[:, :3] = 2.0 * np.arctan2(s, w[:, None]) * v / s
+        trans = np.stack([0.5 * t, 0.1 * np.sin(t), np.full(T, 0.95)], 1).astype(np.float32)
+        np.savez(os.path.join(sub, f"clip_{i:03d}.npz"), poses=poses, trans=trans,
+                 betas=rng.uniform(-1, 1, 16).astype(np.float32),
+                 gender=("neutral", "male", "female")[i % 3], mocap_framerate=np.float64(fps))
+    # 36 frames at 120 Hz: 9 after downsampling, fewer than the 10 kept
+    np.savez(os.path.join(d, "short.npz"), poses=np.zeros((36, 156), np.float32),
+             trans=np.zeros((36, 3), np.float32), betas=np.zeros(16, np.float32),
+             gender="male", mocap_framerate=np.float64(fps))
+    with open(os.path.join(d, "broken.npz"), "wb") as f:
+        f.write(b"not an npz archive")
+
+
+def _fbx_scene(seconds: float = FBX_SECONDS, keys_per_s: int = FBX_KEYS_PER_S, seed: int = 0):
+    """A 24-joint SMPL-named chain as FBX records (name, props, children):
+    each joint a LimbNode Model with `Lcl Translation` (the synthetic SMPL
+    rest offsets, y up), the shoulders a `PreRotation`; every joint a
+    rotation curve node with X/Y/Z curves (degrees) and the pelvis a
+    translation one, keyed `keys_per_s` times a second. Arrays are numpy:
+    int64 key times, float32 values."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.core import smpl as S
+
+    rest = S.rest_joints(S.make_synthetic_smpl(), torch.zeros(1, 10))[0].numpy()
+    rng = np.random.default_rng(seed)
+    kt = (np.arange(int(seconds * keys_per_s) + 1, dtype=np.int64)
+          * (46186158000 // keys_per_s))
+    tk = np.arange(len(kt)) / keys_per_s
+    P = lambda *v: ("P", v, [])                                    # noqa: E731
+    models, anim, conns = [], [], []
+    for j, name in enumerate(S.SMPL_BONE_ORDER_NAMES):
+        p = int(S.SMPL_PARENTS[j])
+        off = rest[j] - (rest[p] if p >= 0 else 0.0)
+        props = [P("Lcl Translation", "Lcl Translation", "", "A", *map(float, off))]
+        if name.endswith("Shoulder"):
+            props.append(P("PreRotation", "Vector3D", "", "", 0.0, 0.0,
+                           -20.0 if name[0] == "L" else 20.0))
+        models.append(("Model", (1000 + j, f"Model::{name}", "LimbNode"),
+                       [("Properties70", (), props)]))
+        conns.append(("C", ("OO", 1000 + j, 1000 + p if p >= 0 else 0), []))
+        channels = [("Lcl Rotation", 2000 + j, 20.0)]
+        if j == 0:
+            channels.append(("Lcl Translation", 2100, None))
+        for channel, cn, amp in channels:
+            anim.append(("AnimationCurveNode", (cn, f"AnimCurveNode::{channel[4]}", ""), []))
+            conns.append(("C", ("OP", cn, 1000 + j, channel), []))
+            for k, axis in enumerate("XYZ"):
+                cid = 10 * cn + k
+                if amp is None:
+                    vals = off[k] + (0.6 * tk if axis == "X" else 0.0 * tk)
+                else:
+                    vals = amp * rng.uniform(0.3, 1.0) * np.sin(
+                        2 * np.pi * rng.uniform(0.3, 1.2) * tk + rng.uniform(0, 2 * np.pi))
+                anim.append(("AnimationCurve", (cid, "AnimCurve::", ""),
+                             [("KeyTime", (kt,), []),
+                              ("KeyValueFloat", (vals.astype(np.float32),), [])]))
+                conns.append(("C", ("OP", cid, cn, f"d|{axis}"), []))
+    return [("Objects", (), models + anim), ("Connections", (), conns)]
+
+
+def fbx_ascii(records) -> str:
+    """FBX 7.4 ASCII text of `_fbx_scene`'s records (arrays as `*N {a: ...}`;
+    floats written with repr, float32 arrays at their exact values)."""
+    import numpy as np
+
+    def value(v):
+        if isinstance(v, str):
+            return f'"{v}"'
+        return repr(float(v)) if isinstance(v, float) else str(int(v))
+
+    def rec(node, indent):
+        name, props, children = node
+        pad = "    " * indent
+        if len(props) == 1 and isinstance(props[0], np.ndarray):
+            arr = props[0]
+            vals = ",".join(value(float(x) if arr.dtype.kind == "f" else int(x)) for x in arr)
+            return f"{pad}{name}: *{len(arr)} {{\n{pad}    a: {vals}\n{pad}}}\n"
+        head = f"{pad}{name}: " + ", ".join(value(v) for v in props)
+        if not children:
+            return head + "\n"
+        return head + " {\n" + "".join(rec(c, indent + 1) for c in children) + pad + "}\n"
+
+    return "; FBX 7.4 project file\n" + "".join(rec(r, 0) for r in records)
+
+
+def fbx_binary(records, compress: bool = True) -> bytes:
+    """The Kaydara binary container (version 7400, 32-bit offsets) of the
+    same records; arrays zlib-compressed when `compress`."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def prop(v):
+        if isinstance(v, np.ndarray):
+            code = {"f": b"f", "i": b"l"}[v.dtype.kind]
+            raw = v.astype("<f4" if code == b"f" else "<i8").tobytes()
+            payload = zlib.compress(raw) if compress else raw
+            return code + struct.pack("<III", len(v), int(compress), len(payload)) + payload
+        if isinstance(v, str):
+            raw = b"\x00\x01".join(s.encode() for s in reversed(v.split("::")))
+            return b"S" + struct.pack("<I", len(raw)) + raw
+        if isinstance(v, float):
+            return b"D" + struct.pack("<d", v)
+        return b"L" + struct.pack("<q", int(v))
+
+    def node(rec, start):
+        name, props, children = rec
+        nb, plist = name.encode(), b"".join(prop(p) for p in props)
+        sub = b""
+        for c in children:
+            sub += node(c, start + 13 + len(nb) + len(plist) + len(sub))
+        if children:
+            sub += b"\x00" * 13
+        end = start + 13 + len(nb) + len(plist) + len(sub)
+        return struct.pack("<IIIB", end, len(props), len(plist), len(nb)) + nb + plist + sub
+
+    doc = b"Kaydara FBX Binary  \x00\x1a\x00" + struct.pack("<I", 7400)
+    for r in records:
+        doc += node(r, len(doc))
+    return doc + b"\x00" * 13
+
+
+def _libs_close(what, a, b, atol=1e-5):
+    """Every field of two MotionLibs (on any devices) within `atol`."""
+    import dataclasses
+
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name).cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"{what}: {f.name} {tuple(x.shape)} {x.dtype} against {tuple(y.shape)} {y.dtype}")
+        if x.numel():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    if worst > atol:
+        fail(f"{what}: the card's library differs from the CPU's by {worst} (> {atol})")
+    return worst
+
+
+def _states_close(what, lib, ref, seed=0, atol=1e-5):
+    """`get_motion_state` of `lib` (on the card) and `ref` (on the CPU) at
+    the same random motions and times, every output finite; each output
+    within `atol` plus twice how far the CPU's float32 result lies from the
+    same call in float64. The positions and velocities are well conditioned
+    (their float64 gap is below 1e-5); the rotations are not: the slerp's
+    arccos near cos = 1, and its switch to the midpoint below sin = 0.001,
+    turn an ulp of the dot product into up to ~1e-3. Returns {key: (card -
+    CPU, bound)}."""
+    import dataclasses
+
+    import torch
+
+    from vid2player3d_torch.data.motion_lib import MotionLib, get_motion_state
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, ref.num_motions, (DATA_STATE_SAMPLES,), generator=g)
+    times = torch.rand(DATA_STATE_SAMPLES, generator=g) * ref.motion_lengths[ids]
+    want = get_motion_state(ref, ids, times)
+    ref64 = MotionLib(**{f.name: (v.double() if v.is_floating_point() else v) for f in
+                         dataclasses.fields(ref) for v in (getattr(ref, f.name),)})
+    exact = get_motion_state(ref64, ids, times.double())
+    got = get_motion_state(lib, ids.to(lib.device), times.to(lib.device))
+    errs = {}
+    for k, v in want.items():
+        g_k = got[k].cpu()
+        if not bool(torch.isfinite(g_k).all()):
+            fail(f"{what}: {k} not finite")
+        bound = atol + 2.0 * float((v.double() - exact[k]).abs().max())
+        errs[k] = (float((g_k - v).abs().max()), bound)
+        if errs[k][0] > bound:
+            fail(f"{what}: get_motion_state's {k} on the card differs from the CPU's by "
+                 f"{errs[k][0]} (> {bound})")
+    return errs
+
+
+def data_phase(dev, card: str):
+    """The host-side data tools at the sizes users run them, and their
+    outputs through the card paths, in a directory under build/:
+    1. an AMASS-layout directory (32 SMPLH clips of 1200 frames at 120 Hz,
+       one too short, one broken) through `convert_amass_dir` on the card
+       and on the CPU (32 motions at 30 fps; every field within 1e-5;
+       `get_motion_state` at 4096 random times within 1e-5 plus twice the
+       CPU's float32 gap to float64), the saved file read back on the card
+       into one amass_im epoch at the main path's sizes with K1 counted
+       (1,536 + 1,536);
+    2. `python -m vid2player3d_torch.data.tennis_motion` at its defaults (96
+       sequences x 6 cycles) as a process of its own, then `--cfg
+       mvae_federer --dataset_dir` on it in this process (1 epoch of 50
+       windows at full width) with K2 counted inside the epoch (3 prep + 3
+       GEMM per optimizer step) and in the rest of the call (the 120-step
+       random-walk report);
+    3. `tennis_motion_lib()` at its defaults on the card and on the CPU
+       (every field within 1e-5), saved, and `--cfg federer_im
+       --motion_file` on it at 4096 envs for one epoch;
+    4. a 24-joint FBX chain written as ASCII and as binary (zlib arrays),
+       both imported and equal, retargeted onto the humanoid tree and built
+       into a library on the card whose states are finite."""
+    import json
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.core import fbx as FBX
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.core.skeleton import retarget_motion_by_tpose
+    from vid2player3d_torch.data import amass as AM
+    from vid2player3d_torch.data import tennis_motion as TM
+    from vid2player3d_torch.data.motion_lib import MotionLib, get_motion_state
+    from vid2player3d_torch.mvae.train import MVAETrainer
+    from vid2player3d_torch.ops import moe_linear as MOE
+
+    D = os.path.join(REPO, "build", f"data_smoke_{os.getpid()}")
+    shutil.rmtree(D, ignore_errors=True)
+    os.makedirs(D)
+    out, steps_s = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        # 1. AMASS -> MotionLib -> one amass_im epoch with K1
+        amass = os.path.join(D, "amass")
+        t0 = time.perf_counter()
+        write_amass_fixture(amass)
+        steps_s["amass_fixture"] = time.perf_counter() - t0
+        smpl = S.make_synthetic_smpl()
+        lib_path = os.path.join(D, "amass_lib.npz")
+        t0 = time.perf_counter()
+        lib = AM.convert_amass_dir(amass, smpl_model=smpl, out_path=lib_path, device=dev)
+        torch.cuda.synchronize()
+        steps_s["amass_convert"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = AM.convert_amass_dir(amass, smpl_model=smpl, device="cpu")
+        steps_s["amass_convert_cpu"] = time.perf_counter() - t0
+        dts = lib.motion_dt.cpu().numpy()
+        if lib.num_motions != AMASS_CLIPS or not lib.gts.is_cuda \
+                or not np.all(dts == np.float32(1.0 / 30.0)) \
+                or not np.all(lib.motion_num_frames.cpu().numpy() == AMASS_FRAMES // 4):
+            fail(f"amass: {lib.num_motions} motions on {lib.device}, dt {sorted(set(dts))}")
+        out["amass_lib_max_abs_err"] = _libs_close("amass", lib, ref)
+        out["amass_state_err_bound"] = _states_close("amass", lib, ref)
+        lib = MotionLib.load(lib_path, device=dev)
+        _, _, rows, k1_launches, _, timing = _imitation_main(dev, "amass_im", 1, lib=lib)
+        steps_s["amass_im_epoch"] = timing["epoch_s"][0]
+        out.update(amass_im_k1_launches=k1_launches, amass_im_timing=timing,
+                   amass_im_metrics=rows[0], amass_frames=int(lib.gts.shape[0]))
+        del lib, ref
+
+        # 2. the generator's command line, then mvae_federer on its dataset
+        ds_dir = os.path.join(D, "tennis_ds")
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        gen = subprocess.run([sys.executable, "-m", "vid2player3d_torch.data.tennis_motion",
+                              ds_dir], cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=600)
+        steps_s["tennis_dataset_cli"] = time.perf_counter() - t0
+        if gen.returncode != 0 or "head_speed@contact" not in gen.stdout:
+            fail(f"tennis_motion: exit {gen.returncode}\n{gen.stdout[-2000:]}{gen.stderr[-2000:]}")
+        manifest = json.load(open(os.path.join(ds_dir, "manifest.json")))
+        out.update(tennis_dataset_videos=len(manifest),
+                   tennis_dataset_frames=int(np.load(os.path.join(ds_dir, "valid.npy")).shape[0]),
+                   tennis_dataset_report=gen.stdout.strip().splitlines()[-1].split("  ")[-1])
+        if len(manifest) != 96:
+            fail(f"tennis_motion: {len(manifest)} videos, expected 96")
+
+        epoch_k2, epoch_steps, epoch_s = [], [], []
+        orig = MVAETrainer.train_epoch
+
+        def counted(self, *a, **kw):
+            torch.cuda.synchronize()
+            c0 = (MOE.split_weights.launches, MOE.moe_linear.launches)
+            n0, t0 = int(self.opt_state.count), time.perf_counter()
+            res = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            epoch_steps.append(int(self.opt_state.count) - n0)
+            epoch_k2.append((MOE.split_weights.launches - c0[0], MOE.moe_linear.launches - c0[1]))
+            return res
+
+        MVAETrainer.train_epoch = counted
+        try:
+            MOE.moe_linear.launches = MOE.split_weights.launches = 0
+            text, steps_s["mvae_cli"] = _cli_call(["--cfg", "mvae_federer", "--dataset_dir",
+                                                   ds_dir, "--epochs", "1", "--mvae_batches",
+                                                   str(DATA_MVAE_BATCHES), "--out", D])
+            total = (MOE.split_weights.launches, MOE.moe_linear.launches)
+        finally:
+            MVAETrainer.train_epoch = orig
+        n = epoch_steps[0] if epoch_steps else 0
+        if epoch_k2 != [(3 * n, 3 * n)] or n != DATA_MVAE_BATCHES * _mvae_steps_per_window():
+            fail(f"data mvae: the epoch's {n} optimizer steps launched K2 {epoch_k2}")
+        rest = (total[0] - 3 * n, total[1] - 3 * n)
+        if rest != (3 * MVAE_REPORT_STEPS, 3 * MVAE_REPORT_STEPS):
+            fail(f"data mvae: {rest} launches outside the epoch (the random walk's "
+                 f"{MVAE_REPORT_STEPS} steps)")
+        row = json.loads(open(os.path.join(D, "metrics.jsonl")).readlines()[-1])
+        losses = {k: v for k, v in row.items() if k not in ("epoch", "wall_s")}
+        if not all(math.isfinite(v) for v in losses.values()):
+            fail(f"data mvae: non-finite losses {losses}")
+        if not os.path.exists(os.path.join(D, "mvae_federer", "latest.npz")):
+            fail("data mvae: no latest.npz")
+        if "dataset: " + ds_dir not in text or _json_block(text).get("finite") is not True:
+            fail("data mvae: not trained on the generated dataset, or a non-finite report")
+        out.update(mvae_optimizer_steps=n, mvae_epoch_k2=dict(prep=3 * n, gemm=3 * n),
+                   mvae_rest_k2=dict(prep=rest[0], gemm=rest[1]), mvae_epoch_s=epoch_s[0],
+                   mvae_ms_per_optimizer_step=epoch_s[0] / n * 1e3, mvae_losses=losses,
+                   mvae_report=_json_block(text))
+
+        # 3. the tennis motion library -> federer_im fine-tune
+        t0 = time.perf_counter()
+        tlib = TM.tennis_motion_lib(device=dev, out_path=os.path.join(D, "tennis_lib.npz"))
+        torch.cuda.synchronize()
+        steps_s["tennis_motion_lib"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tref = TM.tennis_motion_lib(device="cpu")
+        steps_s["tennis_motion_lib_cpu"] = time.perf_counter() - t0
+        nf = tlib.motion_num_frames.cpu().numpy()
+        if tlib.num_motions != 32 or not tlib.gts.is_cuda or np.any(nf % 128):
+            fail(f"tennis_motion_lib: {tlib.num_motions} motions, frames {nf}")
+        out["tennis_lib_max_abs_err"] = _libs_close("tennis_motion_lib", tlib, tref)
+        out["tennis_state_err_bound"] = _states_close("tennis_motion_lib", tlib, tref, seed=1)
+        out["tennis_lib_frames"] = int(nf.sum())
+        del tlib, tref
+        im_dir = os.path.join(D, "federer_im")
+        _, steps_s["federer_im_cli"] = _cli_call(
+            ["--cfg", "federer_im", "--motion_file", os.path.join(D, "tennis_lib.npz"),
+             "--num_envs", str(NUM_ENVS), "--epochs", "1", "--out", im_dir])
+        row = json.loads(open(os.path.join(im_dir, "metrics.jsonl")).readlines()[-1])
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad or not os.path.exists(os.path.join(im_dir, "best.npz")):
+            fail(f"data federer_im: non-finite {bad} or no best.npz")
+        out["federer_im_metrics"] = {k: row[k] for k in ("reward_mean", "alive_ratio", "kl")}
+
+        # 4. FBX: ASCII and binary, retargeted onto the humanoid tree
+        scene = _fbx_scene()
+        files = {"ascii": os.path.join(D, "chain.fbx"), "binary": os.path.join(D, "chain_bin.fbx")}
+        with open(files["ascii"], "w") as f:
+            f.write(fbx_ascii(scene))
+        with open(files["binary"], "wb") as f:
+            f.write(fbx_binary(scene))
+        t0 = time.perf_counter()
+        motions = {k: FBX.import_fbx_motion(p, fps=30.0) for k, p in files.items()}
+        steps_s["fbx_import_both"] = time.perf_counter() - t0
+        a, b = motions["ascii"], motions["binary"]
+        if a.tree.node_names != b.tree.node_names or len(a.tree.node_names) != 24 \
+                or not np.array_equal(a.local_rotation, b.local_rotation) \
+                or not np.array_equal(a.root_translation, b.root_translation) \
+                or a.num_frames != int(FBX_SECONDS * 30) + 1:
+            fail("fbx: the ASCII and binary imports differ")
+        target = AM.humanoid_skeleton_tree(smpl, np.zeros(10, np.float32))
+        t0 = time.perf_counter()
+        moved = retarget_motion_by_tpose(
+            a, np.tile([0.0, 0.0, 0.0, 1.0], (24, 1)), target, np.tile([0.0, 0.0, 0.0, 1.0], (24, 1)),
+            {n: n for n in a.tree.node_names}, np.array([np.sqrt(0.5), 0.0, 0.0, np.sqrt(0.5)]), 1.0)
+        steps_s["fbx_retarget"] = time.perf_counter() - t0
+        flib = AM.build_motion_lib([dict(
+            motion=moved, motion_body=np.zeros(11, np.float32), body_scale=1.0,
+            min_verts_h=float(moved.global_translation[..., 2].min()) - 0.05)], device=dev)
+        st = get_motion_state(flib, torch.zeros(64, dtype=torch.long, device=dev),
+                              torch.linspace(0, float(flib.motion_lengths[0]), 64, device=dev))
+        if not flib.gts.is_cuda or not all(bool(torch.isfinite(v).all()) for v in st.values()):
+            fail("fbx: the retargeted library's states are not finite on the card")
+        out.update(fbx_frames=a.num_frames, fbx_bytes={k: os.path.getsize(p)
+                                                       for k, p in files.items()})
+    finally:
+        shutil.rmtree(D, ignore_errors=True)
+    say("data", card=card, nvidia_smi=nvidia_smi(), amass_clips=AMASS_CLIPS,
+        amass_frames_per_clip=AMASS_FRAMES, amass_fps=AMASS_FPS, im_envs=NUM_ENVS,
+        steps_s=steps_s, phase_s=time.perf_counter() - t_phase, **out)
+    return {"k1": out["amass_im_k1_launches"],
+            "k2": {"moe_split_w": out["mvae_epoch_k2"]["prep"] + out["mvae_rest_k2"]["prep"],
+                   "moe_linear": out["mvae_epoch_k2"]["gemm"] + out["mvae_rest_k2"]["gemm"]}}
+
 
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "vid2player3d_torch")):
@@ -3108,6 +3545,7 @@ def main() -> None:
     _beside(started, dp_parity_phase, dev, card)
     dp_cli_phase(dev, card, started)
     dp_launches = dp_main_phase(dev, card)
+    data_launches = data_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
     # one dual step (~105 k device events, each step runs the serve and the
@@ -3117,10 +3555,12 @@ def main() -> None:
     b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
     k1_common = {"route": "cuda", "source": "vid2player3d_torch/csrc/fused_adam.cu",
                  "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
-    # K1 runs on three main paths (the imitation epochs, amass_im_dr's and
-    # amass_im_corrupt's); K2 and K3 on three (the stage-1 tennis epochs, the
-    # dual rally's and federer_train_stage_1_dr's), K2 also on the MotionVAE
-    # trainer's and K3 on the warm-started stage-2 steps. `launches` is K1's
+    # K1 runs on four main paths (the imitation epochs, amass_im_dr's,
+    # amass_im_corrupt's and amass_im's on the converted AMASS library); K2
+    # and K3 on three (the stage-1 tennis epochs, the dual rally's and
+    # federer_train_stage_1_dr's), K2 also on the MotionVAE trainer's (on the
+    # synthetic pose dataset and, through the command line, on the generated
+    # tennis dataset) and K3 on the warm-started stage-2 steps. `launches` is K1's
     # on the imitation path and K2's and K3's on the dual path, each path's
     # count beside it
     # under data parallelism every rank launches the one-process count for
@@ -3131,6 +3571,7 @@ def main() -> None:
     def k1_paths(kind):
         return {"launches_per_path": {
             "imitation": k1_launches[kind], "im_dr": k1_dr[kind], "im_ctx": k1_ctx[kind],
+            "data_amass_im": data_launches["k1"][kind],
             **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
@@ -3138,6 +3579,7 @@ def main() -> None:
                  "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name]}
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
+            paths["data_mvae"] = data_launches["k2"][name]
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
         key = {"moe_linear": "k2_gemm", "moe_split_w": "k2_prep", "fk_chain": "k3"}[name]

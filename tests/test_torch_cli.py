@@ -286,6 +286,49 @@ def test_cli_data_parallel_cpu(tmp_path, monkeypatch):
         np.testing.assert_array_equal(v, flat[k], err_msg=k)
 
 
+def test_cli_trains_on_generated_data(tmp_path):
+    """The data tools feed the CLI: `python -m vid2player3d_torch.data.
+    tennis_motion` writes a 2-sequence dataset that `--cfg mvae_federer
+    --dataset_dir` trains on for an epoch of 2 windows (finite losses, the
+    checkpoint and a finite random-walk report), and a `tennis_motion_lib`
+    file that `--cfg federer_im --motion_file` trains on at 8 envs (finite
+    metrics, best.npz). `--dataset_dir`'s help names the port's generator."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    from vid2player3d_torch.data.tennis_motion import tennis_motion_lib
+
+    help_ = {a.dest: a.help for a in R.build_parser()._actions}["dataset_dir"]
+    assert "python -m vid2player3d_torch.data.tennis_motion" in help_
+    ds = str(tmp_path / "ds")
+    gen = subprocess.run([sys.executable, "-m", "vid2player3d_torch.data.tennis_motion", ds,
+                          "--num_sequences", "2", "--cycles_per_seq", "2"], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                         timeout=300)
+    assert gen.returncode == 0 and "head_speed@contact" in gen.stdout, gen.stderr
+    out = str(tmp_path / "out")
+    buf = StringIO()
+    with redirect_stdout(buf):
+        assert R.main(["--cfg", "mvae_federer", "--dataset_dir", ds, "--epochs", "1",
+                       "--mvae_batches", "2", "--out", out] + CPU) == 0
+    text = buf.getvalue()
+    assert f"dataset: {ds} (" in text and json.loads(text[text.index("{"):])["finite"]
+    row = json.loads(open(os.path.join(out, "metrics.jsonl")).readline())
+    assert all(np.isfinite(row[k]) for k in ("recon", "kl", "recon_phase"))
+    assert os.path.exists(os.path.join(out, "mvae_federer", "latest.npz"))
+
+    lib = str(tmp_path / "tennis_lib.npz")
+    tennis_motion_lib(num_sequences=2, out_path=lib, device="cpu")
+    im = os.path.join(out, "federer_im")
+    with redirect_stdout(StringIO()):
+        assert R.main(["--cfg", "federer_im", "--motion_file", lib, "--num_envs", "8",
+                       "--horizon", "4", "--minibatch_size", "16", "--epochs", "1",
+                       "--out", im] + CPU) == 0
+    row = json.loads(open(os.path.join(im, "metrics.jsonl")).readline())
+    assert all(np.isfinite(v) for v in row.values()) and row["reward_mean"] > 0.0
+    assert os.path.exists(os.path.join(im, "best.npz"))
+
+
 def test_cli_raises(tmp_path):
     """`--n_devices` below 1 raises; with no card and no `--device` the CLI
     raises instead of running on the CPU, `--n_devices` included (its ranks

@@ -682,3 +682,33 @@ def test_native_pool_moves_to_the_card(cuda):
     assert torch.equal(nat.launch_vel[i], tor.launch_vel[j])
     assert torch.equal(nat.launch_vspin[i], tor.launch_vspin[j])
     assert float((nat.traj_pool[i] - tor.traj_pool[j]).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("tool", ["convert_amass_dir", "tennis_motion_lib"])
+def test_data_tools_build_libraries_on_the_card(cuda, tool, tmp_path):
+    """`convert_amass_dir` (4 SMPLH clips of `chip_smoke.py`'s AMASS layout,
+    one short clip and one broken file) and `tennis_motion_lib` (2 rallies)
+    called without `device`: the library on the card, every field equal to
+    the one built on the CPU within 1e-5 (the conversion runs on the host;
+    only the upload and the card's arithmetic after it differ)."""
+    import dataclasses
+
+    import chip_smoke as CS
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.data import amass as AM
+    from vid2player3d_torch.data import tennis_motion as TM
+
+    if tool == "convert_amass_dir":
+        d = str(tmp_path / "amass")
+        CS.write_amass_fixture(d, n=4, T=240)
+        lib = AM.convert_amass_dir(d, smpl_model=S.make_synthetic_smpl())
+        ref = AM.convert_amass_dir(d, smpl_model=S.make_synthetic_smpl(), device="cpu")
+        assert ref.num_motions == 4
+    else:
+        lib = TM.tennis_motion_lib(num_sequences=2)
+        ref = TM.tennis_motion_lib(num_sequences=2, device="cpu")
+    assert lib.device.type == "cuda"
+    for f in dataclasses.fields(lib):
+        a, b = getattr(lib, f.name), getattr(ref, f.name)
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, f.name
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0, msg=f.name)

@@ -53,7 +53,10 @@ new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
        "vid2player3d_torch.tennis.pool",
        # slice 7: data parallelism over torch.distributed
        "vid2player3d_torch.parallel", "vid2player3d_torch.parallel.mesh",
-       "vid2player3d_torch.parallel.dryrun"}
+       "vid2player3d_torch.parallel.dryrun",
+       # slice 8: the host-side data tools
+       "vid2player3d_torch.physics.spatial", "vid2player3d_torch.core.fbx",
+       "vid2player3d_torch.data.tennis_motion", "vid2player3d_torch.data.amass"}
 assert new <= set(names), new - set(names)
 """
 
@@ -67,7 +70,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 29, out.stdout
+    assert n_modules >= 32, out.stdout
 
 
 def test_entry_points_need_a_device_without_cuda():
@@ -127,6 +130,25 @@ def test_slice5_entry_points_need_a_device_without_cuda(tmp_path):
         build_motion_lib([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MotionLib.from_motions([])
+
+
+def test_slice8_entry_points_need_a_device_without_cuda(tmp_path):
+    """With no CUDA device, the data tools that return a MotionLib
+    (`convert_amass_dir`, `tennis_motion_lib`) raise before any work unless
+    given device="cpu"; the host-side tools (the FBX importer, the
+    generator, the SMPL loaders) take no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points default to it")
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.data.amass import convert_amass_dir
+    from vid2player3d_torch.data.tennis_motion import tennis_motion_lib
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_amass_dir(str(tmp_path), smpl_model=S.make_synthetic_smpl())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tennis_motion_lib(num_sequences=1)
+    assert S.find_smpl_model(str(tmp_path)).num_verts == 384
+    assert tennis_motion_lib(num_sequences=1, cycles_per_seq=1, device="cpu").num_motions == 1
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"use_context_ik": True},

@@ -74,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_dir", default=None,
                    help="mvae configs: train on a video-format dataset "
                         "(manifest.json + npy) instead of the synthetic "
-                        "fixture")
+                        "fixture; generate one with "
+                        "`python -m vid2player3d_torch.data.tennis_motion`")
     p.add_argument("--pre_run", action="store_true",
                    help="mvae configs: 5-epoch smoke train + random-walk "
                         "rollout metrics")

@@ -1,9 +1,10 @@
 """SMPL body model as linear blend skinning (PyTorch).
 
 Counterpart of ``vid2player3d_tpu/core/smpl.py``: the joint tables, the
-deterministic synthetic body that tests and data-free machines use, and the
-LBS forward (betas → shaped template → joint regression → posing) that the
-asset compiler calls. The tables are declared here again, not imported.
+loader of the standard SMPL pkl, the deterministic synthetic body that tests
+and data-free machines use, and the LBS forward (betas → shaped template →
+joint regression → posing) that the asset compiler calls. The tables are
+declared here again, not imported.
 
 Joint order is SMPL bone order; quats xyzw; pose is 24×3 axis-angle (72-dim).
 """
@@ -11,6 +12,8 @@ Joint order is SMPL bone order; quats xyzw; pose is 24×3 axis-angle (72-dim).
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -69,6 +72,29 @@ class SMPLModel:
     @property
     def num_verts(self):
         return self.v_template.shape[0]
+
+
+def load_smpl_pkl(path: str) -> SMPLModel:
+    """Load a standard SMPL pkl (basicmodel_*.pkl) into float32 tensors:
+    scipy sparse leaves are densified, the first 10 shape directions kept."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+
+    def dense(x):
+        if hasattr(x, "todense"):
+            x = np.asarray(x.todense())
+        return np.asarray(x, dtype=np.float32)
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    return SMPLModel(
+        v_template=tensor(dense(data["v_template"])),
+        shapedirs=tensor(dense(data["shapedirs"])[..., :10]),
+        J_regressor=tensor(dense(data["J_regressor"])),
+        lbs_weights=tensor(dense(data["weights"])),
+        posedirs=tensor(dense(data["posedirs"])) if "posedirs" in data else None,
+    )
 
 
 def make_synthetic_smpl(num_verts: int = 384, seed: int = 0) -> SMPLModel:
@@ -140,6 +166,21 @@ def make_synthetic_smpl(num_verts: int = 384, seed: int = 0) -> SMPLModel:
         lbs_weights=torch.from_numpy(lbs_weights),
         posedirs=None,
     )
+
+
+def find_smpl_model(data_dir: str = "data/smpl", gender: str = "neutral") -> SMPLModel:
+    """Load real SMPL weights if present, else the synthetic body."""
+    names = {
+        "neutral": ["SMPL_NEUTRAL.pkl", "basicmodel_neutral_lbs_10_207_0_v1.1.0.pkl",
+                    "basicModel_neutral_lbs_10_207_0_v1.0.0.pkl"],
+        "male": ["SMPL_MALE.pkl", "basicmodel_m_lbs_10_207_0_v1.1.0.pkl"],
+        "female": ["SMPL_FEMALE.pkl", "basicmodel_f_lbs_10_207_0_v1.1.0.pkl"],
+    }[gender]
+    for n in names:
+        p = os.path.join(data_dir, n)
+        if os.path.exists(p):
+            return load_smpl_pkl(p)
+    return make_synthetic_smpl()
 
 
 # ---------------------------------------------------------------------------
