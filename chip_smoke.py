@@ -185,12 +185,24 @@ Phases, each printing one line (any failed phase exits non-zero):
               FBX chain written as ASCII and as binary, both imported and
               equal, retargeted onto the humanoid tree into a library on the
               card with finite states; each step's seconds
-  26. profile torch.profiler over a short imitation epoch, a short tennis
+  26. physics the engine's public API: `substep` on the card against the CPU on
+              the 6-env humanoid case (self-collision on; a free base with
+              root wrenches, a fixed base, extra wrenches; 1 and 4 substeps)
+              to 5e-6 (positions, quaternions) and 2e-4 (velocities); the
+              five physical properties of tests/test_physics.py with its
+              thresholds on every one of 4096 envs (free fall, momentum, the
+              fixed-base pendulum's period on the two-body model; the
+              humanoid's drop-and-stand and self-collision deflection);
+              each run's step replayed from a CUDA graph; `substep`'s and
+              `control_step(substeps=4)`'s ms per call at 4096 envs, with
+              self-collision off and on, eager (synchronized host clock) and
+              as a graph replay (CUDA events)
+  27. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and one dual step: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  27. kernels one JSON line over the ported kernels, each kernel's launches
+  28. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -201,6 +213,7 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -656,7 +669,7 @@ def _k2_times(dev, card: str, batch: int, gen, layers=None):
     """One decode's three layers at `batch` rows (`layers`, else fresh
     inputs): the kernels, their plain versions and the cuBLAS yardstick,
     eager and as graphs, beside the bounds."""
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     if layers is None:
         layers = [_moe_layer_inputs(dev, batch, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
@@ -727,7 +740,7 @@ def _k2_backward_err(MOE, leaves, g):
 def k2_phase(dev, card: str):
     import torch
 
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     gen = torch.Generator(device=dev).manual_seed(3)
     # 3xTF32 keeps f32-grade products; the tensor cores' f32 sums and the
@@ -1041,7 +1054,7 @@ def tennis_main_phase(dev, card: str):
     from vid2player3d_torch.learn import V2PConfig, V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
     env_cfg = TennisConfig(num_envs=TENNIS_ENVS, substeps=2, max_episode_length=600,
@@ -1170,7 +1183,7 @@ def dual_parity_phase(dev):
     from vid2player3d_torch.envs import TennisConfig
     from vid2player3d_torch.learn import V2PConfig, V2PPPO
     from vid2player3d_torch.ops import fk as FK
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
     from vid2player3d_torch.tennis.ball import TennisBallGenerator
 
     n, t, mb, me = 8, 4, 8, 2
@@ -1222,7 +1235,7 @@ def dual_main_phase(dev, card: str):
     from vid2player3d_torch.learn import V2PConfig, V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
     # federer_train_stage_3's env with the dual changes of nadal_federer
@@ -1668,7 +1681,7 @@ def tennis_dr_main_phase(dev, card: str):
     from vid2player3d_torch.learn import V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
     env_cfg, v2p_cfg = preset("federer_train_stage_1_dr")
@@ -1945,7 +1958,7 @@ def _k2_b100(dev, card: str, gen):
     yardstick, and the backward (the plain `_moe_bwd`)."""
     import torch
 
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     tol = 1e-4
     layers = [_moe_layer_inputs(dev, MVAE_BATCH, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
@@ -1987,7 +2000,7 @@ def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
     from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
     from vid2player3d_torch.mvae.eval import report_for_trainer
     from vid2player3d_torch.ops import fk as FK
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
     from vid2player3d_torch.tennis import player as P
 
     t0 = time.perf_counter()
@@ -2269,7 +2282,7 @@ def cli_phase(dev, card: str):
     from vid2player3d_torch.learn import V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
     from vid2player3d_torch.tennis import pool as POOL
     from vid2player3d_torch.tennis.ball import TennisBallGenerator
 
@@ -2465,7 +2478,7 @@ DP_KERNELS = ("k1_update", "k1_norm", "k2_prep", "k2_gemm", "k3")
 def _kernel_counts() -> dict:
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     return {"k1_update": FA.leaf_update.launches, "k1_norm": FA.global_norm_scalars.launches,
             "k2_prep": MOE.split_weights.launches, "k2_gemm": MOE.moe_linear.launches,
@@ -2475,7 +2488,7 @@ def _kernel_counts() -> dict:
 def _zero_kernel_counts() -> None:
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
     MOE.split_weights.launches = MOE.moe_linear.launches = FK.fk_chain.launches = 0
@@ -2536,7 +2549,7 @@ class _KernelRecorder:
 
         from vid2player3d_torch.ops import fk as FK
         from vid2player3d_torch.ops import fused_adam as FA
-        from vid2player3d_torch.ops import moe_linear as MOE
+        MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
         errs = {}
         if "k1" in self.last:
@@ -3332,7 +3345,7 @@ def data_phase(dev, card: str):
     from vid2player3d_torch.data import tennis_motion as TM
     from vid2player3d_torch.data.motion_lib import MotionLib, get_motion_state
     from vid2player3d_torch.mvae.train import MVAETrainer
-    from vid2player3d_torch.ops import moe_linear as MOE
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     D = os.path.join(REPO, "build", f"data_smoke_{os.getpid()}")
     shutil.rmtree(D, ignore_errors=True)
@@ -3494,6 +3507,184 @@ def data_phase(dev, card: str):
                    "moe_linear": out["mvae_epoch_k2"]["gemm"] + out["mvae_rest_k2"]["gemm"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the engine's public API and its physical properties
+# ---------------------------------------------------------------------------
+
+PHYS_ENVS = 4096            # the imitation path's env count
+PHYS_PARITY_ENVS = 6        # tests/test_torch_physics.py's humanoid case
+PHYS_MODES = ("free_root_wrench", "fixed_base", "extra_wrench")
+PHYS_TIMED = 10
+# the CPU parity tests' bounds: positions and quaternions, velocities
+PHYS_POS_ATOL, PHYS_VEL_ATOL = 5e-6, 2e-4
+
+
+def _physics_case(d):
+    """tests/test_torch_physics.py's humanoid case on `d` (6 envs, self-
+    collision on), built by the port from the same seeds: the model, the
+    state, the PD targets, the root wrenches and test_torch_physics_api.py's
+    extra wrenches."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.core import quat as Q
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.physics.asset import build_humanoid_model
+    from vid2player3d_torch.physics.model import ArticulationState
+
+    n = PHYS_PARITY_ENVS
+    rng = np.random.RandomState(0)
+    betas = (rng.randn(n, 10) * 0.5).astype(np.float32)
+    model = build_humanoid_model(S.make_synthetic_smpl(), betas, self_collision=True, device=d)
+    aa = torch.tensor((rng.randn(n, 23, 3) * 0.3).astype(np.float32))
+    root_q = np.tile([0.5, 0.5, 0.5, 0.5], (n, 1)) + rng.randn(n, 4) * 0.05
+    host = dict(
+        root_pos=torch.tensor((np.array([0.0, 0.0, 0.93]) + rng.randn(n, 3) * 0.02)
+                              .astype(np.float32)),
+        root_quat=Q.quat_normalize(torch.tensor(root_q, dtype=torch.float32)),
+        root_vel=torch.tensor((rng.randn(n, 6) * 0.3).astype(np.float32)),
+        joint_quat=Q.exp_map_to_quat(aa),
+        joint_omega=torch.tensor((rng.randn(n, 23, 3) * 0.5).astype(np.float32)))
+    pd = aa.reshape(n, -1) + torch.tensor((rng.randn(n, 69) * 0.2).astype(np.float32))
+    rf = torch.tensor((rng.randn(n, 3) * 20).astype(np.float32))
+    rt = torch.tensor((rng.randn(n, 3) * 20).astype(np.float32))
+    rng = np.random.RandomState(2)
+    ef = torch.tensor((rng.randn(n, 24, 3) * 10).astype(np.float32))
+    et = torch.tensor((rng.randn(n, 24, 3) * 2).astype(np.float32))
+    state = ArticulationState(**{k: v.to(d) for k, v in host.items()})
+    return model, state, {k: v.to(d) for k, v in
+                          dict(pd=pd, rf=rf, rt=rt, ef=ef, et=et).items()}
+
+
+def _physics_parity(dev) -> dict:
+    """`substep` on the card against the CPU on the humanoid case: a free
+    base with root wrenches, a fixed base, extra wrenches; 1 and 4
+    substeps. Returns each case's largest position/quaternion and velocity
+    errors."""
+    from vid2player3d_torch.physics import engine
+
+    cases = {str(d): _physics_case(d) for d in ("cpu", dev)}
+    errs = {}
+    for mode in PHYS_MODES:
+        root, extra = mode != "extra_wrench", mode == "extra_wrench"
+        states = {}
+        for d, (model, state, x) in cases.items():
+            for i in range(4):
+                state = engine.substep(
+                    model, state, x["pd"], x["rf"] if root else None, x["rt"] if root else None,
+                    extra_force_w=x["ef"] if extra else None,
+                    extra_torque_w=x["et"] if extra else None, fixed_base=mode == "fixed_base")
+                states[(d, i + 1)] = state
+        for k in (1, 4):
+            ref, got = states[("cpu", k)], states[(str(dev), k)]
+            pos = max(float((getattr(got, f).cpu() - getattr(ref, f)).abs().max())
+                      for f in ("root_pos", "root_quat", "joint_quat"))
+            vel = max(float((getattr(got, f).cpu() - getattr(ref, f)).abs().max())
+                      for f in ("root_vel", "joint_omega"))
+            errs[f"{mode}_{k}"] = {"pos_quat": pos, "vel": vel}
+            if not (pos <= PHYS_POS_ATOL and vel <= PHYS_VEL_ATOL):
+                fail(f"physics: substep {mode} x{k} on the card differs from the CPU's by "
+                     f"{pos} (positions, quaternions; {PHYS_POS_ATOL}) and {vel} "
+                     f"(velocities; {PHYS_VEL_ATOL})")
+    return errs
+
+
+def _per_call_ms(fn, iters: int = PHYS_TIMED) -> float:
+    """Wall ms per call of `fn` on a synchronized host clock, after one
+    warm-up call."""
+    fn()
+    _, seconds = _timed(lambda: [fn() for _ in range(iters)])
+    return seconds / iters * 1e3
+
+
+def physics_phase(dev, card: str) -> None:
+    """The engine's public API on the card: `substep` held to the CPU on the
+    humanoid case (a free base with root wrenches, a fixed base, extra
+    wrenches; 1 and 4 substeps), then the five physical properties of
+    tests/test_physics.py with its thresholds on every one of 4096 envs
+    (free fall, momentum and the fixed-base pendulum on the two-body model;
+    the drop-and-stand, 120 + 480 substeps at 1/240 s, and the self-
+    collision deflection, 40 control steps of 4 substeps with collision off
+    and on, on the synthetic-SMPL humanoid; each run's step replayed from a
+    CUDA graph, `probes._Loop`), and `substep`'s and
+    `control_step(substeps=4)`'s ms per call at 4096 envs: eager on a
+    synchronized host clock, and as a graph replay on CUDA events."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.physics import asset, engine, probes
+
+    t_phase, secs, props = time.perf_counter(), {}, {}
+    parity = _physics_parity(dev)
+    secs["parity"] = time.perf_counter() - t_phase
+
+    def run(name, fn):
+        out, secs[name] = _timed(lambda: fn(PHYS_ENVS, dev))
+        return out
+
+    r = run("free_fall", probes.free_fall)
+    rel = {k: float((r[k].double() - r[f"{k}_expected"]).abs().max()) / abs(r[f"{k}_expected"])
+           for k in ("dz", "vz")}
+    props["free_fall_max_rel_err"] = rel
+    if not max(rel.values()) <= 1e-3:
+        fail(f"physics: free fall off semi-implicit Euler's closed form by {rel} (1e-3)")
+
+    r = run("momentum", probes.momentum)
+    err = (r["p1"] - r["expected"]).abs() - 1e-7 * r["expected"].abs()
+    props["momentum_max_abs_err"] = float(err.max())
+    if not float(err.max()) <= 0.12:
+        fail(f"physics: momentum drifts by {float(err.max())} (0.12)")
+
+    r = run("pendulum", probes.pendulum)
+    angles = r["angles"].cpu().numpy()
+    full = np.abs(angles[-1] - r["theta0"]).max()
+    half = np.abs(angles[r["steps"] // 2] + r["theta0"]).max()
+    props["pendulum"] = {"substeps": r["steps"], "period_err": float(full),
+                         "half_period_err": float(half)}
+    if not (full < 0.02 and half < 0.02):
+        fail(f"physics: pendulum off its period by {full} and {half} at half (0.02)")
+
+    r = run("drop_and_stand", probes.drop_and_stand)
+    st = r["state"]
+    finite = all(bool(torch.isfinite(getattr(st, f)).all()) for f in
+                 ("root_pos", "root_quat", "root_vel", "joint_quat", "joint_omega"))
+    z_stand, z = r["root_pos_stand"][:, 2], st.root_pos[:, 2]
+    vel = float(st.root_vel.abs().max())
+    props["drop_and_stand"] = {"min_z_at_0_5s": float(z_stand.min()), "min_z": float(z.min()),
+                               "max_z": float(z.max()), "max_abs_root_vel": vel}
+    if not (finite and bool((z_stand > 0.8).all()) and bool((z > 0.02).all())
+            and bool((z < 1.2).all()) and vel < 0.5):
+        fail(f"physics: drop-and-stand {props['drop_and_stand']}, finite {finite}")
+
+    r = run("self_collision", probes.self_collision_deflection)
+    pen_off, pen_on = r["pen_off"], r["pen_on"]
+    props["self_collision"] = {"min_pen_off": float(pen_off.min()),
+                               "max_pen_on": float(pen_on.max()),
+                               "min_deflection": float((pen_off - pen_on).min())}
+    if not (bool(r["finite"]) and bool((pen_off > 0.05).all())
+            and bool((pen_on < pen_off - 0.04).all())):
+        fail(f"physics: self-collision {props['self_collision']}, finite {bool(r['finite'])}")
+
+    ms = {}
+    body = S.make_synthetic_smpl()
+    for sc in (False, True):
+        model = asset.build_humanoid_model(body, np.zeros((PHYS_ENVS, 10), np.float32),
+                                           self_collision=sc, device=dev)
+        state = asset.default_humanoid_state(model, PHYS_ENVS)
+        pd = torch.zeros((PHYS_ENVS, model.num_dof), device=dev)
+        key = "self_collision" if sc else "no_self_collision"
+        step = (lambda: engine.substep(model, state, pd),
+                lambda: engine.control_step(model, state, pd, substeps=4))
+        ms[key] = {"substep": _per_call_ms(step[0]), "control_step_4": _per_call_ms(step[1]),
+                   "substep_graph": _graph_ms(step[0], PHYS_TIMED),
+                   "control_step_4_graph": _graph_ms(step[1], PHYS_TIMED)}
+    say("physics", card=card, nvidia_smi=nvidia_smi(), envs=PHYS_ENVS,
+        parity_envs=PHYS_PARITY_ENVS, parity_max_abs_err=parity,
+        parity_atol={"pos_quat": PHYS_POS_ATOL, "vel": PHYS_VEL_ATOL}, properties=props,
+        ms_per_call=ms, steps_s=secs, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "vid2player3d_torch")):
         fail(f"no vid2player3d_torch package beside {__file__}")
@@ -3546,6 +3737,7 @@ def main() -> None:
     dp_cli_phase(dev, card, started)
     dp_launches = dp_main_phase(dev, card)
     data_launches = data_phase(dev, card)
+    physics_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
     # one dual step (~105 k device events, each step runs the serve and the

@@ -10,12 +10,16 @@ so it also runs on a machine that has only the port's requirements:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
 
+import importlib
+
 import pytest
 import torch
 
 from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
-from vid2player3d_torch.ops import moe_linear as MOE
+
+# the K2 module (the package binds the function `moe_linear` over its name)
+MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
 pytestmark = pytest.mark.gpu
 

@@ -21,6 +21,7 @@ over the SMs.
 Inputs are made from a seed with numpy and handed to both packages.
 """
 
+import importlib
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -33,7 +34,9 @@ from vid2player3d_tpu.ops.fused_adam import fused_clip_adam_apply as j_fused
 from vid2player3d_tpu.ops.moe_linear import moe_linear_ref as j_moe_ref
 from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
-from vid2player3d_torch.ops import moe_linear as MOE
+
+# the K2 module (the package binds the function `moe_linear` over its name)
+MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
 torch.set_num_threads(1)
 

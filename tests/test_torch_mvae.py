@@ -8,6 +8,7 @@ All f32 on the CPU (where the port's wrappers take their plain versions),
 inputs made with numpy from a seed.
 """
 
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +27,11 @@ from vid2player3d_tpu.utils.checkpoint import _flatten
 from vid2player3d_torch.mvae.config import MVAEOption
 from vid2player3d_torch.mvae.model import PoseMixtureVAE
 from vid2player3d_torch.ops import fk as FK
-from vid2player3d_torch.ops import moe_linear as MOE
 from vid2player3d_torch.physics.asset import mujoco_parents
 from vid2player3d_torch.utils.checkpoint import mvae_params_from_jax
+
+# the K2 module (the package binds the function `moe_linear` over its name)
+MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
 torch.set_num_threads(1)
 

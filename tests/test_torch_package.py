@@ -4,9 +4,12 @@ moe_linear, K3 fk_chain) take their plain versions only for CPU tensors (a
 CUDA tensor launches the kernel or raises).
 """
 
+import ast
+import importlib
 import os
 import subprocess
 import sys
+import types
 
 import jax  # noqa: F401  (the test process holds both frameworks; the port must not)
 import numpy as np
@@ -20,9 +23,11 @@ from vid2player3d_torch.envs import (DualTennisEnv, HumanoidImConfig, HumanoidIm
 from vid2player3d_torch.learn import FrozenImitator, ImitationPPO, PPOConfig, V2PConfig, V2PPPO
 from vid2player3d_torch.ops import fk as FK
 from vid2player3d_torch.ops import fused_adam as FA
-from vid2player3d_torch.ops import moe_linear as MOE
 from vid2player3d_torch.tennis import player as P
 from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+# the K2 module (the package binds the function `moe_linear` over its name)
+MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
 torch.set_num_threads(1)
 
@@ -56,7 +61,9 @@ new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
        "vid2player3d_torch.parallel.dryrun",
        # slice 8: the host-side data tools
        "vid2player3d_torch.physics.spatial", "vid2player3d_torch.core.fbx",
-       "vid2player3d_torch.data.tennis_motion", "vid2player3d_torch.data.amass"}
+       "vid2player3d_torch.data.tennis_motion", "vid2player3d_torch.data.amass",
+       # slice 9: the engine's golden-physics probes
+       "vid2player3d_torch.physics.probes"}
 assert new <= set(names), new - set(names)
 """
 
@@ -71,6 +78,108 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 32, out.stdout
+
+
+SUBPACKAGES = ("cli", "core", "data", "envs", "learn", "mvae", "native", "ops", "parallel",
+               "physics", "tennis", "utils", "vis")
+
+
+def _init_names(pkg) -> set:
+    """The names a package's `__init__.py` binds: its imports and `__all__`."""
+    tree = ast.parse(open(pkg.__file__).read())
+    names = set(getattr(pkg, "__all__", ()))
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return names - {"annotations"}
+
+
+def _kind(obj) -> str:
+    if isinstance(obj, types.ModuleType):
+        return "module"
+    if isinstance(obj, type):
+        return "class"
+    if callable(obj):
+        return "function"
+    return type(obj).__name__
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_match_jax(sub):
+    """Every name the JAX subpackage's `__init__` binds resolves in the
+    port's subpackage to an object of the same kind (module, class,
+    function, or a value of the same type), and the port's `__all__`, where
+    JAX has one, holds JAX's."""
+    jpkg = importlib.import_module(f"vid2player3d_tpu.{sub}")
+    tpkg = importlib.import_module(f"vid2player3d_torch.{sub}")
+    names = _init_names(jpkg)
+    assert names
+    for name in sorted(names):
+        assert hasattr(tpkg, name), f"vid2player3d_torch.{sub} lacks {name}"
+        assert _kind(getattr(tpkg, name)) == _kind(getattr(jpkg, name)), name
+    if hasattr(jpkg, "__all__"):
+        assert set(jpkg.__all__) <= set(tpkg.__all__), set(jpkg.__all__) - set(tpkg.__all__)
+
+
+def test_ops_binds_the_moe_linear_function():
+    """`vid2player3d_torch.ops.moe_linear` is the K2 function, as in JAX,
+    and matches `moe_linear_ref` on a small CPU case (f32 rounding, 1e-5);
+    importing `ops` builds and loads no kernel."""
+    import vid2player3d_torch.ops as ops
+
+    assert callable(ops.moe_linear) and ops.moe_linear is MOE.moe_linear
+    assert ops.moe_linear_ref is MOE.moe_linear_ref
+    probe = ("import importlib, vid2player3d_torch.ops; "
+             "m = importlib.import_module('vid2player3d_torch.ops.moe_linear'); "
+             "print(m._lib.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0 and out.stdout.split() == ["0"], out.stdout + out.stderr
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(5, 12).astype(np.float32))
+    coeff = torch.softmax(torch.tensor(rng.randn(5, 3).astype(np.float32)), dim=-1)
+    w = torch.tensor(rng.randn(3, 12, 7).astype(np.float32))
+    b = torch.tensor(rng.randn(3, 7).astype(np.float32))
+    torch.testing.assert_close(ops.moe_linear(x, coeff, w, b), ops.moe_linear_ref(x, coeff, w, b),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_build_humanoid_model_positional_gender():
+    """A call written for JAX, `build_humanoid_model(body, betas, gender)`,
+    builds the JAX model's arrays (1e-6, as the asset test) and ignores the
+    gender, as JAX does."""
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.physics.asset import build_humanoid_model
+    from vid2player3d_tpu.core import smpl as JS
+    from vid2player3d_tpu.physics.asset import build_humanoid_model as j_build
+
+    betas = (np.random.RandomState(3).randn(3, 10) * 0.5).astype(np.float32)
+    gender = np.array([0, 1, 2])
+    jm = j_build(JS.make_synthetic_smpl(), betas, gender)
+    tm = build_humanoid_model(S.make_synthetic_smpl(), betas, gender, device="cpu")
+    plain = build_humanoid_model(S.make_synthetic_smpl(), betas, device="cpu")
+    for f in ("joint_pos", "body_com", "body_mass", "body_inertia", "kp", "kd", "torque_lim",
+              "armature", "contact_offset", "contact_radius"):
+        np.testing.assert_allclose(getattr(tm, f).numpy(), np.asarray(getattr(jm, f)),
+                                   atol=1e-6, rtol=1e-6, err_msg=f)
+        assert torch.equal(getattr(tm, f), getattr(plain, f)), f
+
+
+def test_build_library_force_rebuilds():
+    """`build_library(force=True)` compiles again over a current library:
+    its modification time moves, and the rebuilt library loads."""
+    import shutil
+
+    from vid2player3d_torch.native import ballsim
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++")
+    path = ballsim.build_library()
+    before = os.stat(path).st_mtime_ns
+    assert ballsim.build_library() == path and os.stat(path).st_mtime_ns == before
+    assert ballsim.build_library(force=True) == path
+    assert os.stat(path).st_mtime_ns > before
+    assert ballsim.native_available() and ballsim.build_error is None
 
 
 def test_entry_points_need_a_device_without_cuda():
@@ -130,6 +239,28 @@ def test_slice5_entry_points_need_a_device_without_cuda(tmp_path):
         build_motion_lib([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MotionLib.from_motions([])
+
+
+def test_slice9_entry_points_need_a_device_without_cuda():
+    """With no CUDA device, `ArticulationState.zeros` without `device`
+    raises; `default_humanoid_state` follows its model's device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points default to it")
+    from vid2player3d_torch.core import smpl as S
+    from vid2player3d_torch.physics.asset import build_humanoid_model, default_humanoid_state
+    from vid2player3d_torch.physics.model import ArticulationState
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ArticulationState.zeros(2, 24)
+    assert ArticulationState.zeros(2, 24, device="cpu").root_pos.device.type == "cpu"
+    model = build_humanoid_model(S.make_synthetic_smpl(), np.zeros((2, 10), np.float32),
+                                 device="cpu")
+    st = default_humanoid_state(model, 2)
+    assert all(getattr(st, f).device == model.device for f in
+               ("root_pos", "root_quat", "root_vel", "joint_quat", "joint_omega"))
+    meta = build_humanoid_model(S.make_synthetic_smpl(), np.zeros((2, 10), np.float32),
+                                device="meta")
+    assert default_humanoid_state(meta, 2).root_quat.device.type == "meta"
 
 
 def test_slice8_entry_points_need_a_device_without_cuda(tmp_path):

@@ -1,0 +1,1 @@
+from . import quat, rot  # noqa: F401

@@ -2,4 +2,4 @@
 trajectory pool's `backend="native"`, compiled at first use with the local
 toolchain and bound with ctypes."""
 
-from .ballsim import build_library, simulate_flight_native  # noqa: F401
+from .ballsim import build_library, native_available, simulate_flight_native  # noqa: F401

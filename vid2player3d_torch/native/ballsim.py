@@ -8,7 +8,8 @@ one ball per OpenMP iteration. The trajectory pool generator's
 The library is compiled with ``g++`` at first use into ``build/native/``
 beside the package (a library newer than its source is reused). There is no
 fallback: when the compiler or the loader fails, `build_library` and
-`simulate_flight_native` raise with the compiler's message.
+`simulate_flight_native` raise with the compiler's message, and
+`native_available()` answers False.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ CXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# why the last `native_available()` found no library (None when it did)
+build_error: Optional[str] = None
 
 
 class _CParams(ctypes.Structure):
@@ -39,12 +42,14 @@ class _CParams(ctypes.Structure):
                  "restitution", "friction", "spin_scale", "net_height")]
 
 
-def build_library() -> str:
+def build_library(force: bool = False) -> str:
     """Compile ``native/ballsim.cpp`` into ``build/native/libballsim.so``
-    unless a library newer than the source is there; returns its path.
-    Raises RuntimeError with the compiler's output when g++ fails."""
+    unless a library newer than the source is there (`force` rebuilds it
+    anyway); returns its path. Raises RuntimeError with the compiler's
+    output when g++ fails."""
     LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+    if (not force and LIBRARY.exists()
+            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
         return str(LIBRARY)
     # build beside the target and rename: processes building at once never
     # load a half-written library
@@ -80,6 +85,20 @@ def _load() -> ctypes.CDLL:
         lib.ballsim_version.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads here. A query, not a switch:
+    on False the reason is kept in `build_error`, and `backend="native"`
+    still raises."""
+    global build_error
+    try:
+        _load()
+    except RuntimeError as e:
+        build_error = str(e)
+        return False
+    build_error = None
+    return True
 
 
 class NativeFlightResult(NamedTuple):

@@ -18,7 +18,7 @@ import torch
 
 from ..core import smpl as S
 from ..utils.runtime import resolve_device
-from .model import ArticulationModel
+from .model import ArticulationModel, ArticulationState
 
 # per-joint [kp, kd, torque_limit]
 GAINS = {
@@ -81,6 +81,7 @@ def mujoco_parents() -> np.ndarray:
 def build_humanoid_model(
     smpl_model: S.SMPLModel,
     betas: np.ndarray,
+    gender: Optional[np.ndarray] = None,
     scale: Optional[np.ndarray] = None,
     kp_scale: float = 1.0,
     kd_scale: float = 1.0,
@@ -89,7 +90,8 @@ def build_humanoid_model(
 ) -> ArticulationModel:
     """betas (N, 10) [+ optional per-env scale (N,)] → ArticulationModel with
     per-env joint offsets / masses / inertias / contact spheres on `device`
-    (the card unless given)."""
+    (the card unless given). `gender` is accepted in the JAX package's place
+    and, as there, not read."""
     device = resolve_device(device)
     betas = np.asarray(betas, dtype=np.float32)
     N = betas.shape[0]
@@ -209,3 +211,12 @@ def min_verts_height(smpl_model: S.SMPLModel, betas: np.ndarray,
         verts = S.lbs(smpl_model, b, torch.from_numpy(np.asarray(pose_aa, np.float32)))[0].numpy()
     return smpl_to_world_rest(verts)[..., 2].min(axis=-1)
 
+
+def default_humanoid_state(model: ArticulationModel, num_envs: int,
+                           root_h: float = 0.89) -> ArticulationState:
+    """Standing rest state on the model's device: identity joints, the root
+    at height `root_h` in the base rotation (the SMPL body frame's rest
+    orientation in the world)."""
+    st = ArticulationState.zeros(num_envs, model.num_bodies, root_h=root_h, device=model.device)
+    base = torch.as_tensor(BASE_ROT_XYZW, device=model.device).repeat(num_envs, 1)
+    return ArticulationState(st.root_pos, base, st.root_vel, st.joint_quat, st.joint_omega)

@@ -1,7 +1,8 @@
 """Batched articulated rigid-body dynamics (Featherstone ABA) in PyTorch.
 
-Counterpart of ``vid2player3d_tpu/physics/engine.py``: a function
-    control_step(model, state, pd_targets, ...) -> state
+Counterpart of ``vid2player3d_tpu/physics/engine.py``: the functions
+    control_step(model, state, pd_targets, ...) -> state   (substeps at control_dt)
+    substep(model, state, pd_targets, ..., dt, fixed_base) -> state
 batched over envs and vectorized over the static 24-body kinematic tree.
 
 Layout: the inner math runs on the SoA core (``physics/soa.py``) over
@@ -389,6 +390,32 @@ def _substep_soa(msoa: Dict, s: Dict, pd_tar, root_force, root_torque,
     return _integrate_soa(s, a0, qdd, dt)
 
 
+def _inputs_soa(model: ArticulationModel, state: ArticulationState, pd_targets,
+                root_force_w, root_torque_w, extra_force_w, extra_torque_w):
+    """The step's loop-invariant slabs: the model, the PD targets (3, J-1, N),
+    the root wrenches (3, N) and the extra wrenches (3, J, N), each None when
+    not given."""
+    N = state.root_pos.shape[0]
+    pd_tar = _slab(pd_targets.reshape(N, model.num_bodies - 1, 3))
+    rf = root_force_w.T if root_force_w is not None else None
+    rt = root_torque_w.T if root_torque_w is not None else None
+    ef = _slab(extra_force_w) if extra_force_w is not None else None
+    et = _slab(extra_torque_w) if extra_torque_w is not None else None
+    return _model_soa(model), pd_tar, rf, rt, ef, et
+
+
+def substep(model: ArticulationModel, state: ArticulationState, pd_targets,
+            root_force_w=None, root_torque_w=None,
+            contact_params: ContactParams = ContactParams(), dt: float = 1.0 / 240.0,
+            extra_force_w=None, extra_torque_w=None, fixed_base: bool = False):
+    """One physics substep of `dt`. Arguments as `control_step`'s;
+    `fixed_base` pins the root (zero base acceleration)."""
+    msoa, *inputs = _inputs_soa(model, state, pd_targets, root_force_w, root_torque_w,
+                                extra_force_w, extra_torque_w)
+    return _state_aos(_substep_soa(msoa, _state_soa(state), *inputs, contact_params, dt,
+                                   fixed_base))
+
+
 def control_step(model: ArticulationModel, state: ArticulationState, pd_targets,
                  root_force_w=None, root_torque_w=None, substeps: int = 4,
                  control_dt: float = 1.0 / 30.0,
@@ -401,17 +428,11 @@ def control_step(model: ArticulationModel, state: ArticulationState, pd_targets,
     (N, J, 3) per-body world wrenches held constant over the control step.
     """
     dt = control_dt / substeps
-    msoa = _model_soa(model)
-    N = state.root_pos.shape[0]
-    pd_tar = _slab(pd_targets.reshape(N, model.num_bodies - 1, 3))
-    rf = root_force_w.T if root_force_w is not None else None
-    rt = root_torque_w.T if root_torque_w is not None else None
-    ef = _slab(extra_force_w) if extra_force_w is not None else None
-    et = _slab(extra_torque_w) if extra_torque_w is not None else None
-
+    msoa, *inputs = _inputs_soa(model, state, pd_targets, root_force_w, root_torque_w,
+                                extra_force_w, extra_torque_w)
     s = _state_soa(state)
     for _ in range(substeps):
-        s = _substep_soa(msoa, s, pd_tar, rf, rt, ef, et, contact_params, dt, False)
+        s = _substep_soa(msoa, s, *inputs, contact_params, dt, False)
     return _state_aos(s)
 
 
@@ -427,6 +448,11 @@ def dof_pos(state: ArticulationState):
 
 def dof_vel(state: ArticulationState):
     return state.joint_omega.reshape(state.joint_omega.shape[0], -1)
+
+
+def rigid_body_state(model: ArticulationModel, state: ArticulationState):
+    """World body states: (pos (N,J,3), quat (N,J,4), lin vel (N,J,3), ang vel (N,J,3))."""
+    return fk_world(model, state)
 
 
 def set_state_from_reference(model: ArticulationModel, root_pos, root_rot,

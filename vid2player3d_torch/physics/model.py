@@ -19,6 +19,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..utils.runtime import resolve_device
+
 
 def tree_levels(parents: Tuple[int, ...]) -> List[np.ndarray]:
     """Bodies grouped by tree depth: levels[0] == [root]; every body's parent
@@ -156,6 +158,22 @@ class ArticulationState:
     root_vel: torch.Tensor
     joint_quat: torch.Tensor
     joint_omega: torch.Tensor
+
+    @classmethod
+    def zeros(cls, num_envs: int, num_bodies: int, root_h: float = 1.0,
+              device=None) -> "ArticulationState":
+        """Rest state in f32 on `device` (the card unless given): root at
+        height `root_h` with identity orientation, identity joints, no
+        velocity."""
+        device = resolve_device(device)
+        ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+        return cls(
+            root_pos=torch.tensor([0.0, 0.0, root_h], device=device).repeat(num_envs, 1),
+            root_quat=ident.repeat(num_envs, 1),
+            root_vel=torch.zeros((num_envs, 6), device=device),
+            joint_quat=ident.repeat(num_envs, num_bodies - 1, 1),
+            joint_omega=torch.zeros((num_envs, num_bodies - 1, 3), device=device),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
