@@ -40,11 +40,26 @@ Phases, each printing one line (any failed phase exits non-zero):
   7. main     the imitation path at full width: synthetic motion lib (8
               motions x 300 frames) -> HumanoidImEnv (4096 envs, 2 substeps)
               -> ImitationPPO (horizon 32, minibatch 512, 6 mini-epochs,
-              fused_optimizer="on"), one `train_epoch` (cut from two), K1's
+              fused_optimizer="on"), one `train_epoch` (cut from two; every
+              env step and optimizer step replayed from a CUDA graph), K1's
               two launch counters set to 0 just before and read just after
-  8. tennis parity  a small tennis epoch (4 envs, horizon 4, f32) on the card
+  8. graphs   the epochs replayed from CUDA graphs (`utils/graphs.py`)
+              against their eager bodies on the same draws: the imitation
+              epoch on phase 6's case and at phase 7's sizes (params,
+              moments, norms and metrics: bit for bit, or each difference
+              printed and held to tests/test_torch_epoch.py's bounds), the
+              rollout alone graphed and twice eager (where it differs),
+              graphed and eager epoch, rollout and optimizer-step times,
+              each graph's capture and instantiate seconds, node count and
+              pool, K1's launches per epoch through the replays, the
+              device's idle share over one graphed epoch (profiler);
+              mvae_federer at full
+              width, 16 windows with fuse=16, fuse=1 and eagerly: losses and
+              params bit for bit, ms per optimizer step, the window graph,
+              K2's launches through the replays
+  9. tennis parity  a small tennis epoch (4 envs, horizon 4, f32) on the card
               against the same epoch on the CPU with the same draws
-  9. tennis main    the tennis path at federer_train_stage_1's sizes: random
+  10. tennis main    the tennis path at federer_train_stage_1's sizes: random
               full-width MVAE (hidden 256, 6 experts) and pi_low
               (734->1024->1024->512->75), a 4096-candidate ball pool,
               TennisEnv (10,240 envs, 2 substeps, reach reward, 256 candidate
@@ -52,16 +67,16 @@ Phases, each printing one line (any failed phase exits non-zero):
               240 optimizer steps per epoch), one `train_epoch` (cut from
               two), the K2 (prep and GEMM) and K3 launch counters set to 0
               just before and read just after
-  10. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
+  11. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
               envs, 6 substeps, wrist reaction force, ball-body contact,
               return_w_estimate) with the same networks; K3's counter set to
               0 before its `reset_all` (1 launch) and read after the steps
               (2 launches each: the step's FK targets and the candidate reset)
-  11. dual parity  a small dual-rally epoch (8 envs, two players: a
+  12. dual parity  a small dual-rally epoch (8 envs, two players: a
               left-handed two-hand lane and a right-handed one, two policies,
               horizon 4, f32) on the card against the same epoch on the CPU
               with the same draws
-  12. dual main     the dual rally as `nadal_federer` builds it: DualTennisEnv
+  13. dual main     the dual rally as `nadal_federer` builds it: DualTennisEnv
               (15,360 envs, 6 substeps, return_w_estimate, continuous
               targets, wrist reaction force, ball-body contact, the full
               masked reset) with two random full-width MVAEs (nadal
@@ -71,49 +86,51 @@ Phases, each printing one line (any failed phase exits non-zero):
               lr 1e-5, sigma_init -2.9), one `train_epoch` (cut from two), the K2 and K3
               launch counters set to 0 just before and read just after; the
               two-hand IK's time per step at full size
-  13. dr parity  a small amass_im_dr imitation epoch (4 envs, f32, from epoch
+  14. dr parity  a small amass_im_dr imitation epoch (4 envs, f32, from epoch
               300 so the scheduled noise is on) and a small
               federer_train_stage_1_dr tennis epoch (8 envs, test widths) on
               the card against the CPU with the same draws
-  14. ctx parity  a small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on
+  15. ctx parity  a small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on
               the card against the CPU, and the context IK alone at B = 512
               (outputs and the gradient into the heads)
-  15. im dr main    amass_im_dr at phase 7's sizes, one epoch (cut from two):
+  16. im dr main    amass_im_dr at phase 7's sizes, one epoch (cut from two):
               K1's launches, the epoch's perturbed model against the base,
               the schedule's strength
-  16. im ctx main   amass_im_corrupt at phase 7's sizes, one epoch of 2
+  17. im ctx main   amass_im_corrupt at phase 7's sizes, one epoch of 2
               mini-epochs (cut from two epochs of 6; 24 leaves): K1's
               launches, finite auxiliary losses, the context
               IK's ms per rollout step and per optimizer step and its host
               syncs
-  17. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
+  18. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
               the federer MVAE width), one epoch (cut from two): K2's and
               K3's launches, grad_skip 0, the epoch's ball constants
-  18. ckpt    the port's checkpoints in the JAX package's layout: the
+  19. ckpt    the port's checkpoints in the JAX package's layout: the
               tennis_main learner's save -> load bit for bit;
               `load_stage_checkpoint` of that file into a stage-2 learner on
-              phase 10's env (every leaf carried, lr dropped to stage 2's)
+              phase 11's env (every leaf carried, lr dropped to stage 2's)
               and 8 finite warm-started steps with K3 counted (1 + 2 per
               step); the dual learner's warm start from the same file (each
               lane the single policy); the main imitation learner's file
               (bf16 moments) round-tripped; tennis_main's ball pool and
               main's motion library round-tripped on the card; save and load
               times
-  19. mvae parity  two small MotionVAE epochs (hidden 64, 3 experts, batch
+  20. mvae parity  two small MotionVAE epochs (hidden 64, 3 experts, batch
               8) on the card against the CPU with the same draws
-  20. mvae main    mvae_federer at full width (frame 288 -> 290 outputs,
+  21. mvae main    mvae_federer at full width (frame 288 -> 290 outputs,
               latent 32, hidden 256, 6 experts, batch 100, 10-frame
               windows) on a synthetic pose dataset, 2 epochs x 50 windows
-              (900 optimizer steps) from epoch 75, K2's counters set to 0
+              (900 optimizer steps; `train_epoch(fuse=16)`, each window
+              replayed from a CUDA graph) from epoch 75, K2's counters set to 0
               just before and read just after (2,700 prep + 2,700 GEMM); the
               forward/backward/Adam split per optimizer step and the device's
-              idle share over one window; K2 at B = 100 (forward and
-              backward held to the plain version on the inputs it times;
+              idle share over one window, replayed and eager; K2 at B = 100
+              (forward and backward held to the plain version on the inputs
+              it times;
               eager and graph, bound, cuBLAS yardstick, backward); save -> a
               fresh trainer's load -> `spec_from_trainer` -> the 120-step
               random-walk report (8 envs); 8 TennisEnv steps at 10,240 envs
               driven by the trained spec (K2 3 + 3, K3 2 per step)
-  21. cli     the README's curriculum through the port's entry points, in a
+  22. cli     the README's curriculum through the port's entry points, in a
               directory under build/: `python -m vid2player3d_torch --cfg
               mvae_federer --epochs 1 --mvae_batches 20` as a process of its
               own (the MotionVAE at full width) beside `--cfg federer_im
@@ -134,7 +151,7 @@ Phases, each printing one line (any failed phase exits non-zero):
               torch` at 100,000 candidates, both files loaded on the card,
               the common survivors' launch states identical, the sizes
               within 5%, both wall times
-  22. dp parity  (beside phase 23's processes; its wall time is printed as
+  23. dp parity  (beside phase 24's processes; its wall time is printed as
               overlapped) two gloo ranks share the card (spawned processes, the
               learners' `mesh=` over envs sharded with `shard`; the group's
               mesh without a device on the card each rank pinned): small f32
@@ -149,12 +166,12 @@ Phases, each printing one line (any failed phase exits non-zero):
               and moments bit for bit across the ranks, each kernel's
               launches per rank, and K1, K2 and K3 against their plain
               versions on each rank's own inputs, at each of their shapes
-  23. dp cli  `python -m vid2player3d_torch --cfg amass_im --n_devices 1
+  24. dp cli  `python -m vid2player3d_torch --cfg amass_im --n_devices 1
               --num_envs 4096 --epochs 1` over NCCL at world size 1 (its
               checkpoint read back), beside `--n_devices 2`, which must exit
               non-zero with both counts; both start before dp parity and
               run beside it
-  24. dp main two gloo ranks on the card at full widths: amass_im at
+  25. dp main two gloo ranks on the card at full widths: amass_im at
               2 x 2048 envs in both sync modes (global minibatch 512 with K1,
               2 mini-epochs, cut from 6; per-rank minibatches of 512 with
               local SGD, 6 mini-epochs), federer_train_stage_1 at 2 x 2048
@@ -166,7 +183,7 @@ Phases, each printing one line (any failed phase exits non-zero):
               and K1, K2 and K3 against their plain versions on the inputs
               each rank's epoch gave them, at every shape (K2 at the rank's
               envs per lane, K3 at its envs and at the 256 candidate resets)
-  25. data    the host-side data tools at the sizes users run them, in a
+  26. data    the host-side data tools at the sizes users run them, in a
               directory under build/: an AMASS-layout directory (32 SMPLH
               clips, 1200 frames at 120 Hz, mixed genders, one clip too short
               and one broken file) through `convert_amass_dir` on the card
@@ -185,7 +202,7 @@ Phases, each printing one line (any failed phase exits non-zero):
               FBX chain written as ASCII and as binary, both imported and
               equal, retargeted onto the humanoid tree into a library on the
               card with finite states; each step's seconds
-  26. physics the engine's public API: `substep` on the card against the CPU on
+  27. physics the engine's public API: `substep` on the card against the CPU on
               the 6-env humanoid case (self-collision on; a free base with
               root wrenches, a fixed base, extra wrenches; 1 and 4 substeps)
               to 5e-6 (positions, quaternions) and 2e-4 (velocities); the
@@ -197,12 +214,12 @@ Phases, each printing one line (any failed phase exits non-zero):
               `control_step(substeps=4)`'s ms per call at 4096 envs, with
               self-collision off and on, eager (synchronized host clock) and
               as a graph replay (CUDA events)
-  27. profile torch.profiler over a short imitation epoch, a short tennis
+  28. profile torch.profiler over a short imitation epoch, a short tennis
               rollout and one dual step: device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
-  28. kernels one JSON line over the ported kernels, each kernel's launches
+  29. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
 
@@ -287,23 +304,33 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _timed_rollouts(agent):
-    """Wrap `agent.rollout` to time each call on a synchronized host clock;
-    returns (the list it appends to, a function that unwraps it)."""
+def _wrap_timer(obj, name, times):
+    """Time each call of `obj.name` on a synchronized host clock, appending
+    to `times`; `delattr(obj, name)` unwraps it."""
     import torch
 
-    times, rollout = [], agent.rollout
+    fn = getattr(obj, name)
 
     def timed(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = rollout(*a, **kw)
+        out = fn(*a, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         return out
 
-    agent.rollout = timed
-    return times, lambda: setattr(agent, "rollout", rollout)
+    setattr(obj, name, timed)
+
+
+def _timed_rollouts(agent):
+    """Time the rollout a learner's `train_epoch` runs (ImitationPPO's
+    graphed or eager one, V2PPPO's `rollout`); returns (the list of times, a
+    function that unwraps it)."""
+    name = ("_rollout_graphed" if getattr(agent, "graphed", False) else
+            "_rollout_eager" if hasattr(agent, "_rollout_eager") else "rollout")
+    times = []
+    _wrap_timer(agent, name, times)
+    return times, lambda: delattr(agent, name)
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +597,222 @@ def main_phase(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the epochs replayed from CUDA graphs against their eager bodies
+# ---------------------------------------------------------------------------
+
+GRAPH_MVAE_WINDOWS = 16          # one fuse=16 group
+
+
+def _state_errs(a, b) -> dict:
+    """Max abs differences between two imitation train states."""
+    def err(x, y):
+        return float((x.detach().float() - y.detach().float()).abs().max())
+
+    return dict(params=max(err(a.params[k], b.params[k]) for k in a.params),
+                mu=max(err(x, y) for x, y in zip(a.opt_state.mu, b.opt_state.mu)),
+                nu=max(err(x, y) for x, y in zip(a.opt_state.nu, b.opt_state.nu)),
+                count=int(a.opt_state.count) - int(b.opt_state.count),
+                **{f"{n}_{f}": err(getattr(getattr(a, n), f), getattr(getattr(b, n), f))
+                   for n in ("obs_norm", "val_norm") for f in ("n", "mean", "var")})
+
+
+def _hold_epoch(what, a, ma, b, mb, steps, lr):
+    """Graphed (a, ma) against eager (b, mb) on the same draws, held to
+    tests/test_torch_epoch.py's bounds: metrics (and the value norm's
+    elements) within its atol (1e-5 otherwise) and 1e-4 relative, params
+    within 2·steps·lr, counts and the obs norm's count equal. The obs norm's
+    mean and var are printed, also in units of its std and relative: they
+    take every env's obs, and the envs that are done keep stepping, lying
+    on the ground, where the contact sums' atomics put the last bits in
+    another order from run to run (two eager epochs differ there too)."""
+    errs = _state_errs(a, b)
+    errs["metrics"] = {k: abs(float(ma[k]) - float(mb[k])) for k in ma}
+    for k, e in errs["metrics"].items():
+        if not e <= PARITY_ATOL.get(k, 1e-5) + 1e-4 * abs(float(mb[k])):
+            fail(f"{what}: graphed and eager epochs disagree on {k}: {e}")
+    if not errs["params"] <= 2 * steps * lr or errs["count"] or errs["obs_norm_n"]:
+        fail(f"{what}: graphed and eager params differ by {errs['params']}, counts by "
+             f"{errs['count']}, obs norm counts by {errs['obs_norm_n']}")
+    for f in ("n", "mean", "var"):
+        x, y = getattr(a.val_norm, f), getattr(b.val_norm, f)
+        if not bool(((x - y).abs() <= 1e-5 + 1e-4 * y.abs()).all()):
+            fail(f"{what}: graphed and eager val_norm.{f} differ by {errs[f'val_norm_{f}']}")
+    std = b.obs_norm.var.sqrt() + 1e-8
+    errs["obs_norm_mean_over_std"] = float(((a.obs_norm.mean - b.obs_norm.mean).abs()
+                                            / std).max())
+    errs["obs_norm_var_rel"] = float(((a.obs_norm.var - b.obs_norm.var).abs()
+                                      / (b.obs_norm.var + 1e-12)).max())
+    errs["bit_for_bit"] = all(v == 0 for k, v in errs.items() if k != "metrics") and \
+        all(v == 0 for v in errs["metrics"].values())
+    return errs
+
+
+def _rollout_rows_differ(g, e) -> dict:
+    """Where two rollouts from one state differ: the largest difference over
+    the rows of envs still alive and over all rows, and the rows that
+    differ."""
+    import torch
+
+    alive = e["alive"] > 0
+    d = (g["obs"] - e["obs"]).abs().amax(-1)
+    return dict(alive_equal=torch.equal(g["alive"], e["alive"]),
+                max_abs_err_alive_rows=float(d[alive].max()) if bool(alive.any()) else 0.0,
+                max_abs_err_all_rows=float(d.max()), rows_differ=int((d > 0).sum()),
+                alive_rows_differ=int(((d > 0) & alive).sum()))
+
+
+def _graph_stats(g) -> dict:
+    return dict(nodes=g.nodes, capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+                pool_gib=g.pool_bytes / 2 ** 30, captures=g.captures,
+                launches_per_replay=list(g.launches))
+
+
+def graphs_phase(dev, card: str):
+    """The imitation epoch and the MotionVAE windows replayed from CUDA
+    graphs (`utils/graphs.py`), each against its eager body on the same
+    draws: the small imitation case and main's config at 4096 envs (each
+    from two fresh states of one seed: the same generator draws), the
+    rollout alone graphed and twice eager (the card's own spread),
+    mvae_federer at full width (fuse=16, fuse=1 and the eager windows). Times, the graphs'
+    capture and instantiate seconds, node counts and pools, K1's and K2's
+    launches through the replays, the device's idle share over one graphed
+    epoch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer, make_synthetic_pose_dataset
+    from vid2player3d_torch.ops import fused_adam as FA
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    cases = (("small", 4, 4, 8, 2, 2, 60, "f32"),
+             ("main", NUM_ENVS, HORIZON, MINIBATCH, MINI_EPOCHS, 8, 300, "auto"))
+    for name, n, t, mb, me, motions, frames, dtype in cases:
+        lib = make_synthetic_motion_lib(num_motions=motions, T=frames, fps=30.0, seed=0,
+                                        device=dev)
+        env = HumanoidImEnv(HumanoidImConfig(num_envs=n, substeps=SUBSTEPS), lib, rng=0,
+                            device=dev)
+        agent = ImitationPPO(env, PPOConfig(horizon=t, minibatch_size=mb, mini_epochs=me,
+                                            fused_optimizer="on", compute_dtype=dtype),
+                             seed=7, device=dev)
+        if not agent.graphed:
+            fail(f"graphs: the {name} imitation learner does not take the graphs")
+        steps = agent.num_minibatches * me
+        roll = {"graphed": [], "eager": []}
+        _wrap_timer(agent, "_rollout_graphed", roll["graphed"])
+        _wrap_timer(agent, "_rollout_eager", roll["eager"])
+        r = {"envs": n, "horizon": t, "optimizer_steps": steps}
+
+        def epoch(mode, fn, ts):
+            """One epoch, timed, K1 counted from 0."""
+            FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
+            del roll[mode][:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = fn(ts)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            k1 = [FA.leaf_update.launches, FA.global_norm_scalars.launches]
+            if k1 != [steps, steps]:
+                fail(f"graphs {name}: K1 launched {k1} in a {mode} epoch, expected {steps} each")
+            return ts, m, dict(epoch_s=epoch_s, rollout_s=roll[mode][0],
+                               optimizer_step_ms=(epoch_s - roll[mode][0]) / steps * 1e3,
+                               k1_launches=k1)
+
+        # the first graphed call captures both graphs; then one eager epoch
+        # on the same draws
+        a, ma, first = epoch("graphed", agent.train_epoch, agent.init_state())
+        b, mb_, eager = epoch("eager", agent._train_epoch_eager, agent.init_state())
+        r["vs_eager"] = _hold_epoch(f"graphs {name}", a, ma, b, mb_, steps,
+                                    agent.cfg.learning_rate)
+        _, _, graphed = epoch("graphed", agent.train_epoch, a)       # replays only
+        r["times"] = timed = {"graphed": graphed, "eager": eager, "graphed_first_call": first}
+        # the rollout alone, graphed and twice eager (the card's own spread),
+        # each from the state after the first epoch with the generator
+        # seeded anew (the same draws)
+        trajs = []
+        for mode, fn in (("graphed", agent.rollout), ("eager", agent._rollout_eager),
+                         ("eager", agent._rollout_eager)):
+            del roll[mode][:]
+            trajs.append(fn(dataclasses.replace(
+                a, generator=torch.Generator(dev).manual_seed(agent.seed))))
+            timed[mode]["rollout_alone_s"] = roll[mode][0]
+        r["rollout_vs_eager"] = _rollout_rows_differ(trajs[0], trajs[1])
+        r["rollout_eager_vs_eager"] = _rollout_rows_differ(trajs[2], trajs[1])
+        del trajs
+        r["epoch_speedup"] = timed["eager"]["epoch_s"] / timed["graphed"]["epoch_s"]
+        r["graphs"] = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
+        if name == "main":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                agent.train_epoch(a)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            # ~670 k device events: read from the raw results, not as
+            # FunctionEvents (~50 s)
+            t0 = time.perf_counter()
+            evs = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.duration_ns() for e in evs) * 1e-9
+            r["profile"] = dict(wall_s=wall, device_busy_s=busy if evs else "not measured",
+                                device_idle_share=(1.0 - busy / wall) if evs else "not measured",
+                                device_events=len(evs), read_s=time.perf_counter() - t0)
+        if not all(np.isfinite(float(v)) for v in ma.values()):
+            fail(f"graphs {name}: non-finite metrics {ma}")
+        out[name] = r
+        del agent, env, lib, a, b
+        torch.cuda.empty_cache()
+
+    opt = MVAEOption.load("federer")
+    nsteps = opt.nframes_seq - opt.num_future_predictions - opt.num_condition_frames + 1
+    steps = GRAPH_MVAE_WINDOWS * nsteps
+    runs, mvae = {}, {}
+    for mode in ("eager", 16, 1):
+        trainer = MVAETrainer(opt, make_synthetic_pose_dataset(opt, num_seqs=64, T=300, seed=0),
+                              device=dev)
+        trainer.epoch = MVAE_START_EPOCH
+        MOE.moe_linear.launches = MOE.split_weights.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = (trainer._train_epoch_eager(GRAPH_MVAE_WINDOWS) if mode == "eager" else
+                  trainer.train_epoch(batches_per_epoch=GRAPH_MVAE_WINDOWS, fuse=mode))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k2 = [MOE.moe_linear.launches, MOE.split_weights.launches]
+        if k2 != [3 * steps, 3 * steps]:
+            fail(f"graphs: K2 launched {k2} in {steps} MotionVAE steps ({mode})")
+        t0 = time.perf_counter()
+        trainer.train_epoch(batches_per_epoch=GRAPH_MVAE_WINDOWS, fuse=mode) \
+            if mode != "eager" else trainer._train_epoch_eager(GRAPH_MVAE_WINDOWS)
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        runs[mode] = (losses, [p.detach().clone() for p in trainer.params])
+        mvae[f"fuse_{mode}" if mode != "eager" else "eager"] = dict(
+            first_epoch_s=first_s, epoch_s=again_s, ms_per_optimizer_step=again_s / steps * 1e3,
+            k2_launches=k2, losses=losses,
+            graph=_graph_stats(trainer._graph.window) if mode != "eager" else None)
+    for mode in (16, 1):
+        err = max(float((x - y).abs().max()) for x, y in zip(runs[mode][1], runs["eager"][1]))
+        mvae[f"fuse_{mode}"]["params_max_abs_err_vs_eager"] = err
+        if runs[mode][0] != runs["eager"][0] or err != 0.0:
+            fail(f"graphs: MotionVAE fuse={mode} differs from the eager windows: {err}, "
+                 f"{runs[mode][0]} vs {runs['eager'][0]}")
+    mvae["windows"], mvae["optimizer_steps"] = GRAPH_MVAE_WINDOWS, steps
+    mvae["step_speedup"] = mvae["eager"]["epoch_s"] / mvae["fuse_16"]["epoch_s"]
+    say("graphs", card=card, nvidia_smi=nvidia_smi(), torch=torch.__version__,
+        register_generator_state=hasattr(torch.cuda.CUDAGraph, "register_generator_state"),
+        imitation=out, mvae_federer=mvae, phase_s=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (torch.profiler over a short epoch)
 # ---------------------------------------------------------------------------
 
@@ -611,6 +854,7 @@ def profile_phase(dev, card: str):
                          seed=7, device=dev)
     ts, _ = agent.train_epoch(agent.init_state())
     out = {}
+    epoch_rollout_s, unwrap = _timed_rollouts(agent)
     for name, fn in (("rollout", lambda: agent.rollout(ts)),
                      ("epoch", lambda: agent.train_epoch(ts))):
         torch.cuda.synchronize()
@@ -629,12 +873,13 @@ def profile_phase(dev, card: str):
                          device_idle_share=(1.0 - busy / wall) if evs else "not measured",
                          device_events=len(evs),
                          top_device_s={k[:60]: v for k, v in top})
+    unwrap()
     steps = agent.num_minibatches
     r, e = out["rollout"], out["epoch"]
     say("profile", card=card, envs=NUM_ENVS, horizon=horizon, optimizer_steps=steps,
         device_events_per_env_step=r["device_events"] / horizon,
         device_events_per_optimizer_step=(e["device_events"] - r["device_events"]) / steps,
-        update_wall_s_per_optimizer_step=(e["wall_s"] - r["wall_s"]) / steps,
+        update_wall_s_per_optimizer_step=(e["wall_s"] - epoch_rollout_s[-1]) / steps,
         rollout_wall_s_per_env_step=r["wall_s"] / horizon, **out)
 
 
@@ -2045,16 +2290,34 @@ def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
     feat = torch.as_tensor(feat, dtype=torch.float32, device=dev)
     phase = torch.as_tensor(phase, dtype=torch.float32, device=dev)
     split = _mvae_step_split(trainer, feat, phase)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer._train_window(feat, phase, False, 10.0, torch.tensor(0.0, device=dev))
+    # one window at lr 0 replayed from the trainer's graph (the main path)
+    # and run eagerly, each profiled
+    g = trainer._graph
+    g.lr.zero_()
+    g.feat.copy_(feat)
+    g.phase.copy_(phase)
+    g.regressive.fill_(0.0)
+    g.phase_w.fill_(10.0)
+    windows = {}
+    for name, fn in (("graph", lambda: g.window(g.window.key)),
+                     ("eager", lambda: trainer._window(
+                         feat, phase, torch.tensor(False, device=dev), 10.0,
+                         torch.tensor(0.0, device=dev)))):
         torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    evs = _device_events(prof)
-    busy = sum(e.time_range.elapsed_us() for e in evs) * 1e-6
-    k2_busy = sum(e.time_range.elapsed_us() for e in evs
-                  if "moe_linear_kernel" in e.name or "moe_split_w_kernel" in e.name) * 1e-6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+        evs = _device_events(prof)
+        busy = sum(e.time_range.elapsed_us() for e in evs) * 1e-6
+        k2_busy = sum(e.time_range.elapsed_us() for e in evs
+                      if "moe_linear_kernel" in e.name or "moe_split_w_kernel" in e.name) * 1e-6
+        windows[name] = dict(
+            wall_s=window_s, device_busy_s=busy,
+            device_idle_share=(1.0 - busy / window_s) if evs else "not measured",
+            k2_device_share=k2_busy / busy if busy else "not measured",
+            device_events=len(evs))
     k2_b100 = _k2_b100(dev, card, torch.Generator(device=dev).manual_seed(5))
     MOE.moe_linear.launches, MOE.split_weights.launches = k2, k2_prep
 
@@ -2112,10 +2375,7 @@ def mvae_main_phase(dev, card: str, tennis_agent, tennis_ts):
         setup_s=setup_s, epoch_s=epoch_s,
         optimizer_steps_per_s=[MVAE_BATCHES * nsteps / e for e in epoch_s],
         ms_per_optimizer_step=[e / (MVAE_BATCHES * nsteps) * 1e3 for e in epoch_s],
-        step_split_device_ms=split, window_wall_s=window_s, window_device_busy_s=busy,
-        window_device_idle_share=(1.0 - busy / window_s) if evs else "not measured",
-        window_k2_device_share=k2_busy / busy if busy else "not measured",
-        window_device_events=len(evs), k2_launches=k2, k2_prep_launches=k2_prep,
+        step_split_device_ms=split, window=windows, k2_launches=k2, k2_prep_launches=k2_prep,
         peak_mem_gib=peak_gib, losses=rows, k2_B100=k2_b100, save_s=save_s, load_s=load_s,
         checkpoint_bytes=nbytes, report_s=report_s, report_steps=MVAE_REPORT_STEPS,
         report_envs=MVAE_REPORT_ENVS, report_k2_launches=report_k2[0], report=report,
@@ -3606,7 +3866,7 @@ def physics_phase(dev, card: str) -> None:
     the drop-and-stand, 120 + 480 substeps at 1/240 s, and the self-
     collision deflection, 40 control steps of 4 substeps with collision off
     and on, on the synthetic-SMPL humanoid; each run's step replayed from a
-    CUDA graph, `probes._Loop`), and `substep`'s and
+    CUDA graph, `utils.graphs.StaticGraph`), and `substep`'s and
     `control_step(substeps=4)`'s ms per call at 4096 envs: eager on a
     synchronized host clock, and as a graph replay on CUDA events."""
     import numpy as np
@@ -3714,6 +3974,7 @@ def main() -> None:
     k3 = k3_phase(dev, card)
     parity_phase(dev)
     k1_launches, im_agent, im_ts, im_lib = main_phase(dev, card)
+    graphs_phase(dev, card)
     tennis_parity_phase(dev)
     agent, ts, tennis_launches = tennis_main_phase(dev, card)
     stage2_env = stage2_phase(dev, card, agent, ts)

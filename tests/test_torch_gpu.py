@@ -1,7 +1,9 @@
 """The port's kernels (K1 fused clip+Adam: norm and multi-tensor update; K2
 moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
 versions on the card; and the dual rally's step and two-hand IK on the card
-against the same on the CPU, with K2's and K3's launches per dual step.
+against the same on the CPU, with K2's and K3's launches per dual step; the
+epochs replayed from CUDA graphs against their eager bodies, the launch
+counts through replays, a capture that fails.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -634,6 +636,171 @@ def test_mvae_epochs_match_cpu_and_launch_k2(cuda, tmp_path):
         a, b = a.detach().cpu(), b.detach()
         torch.testing.assert_close(a, b, atol=2 * steps * gpu.opt.lr, rtol=0)
         assert float((a - b).norm()) <= 1e-3 * float((b - b0).norm()) + 1e-12
+
+
+# -- the epochs replayed from CUDA graphs (utils/graphs.py) --------------------
+
+def _small_graphed_agent(cuda, fused):
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+
+    lib = make_synthetic_motion_lib(num_motions=2, T=60, seed=0, device=cuda)
+    env = HumanoidImEnv(HumanoidImConfig(num_envs=4, substeps=2), lib, device=cuda)
+    return ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, mini_epochs=2,
+                                       compute_dtype="f32", fused_optimizer=fused),
+                        seed=7, device=cuda)
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_graphed_epoch_equals_eager_on_the_card(cuda, fused):
+    """`train_epoch` (graphed on the card) against `_train_epoch_eager` from
+    two fresh states (one generator seed: the same draws), two epochs:
+    params, moments, count, norms and metrics bit for bit at 4 envs; K1's
+    launches 4 + 4 per epoch through the replays, one capture per graph."""
+    agent = _small_graphed_agent(cuda, fused)
+    assert agent.graphed
+    a, b = agent.init_state(), agent.init_state()
+    for _ in range(2):
+        before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
+        a, ma = agent.train_epoch(a)
+        torch.cuda.synchronize()
+        k1 = (FA.leaf_update.launches - before[0], FA.global_norm_scalars.launches - before[1])
+        assert k1 == ((4, 4) if fused == "on" else (0, 0))
+        b, mb = agent._train_epoch_eager(b)
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), k
+        for k in a.params:
+            torch.testing.assert_close(a.params[k], b.params[k], rtol=0, atol=0)
+        for x, y in zip(a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        assert torch.equal(a.opt_state.count, b.opt_state.count)
+        for f in ("n", "mean", "var"):
+            assert torch.equal(getattr(a.obs_norm, f), getattr(b.obs_norm, f))
+            assert torch.equal(getattr(a.val_norm, f), getattr(b.val_norm, f))
+    assert agent._st.step.captures == agent._st.update.captures == 1
+    assert agent._st.step.nodes > 1000 and agent._st.update.nodes > 100
+
+
+def test_graph_counters_advance_once_per_replay(cuda):
+    """A step launching K1 (norm + update), K2 (prep + GEMM) and K3: the
+    first call (the warm-up, then the capture) counts one launch of each,
+    every replay one more, and the graph records the per-replay counts."""
+    from vid2player3d_torch.utils.graphs import StaticGraph
+
+    ps = [torch.zeros(1000, device=cuda), torch.zeros(75, device=cuda)]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    gs = [torch.full_like(p, 0.5) for p in ps]
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, coeff, w, b = (torch.randn(100, 32, generator=gen, device=cuda),
+                      torch.softmax(torch.randn(100, 6, generator=gen, device=cuda), -1),
+                      torch.randn(6, 32, 64, generator=gen, device=cuda),
+                      torch.randn(6, 64, generator=gen, device=cuda))
+    parents = (-1, 0, 1, 1, 3)
+    rot = torch.eye(3, device=cuda).expand(8, 5, 3, 3).contiguous()
+    off = torch.randn(8, 5, 3, generator=gen, device=cuda)
+    root = torch.randn(8, 3, generator=gen, device=cuda)
+    out = torch.zeros(100, 64, device=cuda)
+
+    def body():
+        count.copy_(FA.fused_clip_adam_apply(ps, ms, vs, gs, count, 1e-3, 50.0))
+        out.copy_(MOE.moe_linear(x, coeff, w, b))
+        FK.fk_chain(rot, off, root, parents)
+
+    fns = (FA.leaf_update, FA.global_norm_scalars, MOE.split_weights, MOE.moe_linear,
+           FK.fk_chain)
+    before = [f.launches for f in fns]
+    g = StaticGraph(body, cuda)
+    for n in range(1, 5):
+        g()
+        torch.cuda.synchronize()
+        assert [f.launches - b0 for f, b0 in zip(fns, before)] == [n] * 5
+    assert g.launches == (1, 1, 1, 1, 1) and g.captures == 1
+    assert int(count) == 4
+    torch.testing.assert_close(out, MOE.moe_linear_ref(x, coeff, w, b), rtol=1e-4, atol=1e-4)
+
+
+def test_capture_of_a_syncing_body_raises(cuda):
+    """A body that reads a device value on the host runs once as the
+    warm-up, then its capture raises; nothing runs it again eagerly, and no
+    graph is kept."""
+    from vid2player3d_torch.utils.graphs import StaticGraph
+
+    x = torch.zeros(4, device=cuda)
+    calls = []
+
+    def body():
+        calls.append(1)
+        x.add_(1.0 + 0.0 * float(x.sum()))
+
+    g = StaticGraph(body, cuda)
+    with pytest.raises(Exception):
+        g()
+    torch.cuda.synchronize()
+    assert len(calls) == 2 and g.graph is None
+    assert torch.equal(x, torch.ones(4, device=cuda))
+
+
+def test_capture_survives_graphs_left_to_the_collector(cuda):
+    """A learner and its graphs form a reference cycle, freed only by the
+    garbage collector; with the collector running at nearly every
+    allocation, a graph dropped that way must not be freed while another
+    captures (a freed pool inside a capture invalidates it)."""
+    import gc
+
+    from vid2player3d_torch.utils.graphs import StaticGraph
+
+    class Owner:
+        def step(self):
+            self.x.mul_(0.5)
+
+    def drop_a_graphed_owner():
+        o = Owner()
+        o.x = torch.ones(1 << 20, device=cuda)
+        o.graph = StaticGraph(o.step, cuda)      # o -> graph -> bound method -> o
+        o.graph()
+
+    z = torch.zeros(8, device=cuda)
+
+    def body():
+        z.add_(1.0)
+        for _ in range(2000):
+            junk = Owner()
+            junk.me = junk
+
+    thresholds = gc.get_threshold()
+    try:
+        drop_a_graphed_owner()
+        gc.set_threshold(1, 1, 1)
+        g = StaticGraph(body, cuda)
+        for _ in range(3):
+            g()
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert g.captures == 1 and torch.equal(z, torch.full((8,), 3.0, device=cuda))
+
+
+def test_mvae_fuse_on_the_card(cuda, tmp_path):
+    """`train_epoch(fuse=16)` and `fuse=1` (graphed windows) and the eager
+    windows on one trainer seed each, 2 epochs of 5 windows: losses, params
+    and count bit for bit; 3 prep + 3 GEMM launches per optimizer step
+    through the replays."""
+    runs = []
+    for fuse in (16, 1, None):
+        tr = _mvae_trainer(cuda, tmp_path / str(fuse))
+        MOE.moe_linear.launches = MOE.split_weights.launches = 0
+        losses = [tr.train_epoch(batches_per_epoch=5, fuse=fuse) if fuse else
+                  tr._train_epoch_eager(5) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert MOE.moe_linear.launches == MOE.split_weights.launches == 3 * 50
+        runs.append((losses, [p.detach().clone() for p in tr.params], int(tr.opt_state.count)))
+    for losses, params, count in runs[1:]:
+        assert losses == runs[0][0] and count == runs[0][2] == 50
+        for a, b in zip(params, runs[0][1]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_cli_curriculum_runs_on_the_card_by_default(cuda, tmp_path):

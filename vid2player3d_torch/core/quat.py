@@ -10,7 +10,6 @@ unless noted.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 _EPS = 1e-9
@@ -263,13 +262,13 @@ def calc_heading_quat_inv_with_heading(q):
 
 
 # SMPL rest orientation: the SMPL mesh's canonical frame differs from the env
-# frame by this fixed rotation.
-_SMPL_BASE_ROT = np.array([0.5, 0.5, 0.5, 0.5], dtype=np.float32)  # xyzw
+# frame by this fixed rotation, [0.5, 0.5, 0.5, 0.5] (xyzw).
 
 
 def remove_base_rot(q):
-    base = torch.as_tensor(_SMPL_BASE_ROT, dtype=q.dtype, device=q.device)
-    return quat_mul(q, quat_conjugate(base.expand(q.shape)))
+    # made on the device (no host-to-device copy, so a CUDA graph can hold it)
+    base = torch.full_like(q, 0.5)
+    return quat_mul(q, quat_conjugate(base))
 
 
 # ---------------------------------------------------------------------------

@@ -390,7 +390,7 @@ class HumanoidImEnv:
         terminated = torch.zeros_like(progress)
         if cfg.enable_early_termination:
             fall = body_pos[..., 2] < self.termination_heights[None]
-            fall[:, self.contact_body_ids] = False
+            fall = fall.index_fill_(1, self.contact_body_ids, False)
             fall = torch.any(fall, dim=-1) & (progress > 1)
             terminated = fall.to(progress.dtype)
         lens = self.lib.motion_lengths[self.motion_ids]

@@ -35,6 +35,15 @@ noise, the randomization's draws, minibatch permutations) come from the
 train state's generator, or from `draws=` so a test can feed the JAX
 learner's draws.
 
+CUDA graphs (`graphed`): JAX runs the epoch as one jitted program. On the
+card, a learner with no mesh, domain randomization or context IK replays
+each env step (policy, noise, `env.step`, the trajectory row) and each
+optimizer step (gather, loss, gradient, K1 or the optax chain, adaptive lr,
+stats row) from a CUDA graph over static tensors (``utils/graphs.py``);
+the reset, the draws (in the eager order), GAE, the running norms and the
+metrics stay eager. `_train_epoch_eager` is the CPU path and the graphed
+epoch's oracle.
+
 Data parallelism (`mesh=`, a ``parallel.DataParallelMesh``; the env sharded
 with `env.shard(mesh)`): each of the D ranks steps its block of the envs, the
 params and Adam state are replicated, and the batch is laid out env-major
@@ -57,6 +66,7 @@ every metric are global. Two sync modes, as in the JAX learner:
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -71,10 +81,18 @@ from ..core import smpl as S
 from ..envs.humanoid_im import HumanoidImEnv
 from ..ops.fused_adam import fused_clip_adam_apply
 from ..parallel import mesh as PM
+from ..utils import graphs
 from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import ContextHeads, ImitatorNet
 from .optim import AdamState, clip_adam_apply, init_adam
+
+
+# the loss's stats, in `_loss`'s order (the context IK adds the auxiliary
+# losses); the width of one context frame
+STAT_NAMES = ("a_loss", "c_loss", "b_loss", "clip_frac", "kl")
+AUX_STAT_NAMES = ("aux_dof_loss", "aux_pos_loss")
+FRAME_DIM = 378
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +268,9 @@ class ImitationPPO:
         # local SGD only means something across ranks; at dp 1 it is the
         # per-minibatch path (K1 included), as in the JAX learner
         self.local_sgd = cfg.dp_sync == "per_mini_epoch" and self.dp > 1
+        self.stat_names = STAT_NAMES + (AUX_STAT_NAMES if cfg.use_context_ik else ())
+        # the graphed epoch's static tensors and graphs, made at its first call
+        self._st = None
 
     def _sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the ranks (itself without collectives)."""
@@ -308,9 +329,14 @@ class ImitationPPO:
     # -- policy forward -------------------------------------------------------
 
     def _ctx_frame(self, ctx_feat, t: int):
-        """Context frame at rollout step t (index pad + t). Feature layout:
-        [obs_pos 72 | rot 96 | dof 69 | pos_gt 72 | dof_gt 69]."""
-        f = ctx_feat[:, self.env.cfg.context_padding + t]
+        """Context frame at rollout step t (index pad + t), split by
+        `_split_frame`."""
+        return self._split_frame(ctx_feat[:, self.env.cfg.context_padding + t])
+
+    @staticmethod
+    def _split_frame(f):
+        """One context frame (N, 378), feature layout [obs_pos 72 | rot 96 |
+        dof 69 | pos_gt 72 | dof_gt 69], as its five blocks."""
         N = f.shape[0]
         return (f[:, :72].reshape(N, 24, 3), f[:, 72:168].reshape(N, 24, 4), f[:, 168:237],
                 f[:, 237:309].reshape(N, 24, 3), f[:, 309:378])
@@ -349,10 +375,16 @@ class ImitationPPO:
         value_norm, target_dof); mu includes the residual action. With the
         context IK the targets come from the IK of the (corrupted) context
         positions, not the ground-truth channels."""
-        cb_pos, cb_rot, c_dof, _, _ = self._ctx_frame(ctx_feat, t)
+        pad = self.env.cfg.context_padding
+        return self._forward_frame(params, obs_norm, raw_obs, ctx_feat[:, pad + t],
+                                   None if ctx_conf is None else ctx_conf[:, pad + t])
+
+    def _forward_frame(self, params, obs_norm, raw_obs, frame, conf=None):
+        """`_forward` on one context frame (N, 378) and its confidence."""
+        cb_pos, cb_rot, c_dof, _, _ = self._split_frame(frame)
         if self.cfg.use_context_ik:
-            conf = torch.ones(cb_pos.shape[:-1], device=cb_pos.device) if ctx_conf is None \
-                else ctx_conf[:, self.env.cfg.context_padding + t]
+            if conf is None:
+                conf = torch.ones(cb_pos.shape[:-1], device=cb_pos.device)
             c_dof, tgt_pos, tgt_rot, _ = self._context_targets(params, cb_pos, conf,
                                                                self.env.rest_joints_smpl)
             io = self.env.imitation_obs(raw_obs, tgt_pos, tgt_rot, c_dof)
@@ -363,12 +395,22 @@ class ImitationPPO:
         mu = torch.cat([mu[:, :69] + c_dof, mu[:, 69:]], dim=-1)
         return io, io_n, mu, value, c_dof
 
-    def _value(self, ts: TrainState, v_norm):
+    def _value(self, val_norm: RN.RunningNormState, v_norm):
         if not self.cfg.normalize_value:
             return v_norm
-        return RN.unnormalize_value(ts.val_norm, v_norm[:, None])[:, 0]
+        return RN.unnormalize_value(val_norm, v_norm[:, None])[:, 0]
 
     # -- rollout --------------------------------------------------------------
+
+    @property
+    def graphed(self) -> bool:
+        """Whether `train_epoch` and `rollout` replay their steps from CUDA
+        graphs (``utils/graphs.py``), as the JAX learner runs its epoch as one
+        jitted program: on the card, for every config without a mesh, domain
+        randomization or the context IK (amass_im, djokovic_im, federer_im,
+        nadal_im). Their steps make no host sync and no draw."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and self.env.randomizer is None and not self.cfg.use_context_ik)
 
     @torch.no_grad()
     def rollout(self, ts: TrainState, draws: Optional[Dict] = None,
@@ -376,6 +418,15 @@ class ImitationPPO:
         """Reset every env, play `horizon` steps; returns the (T, N, ...)
         trajectory with the terminate-masked next values. `env` is the env to
         step (this learner's unless given: an epoch's randomized copy)."""
+        if self.graphed and (env is None or env is self.env):
+            return {k: v.clone() for k, v in self._rollout_graphed(ts, draws).items()}
+        return self._rollout_eager(ts, draws, env)
+
+    @torch.no_grad()
+    def _rollout_eager(self, ts: TrainState, draws: Optional[Dict] = None,
+                       env: Optional[HumanoidImEnv] = None) -> Dict[str, torch.Tensor]:
+        """`rollout` op by op from the host: the oracle of the graphed one,
+        and every path's rollout off the graphed path."""
         cfg = self.cfg
         env = self.env if env is None else env
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
@@ -435,7 +486,7 @@ class ImitationPPO:
             traj["action"][t] = action
             traj["mu"][t] = mu
             traj["neglogp"][t] = diag_gaussian_neglogp(action, mu, self.sigma[None])
-            traj["value"][t] = self._value(ts, v_norm)
+            traj["value"][t] = self._value(ts.val_norm, v_norm)
             traj["reward"][t] = out.reward
             traj["done"][t] = out.done.float()
             traj["terminate"][t] = out.terminate.float()
@@ -450,7 +501,7 @@ class ImitationPPO:
         # for the final obs closes the horizon
         _, _, _, vn_last, _ = self._forward(ts.params, ts.obs_norm, raw_obs, ctx_feat, T,
                                             ctx_conf)
-        v_next = torch.cat([traj["value"][1:], self._value(ts, vn_last)[None]], dim=0)
+        v_next = torch.cat([traj["value"][1:], self._value(ts.val_norm, vn_last)[None]], dim=0)
         traj["next_value"] = v_next * (1.0 - traj["terminate"])
         return traj
 
@@ -565,12 +616,43 @@ class ImitationPPO:
         its block) and `perms` is (mini_epochs, dp, T·N/dp), one per shard.
         Returns the new state (params and moments are updated in place) and
         the metrics, global under a mesh, as 0-d tensors on the device; the
-        env the epoch stepped is kept as `last_env`."""
-        cfg = self.cfg
-        dev = self.device
+        env the epoch stepped is kept as `last_env`. On the graphed path
+        (`graphed`) every env step and every optimizer step is replayed from
+        a CUDA graph."""
+        if self.graphed:
+            return self._train_epoch_graphed(ts, draws)
+        return self._train_epoch_eager(ts, draws)
+
+    def _train_epoch_eager(self, ts: TrainState, draws: Optional[Dict] = None
+                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """`train_epoch` op by op from the host."""
         env = self.epoch_env(ts, draws)
         self.last_env = env
-        traj = self.rollout(ts, draws, env)
+        traj = self._rollout_eager(ts, draws, env)
+        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+        stat_means, lr, opt = self._update_eager(ts, batch_all, lr, draws)
+        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm)
+
+    def _train_epoch_graphed(self, ts: TrainState, draws: Optional[Dict] = None
+                             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """`train_epoch` with each env step and each optimizer step one call
+        of a `StaticGraph` (replayed from a CUDA graph on the card; on the CPU
+        the same staged steps run as they are). The reset, the draws, GAE,
+        the running norms and the metrics stay eager. The draws come from the
+        generator in the eager epoch's order (the reset's, T action noises,
+        each mini-epoch's permutation), so both epochs take the same."""
+        self.last_env = self.env
+        traj = self._rollout_graphed(ts, draws)
+        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+        stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
+        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm)
+
+    def _prepare(self, ts: TrainState, traj):
+        """GAE, the running norms and the epoch's samples: (the batch, env-
+        major (T·N, ...); the obs norm for the next epoch; this epoch's value
+        norm; this epoch's lr)."""
+        cfg = self.cfg
+        dev = self.device
         advs = self._gae(traj)
         returns = advs + traj["value"]
 
@@ -589,7 +671,6 @@ class ImitationPPO:
         # effect NEXT epoch: this epoch's training must normalize with the
         # same stats the rollout used, or old_neglogp and the new mu disagree.
         obs_norm_next = RN.update(ts.obs_norm, obs_f, self.mesh)
-        obs_norm = ts.obs_norm
 
         val_norm = RN.update(ts.val_norm, returns.reshape(-1, 1), self.mesh) \
             if cfg.normalize_value else ts.val_norm
@@ -621,7 +702,16 @@ class ImitationPPO:
             frac = np.float32(1.0) - np.float32(ts.epoch) / np.float32(cfg.lr_decay_epochs)
             lr = cfg.learning_rate * torch.clamp(torch.tensor(frac, device=dev),
                                                  cfg.lr_min_frac, 1.0)
+        return batch_all, obs_norm_next, val_norm, lr
 
+    def _update_eager(self, ts: TrainState, batch_all, lr, draws):
+        """The mini-epochs op by op: (the steps' mean stats, the last lr, the
+        Adam state)."""
+        cfg = self.cfg
+        dev = self.device
+        B = cfg.horizon * self.env.cfg.num_envs
+        alive_f = batch_all["alive"]
+        obs_norm = ts.obs_norm
         names = list(ts.params)
         plist = [ts.params[k] for k in names]
         opt = ts.opt_state
@@ -669,7 +759,13 @@ class ImitationPPO:
         stat_means = torch.stack(stats_rows).mean(0)
         if self.local_sgd:
             stat_means = self._sum(stat_means) / self.dp
-        metrics = dict(zip(stats.keys(), stat_means))
+        return stat_means, lr, opt
+
+    def _finish(self, ts: TrainState, traj, stat_means, lr, opt, obs_norm_next, val_norm):
+        """The epoch's metrics and the new train state."""
+        cfg = self.cfg
+        T = cfg.horizon
+        metrics = dict(zip(self.stat_names, stat_means))
         # the rollout's metrics over every rank's envs, in one collective
         alive, reward = traj["alive"], traj["reward"]
         sums = self._sum(torch.cat([
@@ -687,9 +783,140 @@ class ImitationPPO:
         # success = episode ended by reaching the motion's end rather than a
         # tracking failure
         metrics["success_rate"] = sums[3] / torch.clamp_min(sums[4], 1.0)
-        metrics["lr"] = torch.as_tensor(lr, device=dev)
+        metrics["lr"] = torch.as_tensor(lr, device=self.device)
 
         new_ts = TrainState(params=ts.params, opt_state=opt, obs_norm=obs_norm_next,
                             val_norm=val_norm, generator=ts.generator,
                             epoch=ts.epoch + 1, lr=metrics["lr"])
         return new_ts, metrics
+
+    # -- the graphed epoch ------------------------------------------------------
+
+    def _statics(self, env_state, raw_obs) -> SimpleNamespace:
+        """The graphed epoch's static tensors (made at its first call, from
+        the first reset's) and its two `StaticGraph`s: `step` (one env step)
+        and `update` (one optimizer step)."""
+        if self._st is not None:
+            return self._st
+        cfg, dev = self.cfg, self.device
+        T, N, A = cfg.horizon, self.env.cfg.num_envs, self.num_actions
+        traj = dict(obs=torch.empty(T, N, self.obs_dim, device=dev),
+                    action=torch.empty(T, N, A, device=dev),
+                    mu=torch.empty(T, N, A, device=dev),
+                    ctx_dof=torch.empty(T, N, 69, device=dev),
+                    sub_rewards=torch.empty(T, N, 4, device=dev))
+        for k in ("neglogp", "value", "reward", "done", "terminate", "alive"):
+            traj[k] = torch.empty(T, N, device=dev)
+        steps = cfg.mini_epochs * self.num_minibatches
+        st = SimpleNamespace(
+            state=PM.tree_map(torch.clone, env_state), obs=raw_obs.clone(),
+            obs_norm=RN.RunningNormState.create(self.obs_dim, dev),
+            val_norm=RN.RunningNormState.create(1, dev),
+            frame=torch.empty(N, FRAME_DIM, device=dev), noise=torch.empty(N, A, device=dev),
+            traj=traj, row=torch.zeros(1, dtype=torch.long, device=dev),
+            batch=None, idx=torch.empty(self.mb_local, dtype=torch.long, device=dev),
+            lr=torch.zeros((), device=dev), count=torch.zeros((), dtype=torch.int32, device=dev),
+            stats=torch.empty(steps, len(self.stat_names), device=dev),
+            params=None, opt=None)
+        st.step = graphs.StaticGraph(self._graphed_step, dev)
+        st.update = graphs.StaticGraph(self._graphed_update, dev)
+        self._st = st
+        return st
+
+    @torch.no_grad()
+    def _rollout_graphed(self, ts: TrainState, draws: Optional[Dict] = None):
+        """The rollout with each step one call of the `step` graph; the
+        reset, the draws and the last value eager. Returns the static
+        trajectory, which the next call overwrites."""
+        cfg, env, dev = self.cfg, self.env, self.device
+        T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
+        env_state, raw_obs, ctx = env.reset_all(
+            generator=ts.generator, motion_times=None if draws is None else draws["motion_times"])
+        st = self._statics(env_state, raw_obs)
+        graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
+                       PM.tree_leaves((env_state, raw_obs, ts.obs_norm, ts.val_norm)))
+        st.params = ts.params
+        st.row.zero_()
+        key = graphs.tensor_key(list(ts.params.values()))
+        feat, pad = ctx["feat"], env.cfg.context_padding
+        for t in range(T):
+            st.frame.copy_(feat[:, pad + t])
+            if draws is None:
+                torch.randn((N, A), generator=ts.generator, device=dev, out=st.noise)
+            else:
+                st.noise.copy_(torch.as_tensor(draws["noise"][t]))
+            st.step(key)
+        traj = dict(st.traj)
+        _, _, _, vn_last, _ = self._forward_frame(ts.params, ts.obs_norm, st.obs,
+                                                  feat[:, pad + T])
+        v_next = torch.cat([traj["value"][1:], self._value(ts.val_norm, vn_last)[None]], dim=0)
+        traj["next_value"] = v_next * (1.0 - traj["terminate"])
+        return traj
+
+    def _graphed_step(self) -> None:
+        """One env step on the static tensors: the policy on the static obs
+        and context frame, the static noise, `env.step`, the trajectory's
+        row `row`, the new state copied back."""
+        st = self._st
+        with torch.no_grad():
+            io, _, mu, v_norm, c_dof = self._forward_frame(st.params, st.obs_norm, st.obs,
+                                                           st.frame)
+            action = mu + self.sigma[None] * st.noise
+            alive = (st.state.reset_buf == 0).float()
+            state, out = self.env.step(st.state, action)
+            row = dict(obs=io, action=action, mu=mu,
+                       neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
+                       value=self._value(st.val_norm, v_norm), reward=out.reward,
+                       done=out.done.float(), terminate=out.terminate.float(),
+                       sub_rewards=out.sub_rewards, ctx_dof=c_dof, alive=alive)
+            for k, v in row.items():
+                st.traj[k].index_copy_(0, st.row, v[None])
+            st.row.add_(1)
+            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, out.obs)))
+
+    def _update_graphed(self, ts: TrainState, batch_all, lr, draws):
+        """The mini-epochs with each optimizer step one call of the `update`
+        graph: (the steps' mean stats, the last lr, the Adam state)."""
+        cfg, st = self.cfg, self._st
+        B = cfg.horizon * self.env.cfg.num_envs
+        mb = self.mb_local
+        if st.batch is None:
+            st.batch = {k: v.clone() for k, v in batch_all.items()}
+        else:
+            graphs.refresh(list(st.batch.values()), [batch_all[k] for k in st.batch])
+        st.lr.copy_(lr)
+        st.count.copy_(ts.opt_state.count)
+        st.params, st.opt = ts.params, ts.opt_state
+        st.row.zero_()
+        key = graphs.tensor_key(list(ts.params.values()) + ts.opt_state.mu + ts.opt_state.nu)
+        for e in range(cfg.mini_epochs):
+            perm = _shard_perm(draws, e, B, ts.generator, 1, 0, self.device)
+            for i in range(self.num_minibatches):
+                st.idx.copy_(perm[i * mb:(i + 1) * mb])
+                st.update(key)
+        opt = AdamState(count=st.count.clone(), mu=ts.opt_state.mu, nu=ts.opt_state.nu)
+        return st.stats.mean(0), st.lr.clone(), opt
+
+    def _graphed_update(self) -> None:
+        """One optimizer step on the static tensors: the minibatch gathered
+        through `idx`, the loss and its gradient, K1 (or the optax-chain
+        Adam) on `count` and `lr`, the adaptive lr, the stats' row `row`."""
+        st, cfg = self._st, self.cfg
+        plist = list(st.params.values())
+        batch = {k: v[st.idx] for k, v in st.batch.items()}
+        loss, stats = self._loss(st.params, batch, st.obs_norm)
+        grads = torch.autograd.grad(loss, plist)
+        with torch.no_grad():
+            svals = torch.stack([v.detach() for v in stats.values()])
+            mu, nu = st.opt.mu, st.opt.nu
+            if self.use_fused:
+                count = fused_clip_adam_apply(plist, mu, nu, grads, st.count, st.lr,
+                                              cfg.grad_norm)
+            else:
+                count = clip_adam_apply(plist, AdamState(st.count, mu, nu), grads, st.lr,
+                                        cfg.grad_norm).count
+            st.count.copy_(count)
+            if cfg.lr_schedule == "adaptive":
+                st.lr.copy_(self._adapt_lr(st.lr, svals[list(stats).index("kl")]))
+            st.stats.index_copy_(0, st.row, svals[None])
+            st.row.add_(1)

@@ -10,8 +10,9 @@ the analytic values they are held to; the caller applies the thresholds.
 Nothing syncs with the host inside a run.
 
 On a CUDA device each run's step is captured once in a CUDA graph and
-replayed (`_Loop`): the eager engine is host-bound (~6,800 small ops per
-humanoid substep), and a replay launches the same kernels without the host.
+replayed (`utils.graphs.StaticGraph`): the eager engine is host-bound
+(~6,800 small ops per humanoid substep), and a replay launches the same
+kernels without the host.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..core import quat as Q
 from ..core import smpl as S
+from ..utils.graphs import StaticGraph
 from ..utils.runtime import resolve_device
 from . import asset, engine
 from .model import ArticulationModel, ArticulationState
@@ -32,35 +34,10 @@ G = 9.81
 STATE_FIELDS = ("root_pos", "root_quat", "root_vel", "joint_quat", "joint_omega")
 
 
-class _Loop:
-    """`loop(n)` calls `advance()`, which moves a run's tensors forward in
-    place, n times. On a CUDA device the first call runs on a side stream
-    (the warm-up capture asks for) and is then captured in a CUDA graph,
-    which every later call replays."""
-
-    def __init__(self, advance, device: torch.device):
-        self.advance, self.cuda, self.graph = advance, device.type == "cuda", None
-
-    def __call__(self, n: int) -> None:
-        for _ in range(n):
-            if self.graph is not None:
-                self.graph.replay()
-            elif not self.cuda:
-                self.advance()
-            else:
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    self.advance()
-                torch.cuda.current_stream().wait_stream(side)
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
-                    self.advance()      # recorded, not run
-
-
 def _stepper(state: ArticulationState, step) -> tuple:
     """(live, loop): `live` holds the state's tensors, which `loop(n)`
-    moves forward by n applications of `step` (state -> state)."""
+    moves forward by n applications of `step` (state -> state); on a CUDA
+    device the first application also captures it, the others replay it."""
     live = {f: getattr(state, f).clone() for f in STATE_FIELDS}
 
     def advance():
@@ -68,7 +45,13 @@ def _stepper(state: ArticulationState, step) -> tuple:
         for f in STATE_FIELDS:
             live[f].copy_(getattr(new, f))
 
-    return live, _Loop(advance, state.root_pos.device)
+    graph = StaticGraph(advance, state.root_pos.device)
+
+    def loop(n: int) -> None:
+        for _ in range(n):
+            graph()
+
+    return live, loop
 
 
 def two_body_model(num_envs: int = 1, root_mass: float = 1.0, child_mass: float = 1.0,
