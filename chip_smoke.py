@@ -18,12 +18,13 @@ Phases, each printing one line (any failed phase exits non-zero):
               (eager and graph), and the wrapper's host cost per step
   4. K2       moe_linear against its plain version at the MVAE decoder's three
               full-width layers (E = 6; 320->256, 288->256, 288->290) at
-              B = 10,240, 7,680 (one lane's decode in the dual rally), 1,001,
-              255, 100 (the MotionVAE trainer's batch) and 1, its prep kernel
+              B = 15,360 (the stage-2 decode), 10,240, 7,680 (one lane's
+              decode in the dual rally), 1,001, 255, 100 (the MotionVAE
+              trainer's batch) and 1, its prep kernel
               bit for bit with the plain TF32 split, its backward against
               autograd at B = 256 and 100; its tiling;
-              time per decode (3 prep + 3 GEMM launches) at B = 10,240 and
-              7,680, eager and as a CUDA-graph replay beside the 3xTF32 and
+              time per decode (3 prep + 3 GEMM launches) at B = 10,240,
+              7,680 and 15,360, eager and as a CUDA-graph replay beside the 3xTF32 and
               f32 SIMT bounds, the plain version's, and one cuBLAS GEMM per
               layer of the same FLOPs (no blend, eager and graph) as a library
               yardstick
@@ -64,14 +65,26 @@ Phases, each printing one line (any failed phase exits non-zero):
               (734->1024->1024->512->75), a 4096-candidate ball pool,
               TennisEnv (10,240 envs, 2 substeps, reach reward, 256 candidate
               resets) -> V2PPPO (horizon 64, minibatch 16,384, 6 mini-epochs:
-              240 optimizer steps per epoch), one `train_epoch` (cut from
-              two), the K2 (prep and GEMM) and K3 launch counters set to 0
-              just before and read just after
+              240 optimizer steps per epoch), two `train_epoch`s, every env
+              step and optimizer step replayed from a CUDA graph (the first
+              epoch captures both graphs); the K2 (prep and GEMM) and K3
+              launch counters set to 0 just before each epoch and read just
+              after; epoch, rollout and optimizer-step times, each graph's
+              nodes, capture and instantiate seconds and pool
   11. stage2  8 `TennisEnv.step`s at federer_train_stage_2's env (15,360
               envs, 6 substeps, wrist reaction force, ball-body contact,
               return_w_estimate) with the same networks; K3's counter set to
               0 before its `reset_all` (1 launch) and read after the steps
               (2 launches each: the step's FK targets and the candidate reset)
+  11b. tennis graphs  the graphed tennis epoch against the eager one: at 8
+              envs what differs between two eager epochs and a graphed one
+              (the contact sums' atomics); under deterministic algorithms
+              graphed and eager bit for bit (8 envs, two epochs; 10,240 envs,
+              one of horizon 16) and two eager epochs equal; one graphed stage-2 epoch at
+              15,360 envs (horizon 32, 180 optimizer steps) with its times,
+              graphs and K2/K3 launches, finite with grad_skip 0; the
+              device's idle share over one more graphed stage-1 epoch
+              (profiler)
   12. dual parity  a small dual-rally epoch (8 envs, two players: a
               left-handed two-hand lane and a right-handed one, two policies,
               horizon 4, f32) on the card against the same epoch on the CPU
@@ -323,11 +336,9 @@ def _wrap_timer(obj, name, times):
 
 
 def _timed_rollouts(agent):
-    """Time the rollout a learner's `train_epoch` runs (ImitationPPO's
-    graphed or eager one, V2PPPO's `rollout`); returns (the list of times, a
-    function that unwraps it)."""
-    name = ("_rollout_graphed" if getattr(agent, "graphed", False) else
-            "_rollout_eager" if hasattr(agent, "_rollout_eager") else "rollout")
+    """Time the rollout a learner's `train_epoch` runs (its graphed or eager
+    one); returns (the list of times, a function that unwraps it)."""
+    name = "_rollout_graphed" if agent.graphed else "_rollout_eager"
     times = []
     _wrap_timer(agent, name, times)
     return times, lambda: delattr(agent, name)
@@ -890,7 +901,9 @@ def profile_phase(dev, card: str):
 MOE_LAYERS = ((320, 256), (288, 256), (288, 290))   # the decoder at full width
 MOE_EXPERTS = 6
 TENNIS_ENVS, TENNIS_HORIZON, TENNIS_MINIBATCH, TENNIS_MINI_EPOCHS = 10240, 64, 16384, 6
-TENNIS_EPOCHS = 1   # `tennis_main`, cut from two; `tennis_dr_main` runs SLICE4_EPOCHS
+# `tennis_main`: the first epoch captures the graphs, the second replays
+# them; `tennis_dr_main` runs SLICE4_EPOCHS
+TENNIS_EPOCHS = 2
 STAGE2_ENVS, STAGE2_STEPS = 15360, 8
 # `dual_main` runs one epoch (cut from two, as `main` and `tennis_main`)
 DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 1
@@ -992,7 +1005,7 @@ def k2_phase(dev, card: str):
     # plain version's (cuBLAS, blend after the product) differ by rounding
     tol = 1e-4
     errs = {}
-    for batch in (TENNIS_ENVS, LANE_DECODE, 1001, 255, MVAE_BATCH, 1):
+    for batch in (STAGE2_ENVS, TENNIS_ENVS, LANE_DECODE, 1001, 255, MVAE_BATCH, 1):
         for d_in, d_out in MOE_LAYERS:
             x, coeff, w, b = _moe_layer_inputs(dev, batch, d_in, d_out, gen)
             got = MOE.moe_linear(x, coeff, w, b)
@@ -1021,16 +1034,18 @@ def k2_phase(dev, card: str):
         if t["ctas_per_sm"] < 1:
             fail(f"K2's tiling does not fit an SM: {t}")
 
-    times = {batch: _k2_times(dev, card, batch, gen) for batch in (TENNIS_ENVS, LANE_DECODE)}
-    main, lane = times[TENNIS_ENVS], times[LANE_DECODE]
+    times = {batch: _k2_times(dev, card, batch, gen)
+             for batch in (TENNIS_ENVS, LANE_DECODE, STAGE2_ENVS)}
+    main = times[TENNIS_ENVS]
+    keys = ("ms", "graph_ms", "plain_ms", "plain_graph_ms", "library_ms", "library_graph_ms",
+            "bound_ms", "bound_by", "f32_simt_bound_ms", "share_of_3xtf32_bound",
+            "achieved_tflops", "flops")
     row = dict(main, max_abs_err=max(errs.values()), tol=tol, split_max_abs_err=split_err,
-               backward_max_abs_err=bwd_err, per_lane_B7680={
-                   k: lane[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
-                                        "library_ms", "library_graph_ms", "bound_ms",
-                                        "f32_simt_bound_ms", "share_of_3xtf32_bound",
-                                        "achieved_tflops")})
-    say("K2", card=card, unit="one MVAE decode at B=10240 (and per_lane_B7680: one lane of the "
-        "dual rally): 3 prep + 3 GEMM launches", errs=errs,
+               backward_max_abs_err=bwd_err,
+               per_lane_B7680={k: times[LANE_DECODE][k] for k in keys},
+               stage2_B15360={k: times[STAGE2_ENVS][k] for k in keys})
+    say("K2", card=card, unit="one MVAE decode at B=10240 (per_lane_B7680: one lane of the "
+        "dual rally; stage2_B15360: the stage-2 decode): 3 prep + 3 GEMM launches", errs=errs,
         library="x @ W.reshape(in, 6*out): one cuBLAS f32 GEMM per layer, same FLOPs, "
                 "no blend",
         tiling=tilings, **row)
@@ -1290,57 +1305,104 @@ def tennis_parity_phase(dev):
 # phase 9: the tennis main path
 # ---------------------------------------------------------------------------
 
+def _v2p_snapshot(agent, ts):
+    """A function giving fresh copies of a tennis train state, each with the
+    learner's and the env's generators set back to where they stood, so
+    that every epoch from a copy takes the same draws."""
+    import dataclasses
+
+    import torch
+
+    from vid2player3d_torch.learn.optim import AdamState
+    from vid2player3d_torch.parallel import mesh as PM
+
+    saved = PM.tree_map(lambda t: t.detach().clone(), dataclasses.replace(ts, generator=None))
+    gen_state = ts.generator.get_state()
+    env_gen = agent.env.generator.get_state()
+
+    def fresh():
+        agent.env.generator.set_state(env_gen)
+        gen = torch.Generator(ts.generator.device)
+        gen.set_state(gen_state)
+        c = PM.tree_map(torch.clone, saved)
+        return dataclasses.replace(
+            c, generator=gen,
+            params={k: v.requires_grad_(True) for k, v in c.params.items()},
+            opt_state=AdamState(c.opt_state.count, c.opt_state.mu, c.opt_state.nu))
+
+    return fresh
+
+
+def _stage1_agent(dev, n, gen=None, horizon=None, minibatch=None, mini_epochs=None,
+                  episode=600, reaction=70, candidates=256):
+    """federer_train_stage_1's learner at `n` envs (its sizes unless given):
+    random full-width MVAE and pi_low from seed 0, reach reward, discrete
+    targets."""
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+
+    horizon = horizon or TENNIS_HORIZON
+    minibatch = minibatch or TENNIS_MINIBATCH
+    mini_epochs = mini_epochs or TENNIS_MINI_EPOCHS
+
+    env_cfg = TennisConfig(num_envs=n, substeps=2, max_episode_length=episode,
+                           reward_type="reach", use_random_ball_target="discrete",
+                           reset_reaction_nframes=reaction, reset_candidates=candidates)
+    return V2PPPO(_tennis_env(dev, env_cfg, hidden=256, experts=6, gen=gen), V2PConfig(
+        horizon=horizon, minibatch_size=minibatch, mini_epochs=mini_epochs, learning_rate=1e-4,
+        sigma_init=-0.69, bounds_loss_coef=10.0, critic_coef=5.0, grad_norm=50.0), seed=7,
+        device=dev)
+
+
 def tennis_main_phase(dev, card: str):
+    """federer_train_stage_1 at its sizes, graphed: the first epoch captures
+    the step and update graphs, the second replays them. K2 and K3 counted
+    through the replays, per epoch. Returns the learner, its state and the
+    launches of one epoch."""
     import math
 
     import torch
 
-    from vid2player3d_torch.envs import TennisConfig
-    from vid2player3d_torch.learn import V2PConfig, V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
     MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
-    env_cfg = TennisConfig(num_envs=TENNIS_ENVS, substeps=2, max_episode_length=600,
-                           reward_type="reach", use_random_ball_target="discrete",
-                           reset_reaction_nframes=70, reset_candidates=256)
-    agent = V2PPPO(_tennis_env(dev, env_cfg, hidden=256, experts=6), V2PConfig(
-        horizon=TENNIS_HORIZON, minibatch_size=TENNIS_MINIBATCH, mini_epochs=TENNIS_MINI_EPOCHS,
-        learning_rate=1e-4, sigma_init=-0.69, bounds_loss_coef=10.0, critic_coef=5.0,
-        grad_norm=50.0), seed=7, device=dev)
+    agent = _stage1_agent(dev, TENNIS_ENVS)
+    if not agent.graphed:
+        fail("tennis_main: the stage-1 learner does not take the graphs")
     ts = agent.init_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     steps_per_epoch = agent.num_minibatches * TENNIS_MINI_EPOCHS
 
     torch.cuda.reset_peak_memory_stats()
-    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
-    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
-    epoch_s, rows = [], []
+    epoch_s, rows, launches = [], [], []
     # the rollout (policy forward + env step) timed inside the epoch, for
     # env-steps/s
     rollout_times, unwrap = _timed_rollouts(agent)
     try:
         for _ in range(TENNIS_EPOCHS):
+            MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+            FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
             t0 = time.perf_counter()
             ts, m = agent.train_epoch(ts)
             torch.cuda.synchronize()
             epoch_s.append(time.perf_counter() - t0)
             rows.append({k: float(v) for k, v in m.items()})
+            launches.append({"moe_linear": MOE.moe_linear.launches,
+                             "moe_split_w": MOE.split_weights.launches,
+                             "fk_chain": FK.fk_chain.launches,
+                             "k1": FA.leaf_update.launches + FA.global_norm_scalars.launches})
     finally:
         unwrap()
-    rollout_s = rollout_times[-1]
-    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
-    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    env_steps = TENNIS_EPOCHS * TENNIS_HORIZON
-    if k2 != 3 * env_steps or k2_prep != 3 * env_steps:
-        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the tennis path, expected "
-             f"{3 * env_steps} each")
-    if k3 != 2 * env_steps:
-        fail(f"K3 launched {k3} times on the tennis path, expected {2 * env_steps}")
+    want = {"moe_linear": 3 * TENNIS_HORIZON, "moe_split_w": 3 * TENNIS_HORIZON,
+            "fk_chain": 2 * TENNIS_HORIZON, "k1": 0}
+    for e, got in enumerate(launches):
+        if got != want:
+            fail(f"tennis epoch {e} launched {got} on the tennis path, expected {want}")
     for i, r in enumerate(rows):
         bad = [k for k, v in r.items() if not math.isfinite(v)]
         if bad:
@@ -1349,24 +1411,223 @@ def tennis_main_phase(dev, card: str):
             fail(f"tennis epoch {i}: grad_skip {r['grad_skip']}")
     if int(ts.opt_state.count) != TENNIS_EPOCHS * steps_per_epoch:
         fail(f"optimizer count {int(ts.opt_state.count)}")
-
     if not bool(torch.isfinite(ts.last_obs).all()):
         fail("tennis rollout obs not finite")
+    graphs = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
+    if any(v["captures"] != 1 for v in graphs.values()):
+        fail(f"tennis_main: the graphs captured {graphs} times over {TENNIS_EPOCHS} epochs")
 
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
             "done_rate", "reward_mean", "c_loss", "kl", "grad_skip")
     say("tennis_main", card=card, nvidia_smi=nvidia_smi(), envs=TENNIS_ENVS,
         horizon=TENNIS_HORIZON, substeps=2, minibatch=TENNIS_MINIBATCH,
-        mini_epochs=TENNIS_MINI_EPOCHS, epochs=TENNIS_EPOCHS, cut="1 epoch",
+        mini_epochs=TENNIS_MINI_EPOCHS, epochs=TENNIS_EPOCHS, graphed=agent.graphed,
+        note="epoch 0 captures both graphs, epoch 1 replays them",
         compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts, 288->290",
         ball_pool=agent.env.gen.pool_size, setup_s=setup_s, epoch_s=epoch_s,
-        rollout_s=rollout_s, rollout_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / rollout_s,
+        rollout_s=rollout_times,
+        rollout_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / rollout_times[-1],
         epoch_env_steps_per_s=TENNIS_ENVS * TENNIS_HORIZON / epoch_s[-1],
-        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
-        k3_launches=k3,
-        k1_launches=k1, peak_mem_gib=peak_gib,
+        optimizer_steps_per_epoch=steps_per_epoch,
+        optimizer_step_ms=[(e - r) / steps_per_epoch * 1e3
+                           for e, r in zip(epoch_s, rollout_times)],
+        launches_per_epoch=launches, graphs=graphs, peak_mem_gib=peak_gib,
         metrics=[{k: r[k] for k in keep} for r in rows])
-    return agent, ts, {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
+    one = {k: launches[-1][k] for k in ("moe_linear", "moe_split_w", "fk_chain")}
+    return agent, ts, one
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the tennis epochs replayed from CUDA graphs against eager ones
+# ---------------------------------------------------------------------------
+
+GRAPH_TENNIS_SMALL = 8                # envs of the bit-for-bit case
+# the deterministic comparison at 10,240 envs: horizon cut from 64 (60
+# optimizer steps), as its eager epoch takes ~2x the default mode's time
+DET_HORIZON = 16
+STAGE2_HORIZON, STAGE2_MINIBATCH = 32, 16384   # federer_train_stage_2's learner
+
+
+def _differ(a, ma, b, mb) -> dict:
+    """What differs between two tennis train states and their metrics: each
+    quantity's largest absolute difference, where it is not 0."""
+    import math
+
+    from vid2player3d_torch.parallel import mesh as PM
+
+    def err(x, y):
+        return float((x.detach().float() - y.detach().float()).abs().max())
+
+    def metric(k):
+        x, y = float(ma[k]), float(mb[k])
+        return 0.0 if (x == y or (math.isnan(x) and math.isnan(y))) else abs(x - y)
+
+    gaps = dict(params=max(err(a.params[k], b.params[k]) for k in a.params),
+                mu=max(err(x, y) for x, y in zip(a.opt_state.mu, b.opt_state.mu)),
+                nu=max(err(x, y) for x, y in zip(a.opt_state.nu, b.opt_state.nu)),
+                count=int(a.opt_state.count) - int(b.opt_state.count),
+                env_state=max(err(x, y) for x, y in zip(PM.tree_leaves(a.env_state),
+                                                        PM.tree_leaves(b.env_state))),
+                last_obs=err(a.last_obs, b.last_obs),
+                **{f"{n}_{f}": err(getattr(getattr(a, n), f), getattr(getattr(b, n), f))
+                   for n in ("obs_norm", "val_norm") for f in ("n", "mean", "var")},
+                **{"metric_" + k: metric(k) for k in ma})
+    return {k: v for k, v in gaps.items() if v}
+
+
+def _timed_epoch(fn, ts):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, m = fn(ts)
+    torch.cuda.synchronize()
+    return ts, m, time.perf_counter() - t0
+
+
+def tennis_graphs_phase(dev, card: str, agent, ts, stage2_env):
+    """The tennis epoch replayed from CUDA graphs against the eager epoch.
+    The contact sums' `index_add` atomics make two eager epochs differ on
+    the card (the phase prints what differs at 8 envs: two eager epochs and
+    a graphed one from one state and draws), so graphed and eager are held
+    bit for bit under `torch.use_deterministic_algorithms`, where two eager
+    epochs agree (each learner captured in that mode): stage 1 at 8 envs
+    over two epochs and at 10,240 envs over one (horizon 16). Then one graphed stage-2
+    epoch at 15,360 envs (horizon 32, 6 substeps) with its times, graphs
+    and K2/K3 launches, and the device's idle share over one more graphed
+    stage-1 epoch of tennis_main's learner (profiler). Returns that
+    learner's newest state and the stage-2 epoch's launches."""
+    import gc
+    import math
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.ops import fk as FK
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+
+    t_phase = time.perf_counter()
+    out = {}
+    gen = agent.env.gen
+
+    def small():
+        return _stage1_agent(dev, GRAPH_TENNIS_SMALL, gen, horizon=8, minibatch=16,
+                             mini_epochs=2, episode=12, reaction=6, candidates=2)
+
+    # the default mode: what differs
+    learner = small()
+    fresh = _v2p_snapshot(learner, learner.init_state())
+    e1, e2 = (learner._train_epoch_eager(fresh()) for _ in range(2))
+    g1 = learner.train_epoch(fresh())
+    out["default_mode_stage1_8"] = dict(eager_vs_eager=_differ(*e2, *e1),
+                                        graphed_vs_eager=_differ(*g1, *e1))
+    del learner, fresh, e1, e2, g1
+
+    # deterministic algorithms: graphed and eager bit for bit
+    det = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, make, epochs in (("stage1_8", small, 2),
+                                       ("stage1_10240", lambda: _stage1_agent(
+                                           dev, TENNIS_ENVS, gen, horizon=DET_HORIZON), 1)):
+                learner = make()
+                if not learner.graphed:
+                    fail(f"tennis_graphs: the {name} learner does not take the graphs")
+                fresh = _v2p_snapshot(learner, learner.init_state())
+                a, b = fresh(), fresh()
+                r = det[name] = dict(differ=[], graphed_epoch_s=[], eager_epoch_s=[])
+                for e in range(epochs):
+                    again = _v2p_snapshot(learner, b)
+                    a, ma, tg = _timed_epoch(learner.train_epoch, a)
+                    b, mb, te = _timed_epoch(learner._train_epoch_eager, again())
+                    r["differ"].append(_differ(a, ma, b, mb))
+                    r["graphed_epoch_s"].append(tg)
+                    r["eager_epoch_s"].append(te)
+                    if name == "stage1_8" and e == 0:
+                        # two eager epochs agree in this mode
+                        r["eager_vs_eager"] = _differ(*learner._train_epoch_eager(again()), b, mb)
+                r["captures"] = [learner._st.step.captures, learner._st.update.captures]
+                r["step_nodes"] = learner._st.step.nodes
+                del learner, fresh, a, b, again
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det["ops_without_a_deterministic_form"] = sorted({str(w.message).split(" does not")[0][:80]
+                                                      for w in caught})
+    out["deterministic_mode"] = det
+
+    # one graphed stage-2 epoch at full size
+    stage2 = V2PPPO(stage2_env, V2PConfig(horizon=STAGE2_HORIZON, minibatch_size=STAGE2_MINIBATCH,
+                                          mini_epochs=6, learning_rate=2e-5, sigma_init=-0.69,
+                                          bounds_loss_coef=10.0), seed=7, device=dev)
+    if not stage2.graphed:
+        fail("tennis_graphs: the stage-2 learner does not take the graphs")
+    ts2 = stage2.init_state()
+    roll2, unwrap = _timed_rollouts(stage2)
+    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
+    try:
+        ts2, m, s2_epoch = _timed_epoch(stage2.train_epoch, ts2)
+    finally:
+        unwrap()
+    s2_launch = {"moe_linear": MOE.moe_linear.launches, "moe_split_w": MOE.split_weights.launches,
+                 "fk_chain": FK.fk_chain.launches}
+    s2_steps = stage2.num_minibatches * 6
+    s2_metrics = {k: float(v) for k, v in m.items()}
+    out["stage2_15360"] = dict(
+        envs=STAGE2_ENVS, substeps=6, horizon=STAGE2_HORIZON, optimizer_steps=s2_steps,
+        first_epoch_s=s2_epoch, rollout_s=roll2[0],
+        optimizer_step_ms=(s2_epoch - roll2[0]) / s2_steps * 1e3, launches=s2_launch,
+        graphs={g: _graph_stats(getattr(stage2._st, g)) for g in ("step", "update")},
+        metrics={k: s2_metrics[k] for k in ("reward_mean", "done_rate", "kl", "c_loss",
+                                            "grad_skip", "contact_rate")},
+        obs_finite=bool(torch.isfinite(ts2.last_obs).all()))
+    del stage2, ts2, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the device's idle share over one graphed stage-1 epoch (replays only)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts, _ = agent.train_epoch(ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in evs) * 1e-9
+    out["stage1_profile"] = dict(wall_s=wall, device_busy_s=busy if evs else "not measured",
+                                 device_idle_share=(1.0 - busy / wall) if evs
+                                 else "not measured", device_events=len(evs),
+                                 read_s=time.perf_counter() - t0,
+                                 captures=[agent._st.step.captures, agent._st.update.captures])
+    del prof, evs
+    say("tennis_graphs", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t_phase,
+        **out)
+
+    for name in ("stage1_8", "stage1_10240"):
+        r = det[name]
+        if any(r["differ"]) or r.get("eager_vs_eager") or r["captures"] != [1, 1]:
+            fail(f"tennis_graphs: under deterministic algorithms the graphed {name} epochs "
+                 f"differ from the eager ones: {r['differ']} (captures {r['captures']})")
+    if out["stage1_profile"]["captures"] != [1, 1]:
+        fail(f"tennis_graphs: tennis_main's graphs captured {out['stage1_profile']['captures']} "
+             "times over three epochs")
+    s2 = out["stage2_15360"]
+    want = {"moe_linear": 3 * STAGE2_HORIZON, "moe_split_w": 3 * STAGE2_HORIZON,
+            "fk_chain": 2 * STAGE2_HORIZON}
+    if s2["launches"] != want:
+        fail(f"tennis_graphs: the stage-2 epoch launched {s2['launches']}, expected {want}")
+    if not all(math.isfinite(v) for v in s2_metrics.values()) or not s2["obs_finite"]:
+        fail(f"tennis_graphs: the stage-2 epoch is not finite: {s2_metrics}")
+    if s2_metrics["grad_skip"] != 0.0:
+        fail(f"tennis_graphs: stage-2 grad_skip {s2_metrics['grad_skip']}")
+    return ts, s2_launch
 
 
 # ---------------------------------------------------------------------------
@@ -2403,7 +2664,10 @@ def rollout_profile_phase(name: str, card: str, agent, ts, horizon: int = 2):
     short = dataclasses.replace(agent.cfg, horizon=horizon)
     cfg0 = agent.cfg
     agent.cfg = short
+    graphed = getattr(agent, "graphed", False)
     try:
+        if graphed:
+            agent.rollout(ts)      # the short horizon's step graph, captured before the profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2431,7 +2695,8 @@ def rollout_profile_phase(name: str, card: str, agent, ts, horizon: int = 2):
                        if any(r.start <= e.time_range.start < r.end for r in ranges)) * 1e-6
         spans[span] = dict(wall_share=span_wall / wall,
                            device_share=span_dev / busy if busy and ranges else "not measured")
-    say(name, card=card, envs=agent.env.cfg.num_envs, horizon=horizon, wall_s=wall,
+    say(name, card=card, envs=agent.env.cfg.num_envs, horizon=horizon, graphed=graphed,
+        wall_s=wall,
         wall_s_per_env_step=wall / horizon,
         device_busy_s=busy if evs else "not measured",
         device_idle_share=(1.0 - busy / wall) if evs else "not measured",
@@ -3978,6 +4243,7 @@ def main() -> None:
     tennis_parity_phase(dev)
     agent, ts, tennis_launches = tennis_main_phase(dev, card)
     stage2_env = stage2_phase(dev, card, agent, ts)
+    ts, stage2_launches = tennis_graphs_phase(dev, card, agent, ts, stage2_env)
     dual_parity_phase(dev)
     dual_agent, dual_ts, dual_launches = dual_main_phase(dev, card)
     dr_parity_phase(dev)
@@ -4028,7 +4294,8 @@ def main() -> None:
             **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
-        paths = {"tennis_stage1": tennis_launches[name], "dual_rally": dual_launches[name],
+        paths = {"tennis_stage1": tennis_launches[name], "tennis_stage2": stage2_launches[name],
+                 "dual_rally": dual_launches[name],
                  "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name]}
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
@@ -4074,9 +4341,11 @@ def main() -> None:
          **per_path("moe_linear"),
          **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240, and per_lane_B7680 "
-                 "one lane's decode in the dual rally; bound: 3xTF32",
-         "per_lane_B7680": k2["per_lane_B7680"], "mvae_B100": k2_b100,
+         "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240, per_lane_B7680 "
+                 "one lane's decode in the dual rally, stage2_B15360 the stage-2 decode; "
+                 "bound: 3xTF32",
+         "per_lane_B7680": k2["per_lane_B7680"], "stage2_B15360": k2["stage2_B15360"],
+         "mvae_B100": k2_b100,
          "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
          "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
          "backward_max_abs_err": k2["backward_max_abs_err"]},

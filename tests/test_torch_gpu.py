@@ -2,8 +2,9 @@
 moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
 versions on the card; and the dual rally's step and two-hand IK on the card
 against the same on the CPU, with K2's and K3's launches per dual step; the
-epochs replayed from CUDA graphs against their eager bodies, the launch
-counts through replays, a capture that fails.
+epochs replayed from CUDA graphs (imitation, MotionVAE, tennis stage 1)
+against their eager bodies, the launch counts through replays, a capture
+that fails.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -801,6 +802,92 @@ def test_mvae_fuse_on_the_card(cuda, tmp_path):
         assert losses == runs[0][0] and count == runs[0][2] == 50
         for a, b in zip(params, runs[0][1]):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _tennis_learner(cuda, n, horizon):
+    """A stage-1 learner on the card at test widths (the same seeded weights
+    on every call): reach reward, discrete targets, 2 candidate resets,
+    episodes of 6 steps."""
+    import numpy as np
+
+    from vid2player3d_torch.envs import TennisConfig, TennisEnv
+    from vid2player3d_torch.learn import FrozenImitator, V2PConfig, V2PPPO
+    from vid2player3d_torch.learn import running_norm as RN
+    from vid2player3d_torch.learn.networks import ImitatorNet
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    frames = (np.random.default_rng(0).standard_normal((8, P.FRAME_SIZE)) * 0.05
+              ).astype(np.float32)
+    frames[:, 2] = 0.95
+    pool = TennisBallGenerator(num_candidates=256, seed=0, device="cpu")
+    gen = TennisBallGenerator.from_arrays(pool.traj_pool, pool.launch_pos, pool.launch_vel,
+                                          pool.launch_vspin, device=cuda)
+    pi_low = FrozenImitator(net=ImitatorNet(num_actions=75,
+                                            generator=torch.Generator().manual_seed(0)).to(cuda),
+                            obs_norm=RN.RunningNormState.create(734, cuda))
+    env = TennisEnv(TennisConfig(num_envs=n, substeps=2, max_episode_length=6,
+                                 reset_reaction_nframes=6, reward_type="reach",
+                                 use_random_ball_target="discrete", reset_candidates=2),
+                    P.make_random_spec(0, hidden=32, experts=2, device=cuda), frames,
+                    ball_generator=gen, pi_low=pi_low, device=cuda)
+    return V2PPPO(env, V2PConfig(horizon=horizon, minibatch_size=16, mini_epochs=2,
+                                 actor_units=(64, 32), critic_units=(64, 32),
+                                 compute_dtype="f32"), seed=7, device=cuda)
+
+
+@pytest.fixture
+def deterministic():
+    """`torch.use_deterministic_algorithms` for one test: the contact sums'
+    `index_add` takes its sorted form, so two eager tennis epochs agree to
+    the bit (with its atomics they differ in the last bits on the card)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_graphed_tennis_epoch_equals_eager_on_the_card(cuda, deterministic):
+    """`V2PPPO.train_epoch` (graphed on the card) against `_train_epoch_eager`
+    from one state and one seed of each generator, two epochs at 8 envs
+    under deterministic algorithms: metrics, params, moments, norms, env
+    state and last obs bit for bit; K2 (3 prep + 3 GEMM) and K3 (2) per env
+    step through the replays, as the eager epoch launches them; one capture
+    per graph."""
+    from vid2player3d_torch.parallel import mesh as PM
+
+    T = 4
+    agent = _tennis_learner(cuda, 8, T)
+    assert agent.graphed
+    env = agent.env
+    g = env.generator.get_state()
+    a = agent.init_state()
+    env.generator.set_state(g)
+    b = agent.init_state()
+    for _ in range(2):
+        g = env.generator.get_state()
+        launched = []
+        for graphed in (True, False):
+            env.generator.set_state(g)
+            before = (MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches)
+            if graphed:
+                a, ma = agent.train_epoch(a)
+            else:
+                b, mb = agent._train_epoch_eager(b)
+            torch.cuda.synchronize()
+            launched.append((MOE.moe_linear.launches - before[0],
+                             MOE.split_weights.launches - before[1],
+                             FK.fk_chain.launches - before[2]))
+        assert launched == [(3 * T, 3 * T, 2 * T)] * 2, launched
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]) or bool(ma[k].isnan() & mb[k].isnan()), k
+        for x, y in zip(PM.tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu, a.obs_norm,
+                                        a.val_norm, a.env_state, a.last_obs)),
+                        PM.tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu, b.obs_norm,
+                                        b.val_norm, b.env_state, b.last_obs))):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        assert torch.equal(a.opt_state.count, b.opt_state.count)
+    assert agent._st.step.captures == agent._st.update.captures == 1
+    assert agent._st.step.launches[2:] == (3, 3, 2)
 
 
 def test_cli_curriculum_runs_on_the_card_by_default(cuda, tmp_path):

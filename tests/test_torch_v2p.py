@@ -24,6 +24,7 @@ from vid2player3d_tpu.learn import V2PPPO as JV2P
 from vid2player3d_tpu.utils.checkpoint import _flatten
 from vid2player3d_torch.learn import V2PConfig, V2PPPO
 from vid2player3d_torch.learn.v2p_ppo import nanmedian
+from vid2player3d_torch.parallel import mesh as PM
 from vid2player3d_torch.utils import checkpoint as CK
 
 torch.set_num_threads(1)
@@ -53,7 +54,9 @@ def _draws(jagent, jts):
 
 
 @pytest.fixture(scope="module")
-def epoch():
+def jax_run():
+    """The JAX epoch (one jit compile), its draws and its start, and the
+    port's env."""
     jenv, tenv = build_envs(make_shared(), **ENV)
     jagent = JV2P(jenv, JV2PCfg(**LEARNER), seed=SEED)
     jts0 = jagent.init_state()
@@ -63,14 +66,24 @@ def epoch():
     last_obs0 = np.asarray(jts0.last_obs)
     jts1, jm = jagent.train_epoch(jts0)
     jm = {k: float(v) for k, v in jm.items()}
+    return dict(jts1=jts1, jm=jm, draws=draws, init_params=init_params, env_state0=env_state0,
+                last_obs0=last_obs0, tagent=V2PPPO(tenv, V2PConfig(**LEARNER), seed=SEED,
+                                                   device="cpu"))
 
-    tagent = V2PPPO(tenv, V2PConfig(**LEARNER), seed=SEED, device="cpu")
-    tts0 = tagent.init_state(init_params)
-    tts0.env_state = CK.tennis_state_from_jax(env_state0)
-    tts0.last_obs = torch.tensor(last_obs0)
-    tts1, tm = tagent.train_epoch(tts0, draws=draws)
+
+def _port_start(run):
+    """The port's train state at the JAX epoch's start."""
+    tts0 = run["tagent"].init_state(run["init_params"])
+    tts0.env_state = CK.tennis_state_from_jax(run["env_state0"])
+    tts0.last_obs = torch.tensor(run["last_obs0"])
+    return tts0
+
+
+@pytest.fixture(scope="module")
+def epoch(jax_run):
+    tts1, tm = jax_run["tagent"].train_epoch(_port_start(jax_run), draws=jax_run["draws"])
     tm = {k: float(v) for k, v in tm.items()}
-    return jts1, jm, tts1, tm, init_params
+    return jax_run["jts1"], jax_run["jm"], tts1, tm, jax_run["init_params"]
 
 
 # the losses see the network on rollout observations that agree to ~1e-5
@@ -83,6 +96,10 @@ def test_epoch_metrics_match(epoch):
     """Every metric of the JAX epoch, the racket-ball distance median and
     P90 included; the epoch saw in-reaction frames and no skipped update."""
     _, jm, _, tm, _ = epoch
+    _hold_metrics(tm, jm)
+
+
+def _hold_metrics(tm, jm):
     assert set(tm) == set(jm)
     for k in jm:
         np.testing.assert_allclose(tm[k], jm[k], atol=METRIC_ATOL.get(k, 1e-5), rtol=1e-4,
@@ -100,6 +117,10 @@ def test_epoch_params_and_state_match(epoch):
     running obs / value normalizers and the carried env state after the
     epoch agree to 1e-4."""
     jts1, _, tts1, _, init_params = epoch
+    _hold_state(jts1, tts1, init_params)
+
+
+def _hold_state(jts1, tts1, init_params):
     jp = CK.params_from_jax(_flatten(jts1.params))
     n_steps = MINI_EPOCHS * (N * T // MB)
     diff2 = ref2 = 0.0
@@ -124,6 +145,29 @@ def test_epoch_params_and_state_match(epoch):
         else:
             np.testing.assert_allclose(got[k], v, atol=1e-4, err_msg=k)
     np.testing.assert_allclose(tts1.last_obs.numpy(), np.asarray(jts1.last_obs), atol=1e-4)
+
+
+def test_graphed_epoch_matches_jax(jax_run, epoch):
+    """The staged epoch (`_train_epoch_graphed`, each env and optimizer step
+    one `StaticGraph` call, as the card replays them) on the JAX learner's
+    draws: every metric, the params, the norms and the carried env state at
+    the bounds of the two tests above, and bit for bit with the eager epoch
+    on the same draws."""
+    ts, m = jax_run["tagent"]._train_epoch_graphed(_port_start(jax_run),
+                                                    draws=jax_run["draws"])
+    tm = {k: float(v) for k, v in m.items()}
+    jts1, jm, ref, ref_m, init_params = epoch
+    _hold_metrics(tm, jm)
+    _hold_state(jts1, ts, init_params)
+    assert tm.keys() == ref_m.keys()
+    for k in tm:
+        assert tm[k] == ref_m[k] or (np.isnan(tm[k]) and np.isnan(ref_m[k])), k
+    for k in ts.params:
+        torch.testing.assert_close(ts.params[k], ref.params[k], rtol=0, atol=0, msg=k)
+    for x, y in zip(PM.tree_leaves((ts.env_state, ts.last_obs, ts.opt_state.mu, ts.opt_state.nu)),
+                    PM.tree_leaves((ref.env_state, ref.last_obs, ref.opt_state.mu,
+                                    ref.opt_state.nu))):
+        assert torch.equal(x, y)
 
 
 def test_nanmedian_is_numpys():

@@ -287,12 +287,31 @@ class TennisEnv:
         self._rs = dict(cfg.reward_scales)
         self._smpl_2_mujoco = torch.as_tensor(S.SMPL_2_MUJOCO, dtype=torch.long,
                                               device=self.device)
+        # the step's constants, made once: a tensor built from host data in
+        # the step would be a copy that syncs, which a CUDA graph cannot hold
+        dev = self.device
+        self._root_xy_scale = torch.tensor([2.0, 1.5], device=dev)
+        self._root_xy_center = torch.tensor([0.0, -13.0], device=dev)
+        self._toss_lift = torch.tensor([0.0, 0.0, 0.1], device=dev)
+        self._toss_apex = torch.tensor([-0.87, -12.10, 2.71], device=dev)
+        self._target_lo = torch.tensor(cfg.target_bounce_min, device=dev)
+        self._target_hi = torch.tensor(cfg.target_bounce_max, device=dev)
+        self._gvec = self._gravity(self.ball_params.gravity)
         self._candidates = None
         # data parallelism (`shard`): this env's place in the global batch,
         # and the global candidate-reset env and its model
         self.shard_info: Optional[PM.EnvShard] = None
         self._cand_base = None
         self._cand_model = None
+
+    # the per-step stats `step` returns in `StepOutput.extras`
+    EXTRAS = ("cycle_end", "cycle_hit", "contact_now", "contact_est_in", "swing_fh",
+              "swing_bh", "in_reaction", "racket_ball_dist")
+
+    @property
+    def num_sub_rewards(self) -> int:
+        """The width of `StepOutput.sub_rewards`."""
+        return 1 if self.cfg.reward_type == "reach" else 4
 
     # per-env fields besides the model and the body channel
     _ENV_FIELDS = ("righthand", "wrist_id", "hand_id", "free_hand_id", "racket_dir_c",
@@ -340,8 +359,15 @@ class TennisEnv:
             env.model = model
         if ball_params is not None:
             env.ball_params = ball_params
+            env._gvec = env._gravity(ball_params.gravity)
         env._candidates = None
         return env
+
+    def _gravity(self, g) -> torch.Tensor:
+        """(0, 0, -g) on the env's device."""
+        gvec = torch.zeros(3, device=self.device)
+        gvec.narrow(0, 2, 1).fill_(-g)
+        return gvec
 
     def with_randomized_model(self, dr, step, generator=None, draws=None) -> "TennisEnv":
         """A shallow copy of this env stepping its model perturbed by the
@@ -530,6 +556,49 @@ class TennisEnv:
             else PM.global_rows(self.shard_info, as_draw(idx, torch.long, self.device))
         return self.gen.sample(n, idx=idx)
 
+    def step_draws(self, generator: Optional[torch.Generator] = None) -> Dict:
+        """One `step`'s draws from `generator` (the env's own unless given),
+        in the order, shapes and dtypes in which `step(draws=None)` draws
+        them: the masked reset's (`reset`: `root_xy_u`, `init_idx`,
+        `ball_idx` unless the serve toss launches the ball, `tt`, `target_u`;
+        for the K candidates, or for every env), `rw_noise` (with the random
+        walk in recovery), `ball_idx`, `near_jitter`, `tt` and `target_u`.
+        `step` given them draws nothing, so a step replayed from a CUDA graph
+        takes them as static inputs and sees the numbers the eager step
+        draws. The draws are global (a sharded env's `step` keeps its rows).
+        One lane only: the dual rally draws its serve and hand-off too."""
+        if len(self._lane_specs) > 1:
+            raise ValueError("step_draws covers one lane; this env has "
+                             f"{len(self._lane_specs)}")
+        cfg, dev = self.cfg, self.device
+        g = self.generator if generator is None else generator
+        n = self.num_envs_global
+        K = cfg.reset_candidates
+        m = K if 0 < K < n else n
+
+        def rand(*shape):
+            return torch.rand(shape, generator=g, device=dev)
+
+        def randint(low, high, k):
+            return torch.randint(low, high, (k,), generator=g, device=dev)
+
+        def target(k):
+            return rand(k) if cfg.use_random_ball_target == "discrete" else rand(k, 3)
+
+        reset = {"root_xy_u": rand(m, 2), "init_idx": randint(0, self._init_per_lane, m)}
+        if cfg.init_ball_type != "serve_toss":
+            reset["ball_idx"] = self.gen.pool_idx(m, g)
+        reset["tt"] = randint(-5, 5, m)
+        reset["target_u"] = target(m)
+        draws = {"reset": reset}
+        if cfg.random_walk_in_recovery:
+            draws["rw_noise"] = torch.randn((n, cfg.num_latents), generator=g, device=dev)
+        draws["ball_idx"] = self.gen.pool_idx(n, g)
+        draws["near_jitter"] = self.gen.near_jitter(n, g)
+        draws["tt"] = randint(-5, 5, n)
+        draws["target_u"] = target(n)
+        return draws
+
     # -- kinematic targets -------------------------------------------------------
 
     _HEAD, _NECK = 15, 12
@@ -557,7 +626,8 @@ class TennisEnv:
         diff = torch.where(miss, 0.0, diff)
 
         aa = R.rotmat_to_angle_axis(
-            rm[:, (self._HEAD, self._NECK)].reshape(-1, 3, 3)).reshape(N, 2, 3)
+            torch.stack([rm[:, self._HEAD], rm[:, self._NECK]], dim=1).reshape(-1, 3, 3)
+        ).reshape(N, 2, 3)
         aa = torch.cat([aa[..., :1], aa[..., 1:2] + diff[:, None, None] / 2.0, aa[..., 2:]],
                        dim=-1)
         new_rm = R.angle_axis_to_rotmat(aa.reshape(-1, 3)).reshape(N, 2, 3, 3)
@@ -601,8 +671,8 @@ class TennisEnv:
         in 25/30 s."""
         t = 25.0 / 30.0
         g = self.ball_params.gravity
-        pos = free_hand_pos + torch.tensor([0.0, 0.0, 0.1], device=self.device)
-        d = torch.tensor([-0.87, -12.10, 2.71], device=self.device)[None] - pos
+        pos = free_hand_pos + self._toss_lift
+        d = self._toss_apex[None] - pos
         vel = torch.cat([d[:, :2] / t, ((d[:, 2] + 0.5 * g * t * t) / t)[:, None]], dim=-1)
         vspin = torch.zeros(pos.shape[0], device=self.device)
         res = B.simulate_flight(pos, vel, vspin, num_frames=self.gen.traj_length,
@@ -616,8 +686,7 @@ class TennisEnv:
             r = self._rand(draws, "target_u", (n,))
             x = torch.where(r < 0.33, -3.0, torch.where(r > 0.67, 3.0, 0.0))
             return torch.stack([x, torch.full_like(x, 10.0), torch.zeros_like(x)], -1)
-        lo = torch.tensor(cfg.target_bounce_min, device=self.device)
-        hi = torch.tensor(cfg.target_bounce_max, device=self.device)
+        lo, hi = self._target_lo, self._target_hi
         return self._rand(draws, "target_u", (n, 3)) * (hi - lo) + lo
 
     def _init_tar_action(self, N) -> torch.Tensor:
@@ -675,8 +744,7 @@ class TennisEnv:
         cfg, dev = self.cfg, self.device
         N = cfg.num_envs
         u_xy = self._rand(draws, "root_xy_u", (N, 2))
-        root_xy = (u_xy - 0.5) * torch.tensor([2.0, 1.5], device=dev) \
-            + torch.tensor([0.0, -13.0], device=dev)
+        root_xy = (u_xy - 0.5) * self._root_xy_scale + self._root_xy_center
         mvae = self._mvae_reset(draws, root_xy)
 
         # physics humanoid snapped to the kinematic pose
@@ -786,7 +854,7 @@ class TennisEnv:
         r_prev = state.racket_pos
         r_new = racket_new_pos
         racket_vel = (r_new - r_prev) / cfg.control_dt
-        gvec = torch.tensor([0.0, 0.0, -p.gravity], device=self.device)
+        gvec = self._gvec
 
         pos, vel, vspin = state.ball_pos, state.ball_vel, state.ball_vspin
         contact, bounce, bpos = state.has_contact, state.has_bounce, state.bounce_pos
@@ -1027,8 +1095,9 @@ class TennisEnv:
                                 ).reshape(bp_new.shape)
             body_centers = bp_new + off
             body_radii = self.model.contact_radius[:, :24].clone()
-            body_radii[rows, self.wrist_id] = 0.0
-            body_radii[rows, self.hand_id] = 0.0
+            # a scalar assigned through a tensor index is a host copy: scatter
+            body_radii.scatter_(1, self.wrist_id[:, None], 0.0)
+            body_radii.scatter_(1, self.hand_id[:, None], 0.0)
         (ball_pos, ball_vel, ball_vspin, contact, bounce, bpos, contact_now, bounce_now,
          racket_vel, impulse) = self._ball_physics(state, racket_pos, racket_normal,
                                                    body_centers, body_radii)

@@ -26,7 +26,11 @@ Differences from `ImitationPPO`, as in the JAX learner:
 One `train_epoch` = horizon rollout → next-value bootstrap → GAE →
 mini_epochs × minibatches. The draws (action noise, minibatch permutations,
 the env's per-step draws) come from generators, or from `draws=` so a test
-can feed the JAX learner's.
+can feed the JAX learner's. On the card, one policy on a single-player env
+without a mesh, domain randomization or the two-hand IK (`graphed`) replays
+each env step and each optimizer step from a CUDA graph, as the JAX
+learner runs its epoch as one jitted program; the draws stay outside the
+graphs (`TennisEnv.step_draws`).
 
 `save_checkpoint` writes, and `load_checkpoint` reads, the JAX package's
 `V2PPPO.save_checkpoint` `.npz` (stacked leaves included);
@@ -49,6 +53,7 @@ the JAX learner: `dp_sync="per_mini_epoch"` raises.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -56,13 +61,19 @@ import torch
 from torch.func import functional_call
 
 from ..envs.tennis import TennisEnv
+from ..envs.tennis_dual import DualTennisEnv
 from ..parallel import mesh as PM
+from ..utils import graphs
 from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import V2PNet
 from .optim import AdamState, clip_adam_apply, init_adam
 from .ppo import (PPOConfig, _check_mesh, _minibatches, _replicate_state, _shard_perm,
                   diag_gaussian_neglogp, policy_kl, resolve_compute_dtype)
+
+
+# the optimizer step's stats (`V2PPPO._loss`), then `grad_skip`
+STAT_NAMES = ("a_loss", "c_loss", "b_loss", "kl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +171,8 @@ class V2PPPO:
             self.num_envs_global * cfg.horizon, cfg, self.dp)
         # the env the last epoch stepped (a randomized copy under DR)
         self.last_env = env
+        # the graphed epoch's static tensors and graphs (`_statics`)
+        self._st = None
 
     def _initial_params(self) -> Dict[str, torch.Tensor]:
         if self.num_policies == 1:
@@ -276,6 +289,19 @@ class V2PPPO:
 
     # -- rollout ----------------------------------------------------------------
 
+    @property
+    def graphed(self) -> bool:
+        """Whether `train_epoch` and `rollout` replay their steps from CUDA
+        graphs (``utils/graphs.py``), as the JAX learner runs its epoch as one
+        jitted program: on the card, for one policy on a single-player
+        `TennisEnv` without a mesh, domain randomization or the two-hand IK
+        (the stage 1-3 configs, the curriculum aids, `federer`). Their steps
+        make no host sync and no draw."""
+        env = self.env
+        return (self.device.type == "cuda" and self.mesh is None and env.randomizer is None
+                and self.num_policies == 1 and not isinstance(env, DualTennisEnv)
+                and not env.any_two_hand)
+
     @torch.no_grad()
     def rollout(self, ts: V2PTrainState, draws: Optional[Dict] = None,
                 env: Optional[TennisEnv] = None):
@@ -283,6 +309,17 @@ class V2PPPO:
         trajectory with the terminate-masked next values, the new env state
         and the last obs. `env` is the env to step (this learner's unless
         given: an epoch's randomized copy)."""
+        if self.graphed and (env is None or env is self.env):
+            traj, env_state, obs = self._rollout_graphed(ts, draws)
+            return (PM.tree_map(torch.clone, traj), PM.tree_map(torch.clone, env_state),
+                    obs.clone())
+        return self._rollout_eager(ts, draws, env)
+
+    @torch.no_grad()
+    def _rollout_eager(self, ts: V2PTrainState, draws: Optional[Dict] = None,
+                       env: Optional[TennisEnv] = None):
+        """`rollout` op by op from the host: the oracle of the graphed one,
+        and every path's rollout off the graphed path."""
         cfg, dev = self.cfg, self.device
         env = self.env if env is None else env
         dr = env.randomizer
@@ -417,16 +454,50 @@ class V2PPPO:
                     ) -> Tuple[V2PTrainState, Dict[str, torch.Tensor]]:
         """One epoch. `draws` (optional) holds `noise` (T, N, A), `perms`
         (mini_epochs, T·N) and `env` (T per-step draw dicts of
-        `TennisEnv.step`) in place of the generators' draws; under domain
-        randomization also `dr_model`, `dr_ball`, `dr_act` (T, per action
-        spec (N, A)) and `dr_obs` (T, per obs spec (N, obs_dim)) as standard
-        draws. Params and Adam moments are updated in place; returns the new
-        state and the metrics as 0-d tensors on the device; the env the epoch
-        stepped is kept as `last_env`."""
-        cfg, dev = self.cfg, self.device
+        `TennisEnv.step`, each holding every draw `TennisEnv.step_draws`
+        makes) in place of the generators' draws; under domain randomization
+        also `dr_model`, `dr_ball`, `dr_act` (T, per action spec (N, A)) and
+        `dr_obs` (T, per obs spec (N, obs_dim)) as standard draws. Params and
+        Adam moments are updated in place; returns the new state and the
+        metrics as 0-d tensors on the device; the env the epoch stepped is
+        kept as `last_env`. On the graphed path (`graphed`) every env step and
+        every optimizer step is replayed from a CUDA graph."""
+        if self.graphed:
+            return self._train_epoch_graphed(ts, draws)
+        return self._train_epoch_eager(ts, draws)
+
+    def _train_epoch_eager(self, ts: V2PTrainState, draws: Optional[Dict] = None
+                           ) -> Tuple[V2PTrainState, Dict[str, torch.Tensor]]:
+        """`train_epoch` op by op from the host."""
         env = self.epoch_env(ts, draws)
         self.last_env = env
-        traj, env_state, last_obs = self.rollout(ts, draws, env)
+        traj, env_state, last_obs = self._rollout_eager(ts, draws, env)
+        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+        stat_means, lr, opt = self._update_eager(ts, batch_all, lr, draws)
+        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm,
+                            env_state, last_obs)
+
+    def _train_epoch_graphed(self, ts: V2PTrainState, draws: Optional[Dict] = None
+                             ) -> Tuple[V2PTrainState, Dict[str, torch.Tensor]]:
+        """`train_epoch` with each env step and each optimizer step one call
+        of a `StaticGraph` (replayed from a CUDA graph on the card; on the CPU
+        the same staged steps run as they are). The draws, the last value,
+        GAE, the running norms and the metrics stay eager; the draws come
+        from the generators in the eager epoch's order, so both epochs take
+        the same. The returned env state and last obs are copies of the
+        static ones."""
+        self.last_env = self.env
+        traj, env_state, last_obs = self._rollout_graphed(ts, draws)
+        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+        stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
+        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm,
+                            PM.tree_map(torch.clone, env_state), last_obs.clone())
+
+    def _prepare(self, ts: V2PTrainState, traj):
+        """GAE, the running norms and the epoch's samples: (the batch, env-
+        major (T·N, ...); the obs norm for the next epoch; this epoch's value
+        norm; this epoch's lr)."""
+        cfg, dev = self.cfg, self.device
         advs = self._gae(traj)
         returns = advs + traj["value"]
 
@@ -467,9 +538,15 @@ class V2PPPO:
             frac = np.float32(1.0) - np.float32(ts.epoch) / np.float32(cfg.lr_decay_epochs)
             lr = cfg.learning_rate * torch.clamp(torch.tensor(frac, device=dev),
                                                  cfg.lr_min_frac, 1.0)
+        return batch_all, obs_norm_next, val_norm, lr
 
-        names = list(ts.params)
-        plist = [ts.params[k] for k in names]
+    def _update_eager(self, ts: V2PTrainState, batch_all, lr, draws):
+        """The mini-epochs op by op: (the steps' mean stats with `grad_skip`,
+        the last lr, the Adam state)."""
+        cfg, dev = self.cfg, self.device
+        B = cfg.horizon * self.env.cfg.num_envs
+        collective = self.mesh is not None and self.mesh.collective
+        plist = list(ts.params.values())
         opt = ts.opt_state
         mb = self.mb_local
         stats_rows = []
@@ -487,10 +564,15 @@ class V2PPPO:
                     # guard below sees the same gradient on every rank
                     *grads, svals = PM.flat_all_reduce(list(grads) + [svals], self.mesh)
                 opt, ok = _guarded_adam_step(plist, opt, grads, lr, cfg.grad_norm)
-                lr = self._adapt_lr(lr, svals[list(stats).index("kl")])
+                lr = self._adapt_lr(lr, svals[STAT_NAMES.index("kl")])
                 stats_rows.append(torch.cat([svals, (~ok).float()[None]]))
+        return torch.stack(stats_rows).mean(0), lr, opt
 
-        metrics = dict(zip(list(stats) + ["grad_skip"], torch.stack(stats_rows).mean(0)))
+    def _finish(self, ts: V2PTrainState, traj, stat_means, lr, opt, obs_norm_next, val_norm,
+                env_state, last_obs):
+        """The epoch's metrics and the new train state."""
+        T = self.cfg.horizon
+        metrics = dict(zip(STAT_NAMES + ("grad_skip",), stat_means))
         # the rollout's metrics over every rank's envs, in one collective
         ex = traj["extras"]
         sums = self._sum(torch.cat([
@@ -505,7 +587,7 @@ class V2PPPO:
         for i, name in enumerate(("pos_reward", "ball_pos_reward", "quality_reward",
                                   "swing_speed_reward")[:sums.shape[0] - 8]):
             metrics[name] = sums[8 + i] / (T * n_all)
-        metrics["lr"] = torch.as_tensor(lr, device=dev)
+        metrics["lr"] = torch.as_tensor(lr, device=self.device)
         # behavioral instrumentation: is it swinging, hitting, landing in?
         n_cyc, n_contact = sums[2], sums[3]
         metrics["cycles"] = n_cyc
@@ -525,3 +607,174 @@ class V2PPPO:
                                generator=ts.generator, epoch=ts.epoch + 1,
                                lr=metrics["lr"])
         return new_ts, metrics
+
+    # -- the graphed epoch ------------------------------------------------------
+
+    def _statics(self, ts: V2PTrainState) -> SimpleNamespace:
+        """The graphed epoch's static tensors and its two `StaticGraph`s:
+        `step` (one env step) and `update` (one optimizer step). Made at the
+        first call, and anew when the horizon, the env count or the
+        minibatches change."""
+        cfg, env, dev = self.cfg, self.env, self.device
+        T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
+        shape = (T, N, cfg.mini_epochs, self.num_minibatches, self.mb_local)
+        if self._st is not None and self._st.shape == shape:
+            return self._st
+        self._st = None                       # the old graphs' pools go first
+        traj = dict(obs=torch.empty(T, N, self.obs_dim, device=dev),
+                    action=torch.empty(T, N, A, device=dev),
+                    mu=torch.empty(T, N, A, device=dev),
+                    sub_rewards=torch.empty(T, N, env.num_sub_rewards, device=dev),
+                    extras={k: torch.empty(T, N, device=dev) for k in env.EXTRAS})
+        for k in ("neglogp", "value", "reward", "done", "terminate"):
+            traj[k] = torch.empty(T, N, device=dev)
+        steps = cfg.mini_epochs * self.num_minibatches
+        st = SimpleNamespace(
+            shape=shape, state=PM.tree_map(torch.clone, ts.env_state), obs=ts.last_obs.clone(),
+            obs_norm=RN.RunningNormState.create(self.obs_dim, dev),
+            val_norm=RN.RunningNormState.create(1, dev),
+            # the step's draws, shaped by a throwaway generator's
+            draws=env.step_draws(torch.Generator(dev)), noise=torch.empty(N, A, device=dev),
+            traj=traj, row=torch.zeros(1, dtype=torch.long, device=dev),
+            batch=None, idx=torch.empty(self.mb_local, dtype=torch.long, device=dev),
+            lr=torch.zeros((), device=dev), count=torch.zeros((), dtype=torch.int32, device=dev),
+            stats=torch.empty(steps, len(STAT_NAMES) + 1, device=dev),
+            params=None, opt=None)
+        st.step = graphs.StaticGraph(self._graphed_step, dev)
+        st.update = graphs.StaticGraph(self._graphed_update, dev)
+        self._st = st
+        return st
+
+    def _step_key(self, params) -> tuple:
+        """The `step` graph's key: the addresses of what it reads in place
+        (the params; the env's MVAE decoders and stats, frozen π_low, model,
+        ball pool, init frames and body channel) and the env's constants the
+        capture bakes in (its config, ball and contact constants)."""
+        env = self.env
+        held = list(params.values()) + [self.sigma]
+        for obj in env._lane_specs + (env.pi_low, env.pi_low_b):
+            held += _held_tensors(obj)
+        gen = env.gen
+        held += PM.tree_leaves(env.model) + [
+            gen.traj_pool, gen.launch_pos, gen.launch_vel, gen.launch_vspin, gen.x_order,
+            env.init_conditions, env.motion_bodies]
+        return (graphs.tensor_key(held), env.cfg, tuple(env.ball_params), env.contact_params,
+                id(env), id(env.pi_low), id(env.pi_low_b))
+
+    @torch.no_grad()
+    def _rollout_graphed(self, ts: V2PTrainState, draws: Optional[Dict] = None):
+        """The rollout with each step one call of the `step` graph; the draws
+        and the last value eager. Returns the static trajectory, env state
+        and last obs, which the next call overwrites."""
+        cfg, env, dev = self.cfg, self.env, self.device
+        T = cfg.horizon
+        st = self._statics(ts)
+        graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
+                       PM.tree_leaves((ts.env_state, ts.last_obs, ts.obs_norm, ts.val_norm)))
+        st.params = ts.params
+        st.row.zero_()
+        key = self._step_key(ts.params)
+        for t in range(T):
+            if draws is None:
+                _copy_draws(st.draws, env.step_draws())
+                torch.randn(st.noise.shape, generator=ts.generator, device=dev, out=st.noise)
+            else:
+                _copy_draws(st.draws, draws["env"][t])
+                st.noise.copy_(as_draw(draws["noise"][t], torch.float32, dev))
+            st.step(key)
+        traj = dict(st.traj)
+        _, vn_last = self._forward(ts.params, ts.obs_norm, st.obs)
+        v_next = torch.cat([traj["value"][1:], self._value(ts, vn_last)[None]], dim=0)
+        traj["next_value"] = v_next * (1.0 - traj["terminate"])
+        return traj, st.state, st.obs
+
+    def _graphed_step(self) -> None:
+        """One env step on the static tensors: the policy on the static obs,
+        the static noise, `env.step` on the static draws, the trajectory's
+        row `row`, the new state and obs copied back."""
+        st = self._st
+        with torch.no_grad():
+            mu, v_norm = self._forward(st.params, st.obs_norm, st.obs)
+            action = mu + self.sigma[None] * st.noise
+            state, out = self.env.step(st.state, action, st.draws)
+            row = dict(obs=st.obs, action=action, mu=mu,
+                       neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
+                       value=self._value(st, v_norm),
+                       # a diverged env's last reward can be non-finite
+                       reward=torch.where(torch.isfinite(out.reward), out.reward, 0.0),
+                       done=out.done.float(), terminate=out.terminate.float(),
+                       sub_rewards=out.sub_rewards)
+            for k, v in row.items():
+                st.traj[k].index_copy_(0, st.row, v[None])
+            if out.extras.keys() != st.traj["extras"].keys():
+                raise ValueError(f"the step's extras {sorted(out.extras)} are not the env's "
+                                 f"EXTRAS {sorted(st.traj['extras'])}")
+            for k, v in out.extras.items():
+                st.traj["extras"][k].index_copy_(0, st.row, v[None])
+            st.row.add_(1)
+            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, out.obs)))
+
+    def _update_graphed(self, ts: V2PTrainState, batch_all, lr, draws):
+        """The mini-epochs with each optimizer step one call of the `update`
+        graph: (the steps' mean stats with `grad_skip`, the last lr, the Adam
+        state)."""
+        cfg, st = self.cfg, self._st
+        B = cfg.horizon * self.env.cfg.num_envs
+        mb = self.mb_local
+        if st.batch is None:
+            st.batch = {k: v.clone() for k, v in batch_all.items()}
+        else:
+            graphs.refresh(list(st.batch.values()), [batch_all[k] for k in st.batch])
+        st.lr.copy_(lr)
+        st.count.copy_(ts.opt_state.count)
+        st.params, st.opt = ts.params, ts.opt_state
+        st.row.zero_()
+        key = graphs.tensor_key(list(ts.params.values()) + ts.opt_state.mu + ts.opt_state.nu)
+        for e in range(cfg.mini_epochs):
+            perm = _shard_perm(draws, e, B, ts.generator, 1, 0, self.device)
+            for i in range(self.num_minibatches):
+                st.idx.copy_(perm[i * mb:(i + 1) * mb])
+                st.update(key)
+        opt = AdamState(count=st.count.clone(), mu=ts.opt_state.mu, nu=ts.opt_state.nu)
+        return st.stats.mean(0), st.lr.clone(), opt
+
+    def _graphed_update(self) -> None:
+        """One optimizer step on the static tensors: the minibatch gathered
+        through `idx`, the loss and its gradient, the guarded optax-chain
+        Adam on `count` and `lr`, the adaptive lr, the stats' row `row`."""
+        st, cfg = self._st, self.cfg
+        plist = list(st.params.values())
+        batch = {k: v[st.idx] for k, v in st.batch.items()}
+        loss, stats = self._loss(st.params, batch, st.obs_norm)
+        grads = torch.autograd.grad(loss, plist)
+        with torch.no_grad():
+            svals = torch.stack([v.detach() for v in stats.values()])
+            opt, ok = _guarded_adam_step(plist, AdamState(st.count, st.opt.mu, st.opt.nu),
+                                         grads, st.lr, cfg.grad_norm)
+            st.count.copy_(opt.count)
+            if cfg.lr_schedule == "adaptive":
+                st.lr.copy_(self._adapt_lr(st.lr, svals[STAT_NAMES.index("kl")]))
+            st.stats.index_copy_(0, st.row, torch.cat([svals, (~ok).float()[None]])[None])
+            st.row.add_(1)
+
+
+def _held_tensors(obj) -> list:
+    """The tensors an env part holds: a module's parameters and buffers, a
+    dataclass's fields (modules and running norms included)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.parameters()) + list(obj.buffers())
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in _held_tensors(getattr(obj, f.name))]
+    return []
+
+
+def _copy_draws(static: Dict, draws: Dict) -> None:
+    """Copy one step's draws (tensors or numpy arrays, nested like
+    `TennisEnv.step_draws`) into the static ones, key by key."""
+    for k, s in static.items():
+        if isinstance(s, dict):
+            _copy_draws(s, draws[k])
+        else:
+            s.copy_(as_draw(draws[k], s.dtype, s.device))

@@ -99,7 +99,10 @@ def simulate_flight(pos0, vel0, vspin0, num_frames: int = 100, substeps: int = 4
     dt = (1.0 / 30.0) / substeps
     batch = pos0.shape[:-1]
     dev, dt_ = pos0.device, pos0.dtype
-    gvec = torch.tensor([0.0, 0.0, -p.gravity], dtype=dt_, device=dev)
+    # made on the device: a host-built constant is a copy that syncs, and a
+    # CUDA graph cannot hold it
+    gvec = torch.zeros(3, dtype=dt_, device=dev)
+    gvec.narrow(0, 2, 1).fill_(-p.gravity)
     pos, vel, vspin = pos0, vel0, vspin0
     has_bounce = torch.zeros(batch, dtype=torch.bool, device=dev)
     bounce_pos = torch.zeros(batch + (3,), dtype=dt_, device=dev)
