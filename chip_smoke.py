@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failed phase exits non-zero):
+Phases, each printing one line with the script's seconds so far (`at_s`)
+and the phase's own (`since_last_s`; any failed phase exits non-zero):
   1. device   the card's name, the device count, and nvidia-smi's name and
               power limit
   2. build    nvcc builds every kernel of ``vid2player3d_torch/csrc`` for
@@ -29,10 +30,10 @@ Phases, each printing one line (any failed phase exits non-zero):
               layer of the same FLOPs (no blend, eager and graph) as a library
               yardstick
   5. K3       fk_chain bit for bit with its plain version at N = 1, 255, 256,
-              257, 10,240 and 15,360 (MuJoCo tree), 10,240 (SMPL tree) and on
-              views 4 bytes past a 16-byte boundary, one launch per call;
-              the MuJoCo tree on its straight-line build;
-              times at N = 10,240, 15,360 and 256, eager and as a graph
+              257, 10,240, 15,360 and 30,720 (MuJoCo tree), 10,240 (SMPL tree)
+              and on views 4 bytes past a 16-byte boundary, one launch per
+              call; the MuJoCo tree on its straight-line build;
+              times at N = 10,240, 15,360, 30,720 and 256, eager and as a graph
               replay, warm (one input set again and again) and cold (input
               and output sets over 4x the L2, taken in turn), the cold time
               beside the HBM bound, and the wrapper's host cost per call
@@ -96,9 +97,27 @@ Phases, each printing one line (any failed phase exits non-zero):
               left-handed with the two-hand backhand, federer) and two random
               full-width pi_low -> V2PPPO(num_policies=2) (horizon 32,
               minibatch 16,384, 6 mini-epochs: 180 optimizer steps per epoch,
-              lr 1e-5, sigma_init -2.9), one `train_epoch` (cut from two), the K2 and K3
-              launch counters set to 0 just before and read just after; the
-              two-hand IK's time per step at full size
+              lr 1e-5, sigma_init -2.9), two `train_epoch`s, every env step
+              and optimizer step replayed from a CUDA graph (the first epoch
+              captures both), the K2 and K3 launch counters set to 0 just
+              before each epoch and read just after (6 + 6 and 2 per env
+              step); epoch, rollout and optimizer-step times, the graphs'
+              nodes, pools, capture and instantiate seconds, peak memory;
+              the two-hand IK alone at 15,360 rows, eager and replayed from a
+              graph, ms per call
+  13b. dual graphs  the graphed dual epoch against the eager one under
+              deterministic algorithms, bit for bit (metrics, params,
+              moments, both norms, env state, last obs): 8 envs over two
+              epochs of 4 steps (and two eager epochs alike), 15,360 envs over
+              one epoch of horizon 4
+  13c. twohand main  `nadal` (left-handed, the two-hand backhand; stage 3 at
+              its 30,720 envs, 256 candidate resets) -> V2PPPO (horizon 32,
+              360 optimizer steps), one graphed epoch, K2 (3 + 3) and K3 (2)
+              per env step counted through the replays; K2 at B = 30,720 and
+              K3 at N = 30,720 and 256 held to their plain versions on the
+              inputs one more step gives them, K2 timed there beside its
+              bound and cuBLAS; the IK alone at 30,720 rows, eager and as a
+              graph, the graphed result against the eager one
   14. dr parity  a small amass_im_dr imitation epoch (4 envs, f32, from epoch
               300 so the scheduled noise is on) and a small
               federer_train_stage_1_dr tennis epoch (8 envs, test widths) on
@@ -228,7 +247,8 @@ Phases, each printing one line (any failed phase exits non-zero):
               self-collision off and on, eager (synchronized host clock) and
               as a graph replay (CUDA events)
   28. profile torch.profiler over a short imitation epoch, a short tennis
-              rollout and one dual step: device busy and idle share,
+              rollout and one dual step (both replayed from their graphs,
+              captured first): device busy and idle share,
               device events per step, the costliest device kernels, K2's and
               K3's device share and the shares of the spans (masked_reset,
               estimate_out, two_hand, and the dual env's serve and handoff)
@@ -280,9 +300,16 @@ def fail(msg: str) -> None:
 T_START = time.perf_counter()
 
 
+_LAST_SAID = [T_START]
+
+
 def say(phase: str, **kw) -> None:
-    """One phase's JSON line, with the script's seconds so far (`at_s`)."""
-    print(f"[{phase}] " + json.dumps({**kw, "at_s": time.perf_counter() - T_START}), flush=True)
+    """One phase's JSON line, with the script's seconds so far (`at_s`) and
+    since the line before (`since_last_s`: the phase's own seconds)."""
+    now = time.perf_counter()
+    since, _LAST_SAID[0] = now - _LAST_SAID[0], now
+    print(f"[{phase}] " + json.dumps({**kw, "at_s": now - T_START, "since_last_s": since}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -905,8 +932,8 @@ TENNIS_ENVS, TENNIS_HORIZON, TENNIS_MINIBATCH, TENNIS_MINI_EPOCHS = 10240, 64, 1
 # them; `tennis_dr_main` runs SLICE4_EPOCHS
 TENNIS_EPOCHS = 2
 STAGE2_ENVS, STAGE2_STEPS = 15360, 8
-# `dual_main` runs one epoch (cut from two, as `main` and `tennis_main`)
-DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 1
+# `dual_main`: the first epoch captures the graphs, the second replays them
+DUAL_ENVS, DUAL_HORIZON, DUAL_MINIBATCH, DUAL_MINI_EPOCHS, DUAL_EPOCHS = 15360, 32, 16384, 6, 2
 LANE_DECODE = DUAL_ENVS // 2    # the dual rally decodes each lane's rows on their own
 MVAE_BATCH = 100                # mvae_federer's batch: the trainer's decodes
 KERNEL_TIMED = 50
@@ -1056,7 +1083,8 @@ def k2_phase(dev, card: str):
 # phase 5: K3 against its plain version, and its times
 # ---------------------------------------------------------------------------
 
-K3_TIMED_NS = (TENNIS_ENVS, STAGE2_ENVS, 256)   # the stage-1 and stage-2 steps, the candidates
+# the stage-1, stage-2 (and dual) and two-hand single-player steps, the candidates
+K3_TIMED_NS = (TENNIS_ENVS, STAGE2_ENVS, 30720, 256)
 K3_COLD_BYTES = 200e6     # a cold rotation's inputs and outputs: 4x the 50 MB L2
 K3_TIMED = 200
 
@@ -1087,7 +1115,7 @@ def k3_phase(dev, card: str):
         return view.copy_(t)
 
     cases = [(f"mujoco_N{n}", trees["mujoco"], inputs(n))
-             for n in (1, 255, 256, 257, TENNIS_ENVS, STAGE2_ENVS)]
+             for n in (1, 255, 256, 257, TENNIS_ENVS, STAGE2_ENVS, 30720)]
     cases.append((f"smpl_N{TENNIS_ENVS}", trees["smpl"], inputs(TENNIS_ENVS)))
     cases.append(("mujoco_N257_offset_4B", trees["mujoco"], [offset_view(t) for t in inputs(257)]))
     errs = {}
@@ -1159,8 +1187,9 @@ def k3_phase(dev, card: str):
     # timing launches are not the main path's
     FK.fk_chain.launches = before
     row = dict(per_n[f"N{TENNIS_ENVS}"], max_abs_err=max(errs.values()), tol=tol,
-               library_ms=None, N15360={k: per_n[f"N{STAGE2_ENVS}"][k] for k in (
-                   "ms", "graph_ms", "warm_ms", "warm_graph_ms", "bound_ms", "share_of_bound")})
+               library_ms=None, **{f"N{n}": {k: per_n[f"N{n}"][k] for k in (
+                   "ms", "graph_ms", "warm_ms", "warm_graph_ms", "bound_ms", "share_of_bound")}
+                   for n in (STAGE2_ENVS, 30720)})
     say("K3", card=card, unit="one FK of N envs, 24 joints; ms / graph_ms cold (input and "
         "output sets over 4x the L2 taken in turn), warm_* one set again and again",
         errs=errs, builds=builds, library="none: no single PyTorch call computes FK",
@@ -1359,63 +1388,20 @@ def tennis_main_phase(dev, card: str):
     the step and update graphs, the second replays them. K2 and K3 counted
     through the replays, per epoch. Returns the learner, its state and the
     launches of one epoch."""
-    import math
-
     import torch
-
-    from vid2player3d_torch.ops import fk as FK
-    from vid2player3d_torch.ops import fused_adam as FA
-    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
     agent = _stage1_agent(dev, TENNIS_ENVS)
-    if not agent.graphed:
-        fail("tennis_main: the stage-1 learner does not take the graphs")
     ts = agent.init_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     steps_per_epoch = agent.num_minibatches * TENNIS_MINI_EPOCHS
-
-    torch.cuda.reset_peak_memory_stats()
-    epoch_s, rows, launches = [], [], []
-    # the rollout (policy forward + env step) timed inside the epoch, for
-    # env-steps/s
-    rollout_times, unwrap = _timed_rollouts(agent)
-    try:
-        for _ in range(TENNIS_EPOCHS):
-            MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
-            FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
-            t0 = time.perf_counter()
-            ts, m = agent.train_epoch(ts)
-            torch.cuda.synchronize()
-            epoch_s.append(time.perf_counter() - t0)
-            rows.append({k: float(v) for k, v in m.items()})
-            launches.append({"moe_linear": MOE.moe_linear.launches,
-                             "moe_split_w": MOE.split_weights.launches,
-                             "fk_chain": FK.fk_chain.launches,
-                             "k1": FA.leaf_update.launches + FA.global_norm_scalars.launches})
-    finally:
-        unwrap()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
     want = {"moe_linear": 3 * TENNIS_HORIZON, "moe_split_w": 3 * TENNIS_HORIZON,
-            "fk_chain": 2 * TENNIS_HORIZON, "k1": 0}
-    for e, got in enumerate(launches):
-        if got != want:
-            fail(f"tennis epoch {e} launched {got} on the tennis path, expected {want}")
-    for i, r in enumerate(rows):
-        bad = [k for k, v in r.items() if not math.isfinite(v)]
-        if bad:
-            fail(f"tennis epoch {i}: non-finite metrics {bad}")
-        if r["grad_skip"] != 0.0:
-            fail(f"tennis epoch {i}: grad_skip {r['grad_skip']}")
-    if int(ts.opt_state.count) != TENNIS_EPOCHS * steps_per_epoch:
-        fail(f"optimizer count {int(ts.opt_state.count)}")
-    if not bool(torch.isfinite(ts.last_obs).all()):
-        fail("tennis rollout obs not finite")
-    graphs = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
-    if any(v["captures"] != 1 for v in graphs.values()):
-        fail(f"tennis_main: the graphs captured {graphs} times over {TENNIS_EPOCHS} epochs")
+            "fk_chain": 2 * TENNIS_HORIZON}
+    # the rollout (policy forward + env step) is timed inside the epoch, for
+    # env-steps/s
+    ts, epoch_s, rollout_times, rows, launches, graphs, peak_gib = _graphed_epochs(
+        "tennis_main", agent, ts, TENNIS_EPOCHS, want)
 
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
             "done_rate", "reward_mean", "c_loss", "kl", "grad_skip")
@@ -1499,7 +1485,6 @@ def tennis_graphs_phase(dev, card: str, agent, ts, stage2_env):
     learner's newest state and the stage-2 epoch's launches."""
     import gc
     import math
-    import warnings
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1526,40 +1511,9 @@ def tennis_graphs_phase(dev, card: str, agent, ts, stage2_env):
     del learner, fresh, e1, e2, g1
 
     # deterministic algorithms: graphed and eager bit for bit
-    det = {}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for name, make, epochs in (("stage1_8", small, 2),
-                                       ("stage1_10240", lambda: _stage1_agent(
-                                           dev, TENNIS_ENVS, gen, horizon=DET_HORIZON), 1)):
-                learner = make()
-                if not learner.graphed:
-                    fail(f"tennis_graphs: the {name} learner does not take the graphs")
-                fresh = _v2p_snapshot(learner, learner.init_state())
-                a, b = fresh(), fresh()
-                r = det[name] = dict(differ=[], graphed_epoch_s=[], eager_epoch_s=[])
-                for e in range(epochs):
-                    again = _v2p_snapshot(learner, b)
-                    a, ma, tg = _timed_epoch(learner.train_epoch, a)
-                    b, mb, te = _timed_epoch(learner._train_epoch_eager, again())
-                    r["differ"].append(_differ(a, ma, b, mb))
-                    r["graphed_epoch_s"].append(tg)
-                    r["eager_epoch_s"].append(te)
-                    if name == "stage1_8" and e == 0:
-                        # two eager epochs agree in this mode
-                        r["eager_vs_eager"] = _differ(*learner._train_epoch_eager(again()), b, mb)
-                r["captures"] = [learner._st.step.captures, learner._st.update.captures]
-                r["step_nodes"] = learner._st.step.nodes
-                del learner, fresh, a, b, again
-                gc.collect()
-                torch.cuda.empty_cache()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    det["ops_without_a_deterministic_form"] = sorted({str(w.message).split(" does not")[0][:80]
-                                                      for w in caught})
-    out["deterministic_mode"] = det
+    det = out["deterministic_mode"] = _deterministic_pairs("tennis_graphs", (
+        ("stage1_8", small, 2),
+        ("stage1_10240", lambda: _stage1_agent(dev, TENNIS_ENVS, gen, horizon=DET_HORIZON), 1)))
 
     # one graphed stage-2 epoch at full size
     stage2 = V2PPPO(stage2_env, V2PConfig(horizon=STAGE2_HORIZON, minibatch_size=STAGE2_MINIBATCH,
@@ -1610,11 +1564,7 @@ def tennis_graphs_phase(dev, card: str, agent, ts, stage2_env):
     say("tennis_graphs", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t_phase,
         **out)
 
-    for name in ("stage1_8", "stage1_10240"):
-        r = det[name]
-        if any(r["differ"]) or r.get("eager_vs_eager") or r["captures"] != [1, 1]:
-            fail(f"tennis_graphs: under deterministic algorithms the graphed {name} epochs "
-                 f"differ from the eager ones: {r['differ']} (captures {r['captures']})")
+    _hold_deterministic_pairs("tennis_graphs", det)
     if out["stage1_profile"]["captures"] != [1, 1]:
         fail(f"tennis_graphs: tennis_main's graphs captured {out['stage1_profile']['captures']} "
              "times over three epochs")
@@ -1732,108 +1682,443 @@ def dual_parity_phase(dev):
 # phase 12: the dual rally (nadal_federer)
 # ---------------------------------------------------------------------------
 
-def dual_main_phase(dev, card: str):
+def _dual_agent(dev, n, gen=None, horizon=None, minibatch=None, mini_epochs=None,
+                episode=300):
+    """nadal_federer's learner at `n` envs (its sizes unless given):
+    federer_train_stage_3's env with the dual changes (the full masked
+    reset), two random full-width MVAEs and π_low, two policies."""
+    from vid2player3d_torch.envs import TennisConfig
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+
+    env_cfg = TennisConfig(num_envs=n, substeps=6, max_episode_length=episode,
+                           reward_type="return_w_estimate", use_random_ball_target="continuous",
+                           reset_reaction_nframes=70, reset_candidates=0,
+                           ball_reaction_force=True, ball_body_contact=True)
+    return V2PPPO(_dual_env(dev, env_cfg, hidden=256, experts=6, gen=gen), V2PConfig(
+        horizon=horizon or DUAL_HORIZON, minibatch_size=minibatch or DUAL_MINIBATCH,
+        mini_epochs=mini_epochs or DUAL_MINI_EPOCHS, learning_rate=1e-5, sigma_init=-2.9,
+        bounds_loss_coef=10.0, num_policies=2), seed=7, device=dev)
+
+
+def _in_backhand(env, mvae, phase=3.0):
+    """`mvae` with the two-hand rows put into a backhand at `phase`."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(mvae, swing_type=torch.where(env.two_hand_mask, 2,
+                                                            mvae.swing_type).to(torch.int32),
+                               phase_pred=torch.full_like(mvae.phase_pred, phase))
+
+
+def _ik_alone(env, mvae, reps: int = 5) -> dict:
+    """The env's two-hand IK (`_apply_two_hand`, under `no_grad` as in the
+    rollout) alone on `mvae`: ms per call eager (synchronized host clock)
+    and replayed from a CUDA graph (`StaticGraph`, CUDA events), the graph,
+    and the graphed result against the eager one; fails unless every
+    backhand row of the two-hand rows moved and both results are finite and
+    within the IK test's 1e-4."""
+    import torch
+
+    from vid2player3d_torch.utils import graphs
+
+    def fix():
+        with torch.no_grad():
+            return env._apply_two_hand(mvae).joint_rotmat
+
+    eager = fix()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eager = fix()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / reps * 1e3
+    out = torch.empty_like(eager)
+    g = graphs.StaticGraph(lambda: out.copy_(fix()), env.device)
+    g()                                    # the warm-up run and the capture
+    out.zero_()
+    g()                                    # a replay
+    torch.cuda.synchronize()
+    err = float((out - eager).abs().max())
+    moved = (eager - mvae.joint_rotmat).abs().amax(dim=(1, 2, 3))[env.two_hand_mask]
+    if not (float(moved.min()) > 0.0 and bool(torch.isfinite(eager).all())
+            and bool(torch.isfinite(out).all())):
+        fail(f"the two-hand IK did not move every backhand row of the two-hand rows: "
+             f"{float(moved.min())}")
+    if not err <= 1e-4:
+        fail(f"the two-hand IK replayed from a graph differs from the eager one by {err}")
+    return dict(rows=int(eager.shape[0]), eager_ms=eager_ms,
+                graph_ms=cuda_ms(g, reps), graph=_graph_stats(g),
+                graphed_vs_eager_max_abs_err=err)
+
+
+def _graphed_epochs(what, agent, ts, epochs, want):
+    """`epochs` graphed `train_epoch`s of `agent` (the first captures both
+    graphs, the rest replay them), the kernels' counters set to 0 just
+    before each and read just after; fails unless each epoch launched
+    `want` (K2 prep and GEMM, K3) and no K1, every metric is finite,
+    `grad_skip` is 0 and each graph was captured once. Returns (the state, the epochs' s, rollouts' s, metrics,
+    launches, the graphs' stats, the peak GiB)."""
     import math
 
     import torch
 
-    from vid2player3d_torch.envs import TennisConfig
-    from vid2player3d_torch.learn import V2PConfig, V2PPPO
-    from vid2player3d_torch.ops import fk as FK
-    from vid2player3d_torch.ops import fused_adam as FA
-    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
-
-    t0 = time.perf_counter()
-    # federer_train_stage_3's env with the dual changes of nadal_federer
-    env_cfg = TennisConfig(num_envs=DUAL_ENVS, substeps=6, max_episode_length=300,
-                           reward_type="return_w_estimate", use_random_ball_target="continuous",
-                           reset_reaction_nframes=70, reset_candidates=0,
-                           ball_reaction_force=True, ball_body_contact=True)
-    agent = V2PPPO(_dual_env(dev, env_cfg, hidden=256, experts=6), V2PConfig(
-        horizon=DUAL_HORIZON, minibatch_size=DUAL_MINIBATCH, mini_epochs=DUAL_MINI_EPOCHS,
-        learning_rate=1e-5, sigma_init=-2.9, bounds_loss_coef=10.0, num_policies=2),
-        seed=7, device=dev)
-    ts = agent.init_state()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    steps_per_epoch = agent.num_minibatches * DUAL_MINI_EPOCHS
-
-    # the rollout's share of each epoch, timed around the learner's own call
-    rollout_s, unwrap = _timed_rollouts(agent)
+    if not agent.graphed:
+        fail(f"{what}: the learner does not take the graphs")
     torch.cuda.reset_peak_memory_stats()
-    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
-    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
-    epoch_s, rows = [], []
+    rollout_s, unwrap = _timed_rollouts(agent)
+    epoch_s, rows, launches = [], [], []
     try:
-        for _ in range(DUAL_EPOCHS):
-            t0 = time.perf_counter()
-            ts, m = agent.train_epoch(ts)
-            torch.cuda.synchronize()
-            epoch_s.append(time.perf_counter() - t0)
+        for _ in range(epochs):
+            _zero_kernel_counts()
+            ts, m, s = _timed_epoch(agent.train_epoch, ts)
+            epoch_s.append(s)
             rows.append({k: float(v) for k, v in m.items()})
+            c = _kernel_counts()
+            launches.append({"moe_linear": c["k2_gemm"], "moe_split_w": c["k2_prep"],
+                             "fk_chain": c["k3"], "k1": c["k1_update"] + c["k1_norm"]})
     finally:
         unwrap()
-    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
-    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    # per env step: each lane's decode (3 layers: a prep and a GEMM each);
-    # K3 in the full masked reset and in the FK targets
-    env_steps = DUAL_EPOCHS * DUAL_HORIZON
-    if k2 != 6 * env_steps or k2_prep != 6 * env_steps:
-        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the dual path, expected "
-             f"{6 * env_steps} each")
-    if k3 != 2 * env_steps:
-        fail(f"K3 launched {k3} times on the dual path, expected {2 * env_steps}")
+    for e, got in enumerate(launches):
+        if got != dict(want, k1=0):
+            fail(f"{what}: epoch {e} launched {got}, expected {dict(want, k1=0)}")
     for i, r in enumerate(rows):
         bad = [k for k, v in r.items() if not math.isfinite(v)]
         if bad:
-            fail(f"dual epoch {i}: non-finite metrics {bad}")
+            fail(f"{what}: epoch {i}: non-finite metrics {bad}")
         if r["grad_skip"] != 0.0:
-            fail(f"dual epoch {i}: grad_skip {r['grad_skip']}")
-    if int(ts.opt_state.count) != DUAL_EPOCHS * steps_per_epoch:
-        fail(f"optimizer count {int(ts.opt_state.count)}")
+            fail(f"{what}: epoch {i}: grad_skip {r['grad_skip']}")
+    steps = agent.num_minibatches * agent.cfg.mini_epochs
+    if int(ts.opt_state.count) != epochs * steps:
+        fail(f"{what}: optimizer count {int(ts.opt_state.count)}, expected {epochs * steps}")
+    if not bool(torch.isfinite(ts.last_obs).all()):
+        fail(f"{what}: the rollout's obs are not finite")
+    stats = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
+    if any(v["captures"] != 1 for v in stats.values()):
+        fail(f"{what}: the graphs captured {stats} times over {epochs} epochs")
+    return ts, epoch_s, rollout_s, rows, launches, stats, peak_gib
+
+
+def dual_main_phase(dev, card: str):
+    """nadal_federer at its sizes, graphed: two epochs, the first capturing
+    the step and update graphs; K2 and K3 counted through the replays, per
+    epoch; the two-hand IK alone at the full 15,360 rows, eager and
+    replayed from a graph. Returns the learner, its state and the launches
+    of one epoch."""
+    import torch
+
+    t0 = time.perf_counter()
+    agent = _dual_agent(dev, DUAL_ENVS)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # per env step: each lane's decode (3 layers: a prep and a GEMM each);
+    # K3 in the full masked reset and in the FK targets
+    want = {"moe_linear": 6 * DUAL_HORIZON, "moe_split_w": 6 * DUAL_HORIZON,
+            "fk_chain": 2 * DUAL_HORIZON}
+    ts, epoch_s, rollout_s, rows, launches, stats, peak_gib = _graphed_epochs(
+        "dual_main", agent, ts, DUAL_EPOCHS, want)
     if any(v.shape[0] != 2 for v in ts.params.values()):
         fail("the dual params are not stacked over two policies")
 
     # the two-hand IK alone at full size, on the carried kinematic state with
     # the left-handed lane's rows put into a backhand
     env = agent.env
-    mvae = ts.env_state.mvae
-    import dataclasses
+    ik = _ik_alone(env, _in_backhand(env, ts.env_state.mvae))
 
-    mvae = dataclasses.replace(mvae, swing_type=torch.where(env.two_hand_mask, 2,
-                                                            mvae.swing_type).to(torch.int32),
-                               phase_pred=torch.full_like(mvae.phase_pred, 3.0))
-    env._apply_two_hand(mvae)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        fixed = env._apply_two_hand(mvae)
-    torch.cuda.synchronize()
-    ik_ms = (time.perf_counter() - t0) / reps * 1e3
-    moved = float((fixed.joint_rotmat - mvae.joint_rotmat).abs().amax(dim=(1, 2, 3))[0::2].min())
-    if not (moved > 0.0 and bool(torch.isfinite(fixed.joint_rotmat).all())):
-        fail(f"the two-hand IK did not move every backhand row of the two-hand lane: {moved}")
-
+    steps = agent.num_minibatches * DUAL_MINI_EPOCHS
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "racket_ball_dist_p90", "cycles",
             "done_rate", "reward_mean", "c_loss", "kl", "grad_skip", "est_bounce_in_rate")
     per_step_ms = [r / DUAL_HORIZON * 1e3 for r in rollout_s]
     say("dual_main", card=card, nvidia_smi=nvidia_smi(), config="nadal_federer",
         envs=DUAL_ENVS, lanes=2, horizon=DUAL_HORIZON, substeps=6, minibatch=DUAL_MINIBATCH,
-        mini_epochs=DUAL_MINI_EPOCHS, epochs=DUAL_EPOCHS, cut="1 epoch",
+        mini_epochs=DUAL_MINI_EPOCHS, epochs=DUAL_EPOCHS, graphed=agent.graphed,
+        note="epoch 0 captures both graphs, epoch 1 replays them",
         compute_dtype=str(agent.compute_dtype), mvae="2 x (hidden 256, 6 experts, 288->290)",
         two_hand_iters=env.cfg.two_hand_iters, ball_pool=env.gen.pool_size, setup_s=setup_s,
         epoch_s=epoch_s, rollout_s=rollout_s, update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
         rollout_env_steps_per_s=[DUAL_ENVS * DUAL_HORIZON / r for r in rollout_s],
         epoch_env_steps_per_s=[DUAL_ENVS * DUAL_HORIZON / e for e in epoch_s],
-        rollout_ms_per_env_step=per_step_ms, two_hand_ik_ms=ik_ms,
-        two_hand_ik_share_of_rollout_step=ik_ms / per_step_ms[-1],
-        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
-        k3_launches=k3, k1_launches=k1, peak_mem_gib=peak_gib,
-        metrics=[{k: r[k] for k in keep} for r in rows])
-    return agent, ts, {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
+        rollout_ms_per_env_step=per_step_ms,
+        optimizer_step_ms=[(e - r) / steps * 1e3 for e, r in zip(epoch_s, rollout_s)],
+        two_hand_ik=ik, two_hand_ik_eager_share_of_replayed_step=ik["eager_ms"] / per_step_ms[-1],
+        optimizer_steps_per_epoch=steps, launches_per_epoch=launches, graphs=stats,
+        peak_mem_gib=peak_gib, metrics=[{k: r[k] for k in keep} for r in rows])
+    one = {k: launches[-1][k] for k in ("moe_linear", "moe_split_w", "fk_chain")}
+    return agent, ts, one
+
+
+# the deterministic comparisons of the dual: 8 envs over two epochs of 4
+# steps (episodes of 6 steps, so a done env takes the masked reset and its
+# serve), and the full 15,360 envs over one epoch cut to horizon 4 (24
+# optimizer steps of 15,360 rows); the eager dual step is host-bound (~2 s
+# under deterministic algorithms at either size)
+DUAL_DET_ENVS, DUAL_DET_HORIZON, DUAL_DET_EPISODE = 8, 4, 6
+DUAL_DET_FULL_HORIZON, DUAL_DET_FULL_MINIBATCH = 4, 15360
+
+
+def _deterministic_pairs(what, cases) -> dict:
+    """Under `torch.use_deterministic_algorithms` (each learner captured in
+    that mode), for each (name, make the learner, epochs): the graphed
+    epochs against eager ones from one state and one seed of each
+    generator, what differs after each epoch, and with two or more epochs
+    what differs between two eager first epochs; the times, the captures,
+    the step graph; the ops the mode warned lack a deterministic form."""
+    import gc
+    import warnings
+
+    import torch
+
+    det = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, make, epochs in cases:
+                learner = make()
+                if not learner.graphed:
+                    fail(f"{what}: the {name} learner does not take the graphs")
+                fresh = _v2p_snapshot(learner, learner.init_state())
+                a, b = fresh(), fresh()
+                r = det[name] = dict(envs=learner.env.cfg.num_envs, horizon=learner.cfg.horizon,
+                                     differ=[], graphed_epoch_s=[], eager_epoch_s=[])
+                for e in range(epochs):
+                    again = _v2p_snapshot(learner, b)
+                    a, ma, tg = _timed_epoch(learner.train_epoch, a)
+                    b, mb, te = _timed_epoch(learner._train_epoch_eager, again())
+                    r["differ"].append(_differ(a, ma, b, mb))
+                    r["graphed_epoch_s"].append(tg)
+                    r["eager_epoch_s"].append(te)
+                    if e == 0 and epochs > 1:
+                        # two eager epochs agree in this mode
+                        r["eager_vs_eager"] = _differ(*learner._train_epoch_eager(again()), b, mb)
+                r["captures"] = [learner._st.step.captures, learner._st.update.captures]
+                r["step_graph"] = _graph_stats(learner._st.step)
+                del learner, fresh, a, b, again
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(det, ops_without_a_deterministic_form=sorted(
+        {str(w.message).split(" does not")[0][:80] for w in caught}))
+
+
+def _hold_deterministic_pairs(what, det) -> None:
+    """Fails unless every case of `_deterministic_pairs` was bit for bit,
+    with one capture of each graph."""
+    for name, r in det.items():
+        if name != "ops_without_a_deterministic_form" and (
+                any(r["differ"]) or r.get("eager_vs_eager") or r["captures"] != [1, 1]):
+            fail(f"{what}: under deterministic algorithms the graphed {name} epochs differ "
+                 f"from the eager ones: {r['differ']}, eager vs eager "
+                 f"{r.get('eager_vs_eager')} (captures {r['captures']})")
+
+
+def dual_graphs_phase(dev, card: str, gen):
+    """The graphed dual epoch against the eager one under
+    `torch.use_deterministic_algorithms` (the contact sums' `index_add`
+    atomics make two eager epochs differ in the default mode): metrics,
+    params, moments, count, both norms, env state and last obs bit for bit,
+    at 8 envs over two epochs (two eager epochs agree too) and at 15,360
+    envs over one short epoch."""
+    t_phase = time.perf_counter()
+    det = _deterministic_pairs("dual_graphs", (
+        (f"dual_{DUAL_DET_ENVS}", lambda: _dual_agent(
+            dev, DUAL_DET_ENVS, gen, horizon=DUAL_DET_HORIZON, minibatch=16, mini_epochs=2,
+            episode=DUAL_DET_EPISODE), 2),
+        (f"dual_{DUAL_ENVS}", lambda: _dual_agent(
+            dev, DUAL_ENVS, gen, horizon=DUAL_DET_FULL_HORIZON,
+            minibatch=DUAL_DET_FULL_MINIBATCH), 1)))
+    say("dual_graphs", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t_phase,
+        deterministic_mode=det)
+    _hold_deterministic_pairs("dual_graphs", det)
+
+
+# ---------------------------------------------------------------------------
+# phase 12c: the single-player two-hand backhand (nadal)
+# ---------------------------------------------------------------------------
+
+TWOHAND_ENVS = 30720          # nadal's (and djokovic's) demo config: stage 3 at 30,720 envs
+
+
+def _twohand_agent(dev, gen=None):
+    """`nadal` at its sizes: federer_train_stage_3's env at 30,720 envs with
+    the two-hand backhand, a left-handed random full-width nadal MVAE (seed
+    0) and π_low (seed 0), 256 candidate resets; stage 3's learner (horizon
+    32, minibatch 16,384, 6 mini-epochs: 360 optimizer steps)."""
+    import dataclasses
+
+    import torch
+
+    from vid2player3d_torch.envs import TennisEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import FrozenImitator, V2PPPO
+    from vid2player3d_torch.learn import running_norm as RN
+    from vid2player3d_torch.learn.networks import ImitatorNet
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.tennis.ball import TennisBallGenerator
+
+    env_cfg, v2p_cfg = preset("nadal", num_envs=TWOHAND_ENVS)
+    if not (env_cfg.two_hand_backhand and env_cfg.substeps == 6):
+        fail(f"nadal's config is not stage 3 with the two-hand backhand: {env_cfg}")
+    spec = dataclasses.replace(P.make_random_spec(0, player="nadal", hidden=256, experts=6,
+                                                  device=dev), righthand=False)
+    net = ImitatorNet(num_actions=75, generator=torch.Generator().manual_seed(0)).to(dev)
+    pi_low = FrozenImitator(net=net, obs_norm=RN.RunningNormState.create(734, dev))
+    if gen is None:
+        gen = TennisBallGenerator(num_candidates=4096, seed=0, device=dev)
+    env = TennisEnv(env_cfg, spec, _init_frames(), ball_generator=gen, pi_low=pi_low, device=dev)
+    return V2PPPO(env, v2p_cfg, seed=7, device=dev)
+
+
+def _record_k2_k3(env, state, action):
+    """One eager `env.step` from `state` with K2's inputs (each MoE layer's,
+    by batch) and K3's (by env count) recorded on the way; the hooks are
+    removed after. Returns {"k2/<layer>/<B>": (x, coeff, w, b),
+    "k3/<N>": (rot, off, root, parents)}."""
+    import torch
+
+    import vid2player3d_torch.envs.tennis as TEN
+    from vid2player3d_torch.mvae.model import MoELayer
+
+    seen, fk, handles = {}, TEN.fk_chain, []
+
+    def record_fk(rot, off, root_pos, parents):
+        seen.setdefault(f"k3/{rot.shape[0]}", (rot.clone(), off.clone(), root_pos.clone(),
+                                               tuple(parents)))
+        return fk(rot, off, root_pos, parents)
+
+    for li, spec in enumerate(env._lane_specs):
+        for mi, mod in enumerate(m for m in spec.decoder.modules() if isinstance(m, MoELayer)):
+            def hook(module, args, key=f"k2/{mi}"):
+                coeff, h = args
+                seen.setdefault(f"{key}/{h.shape[0]}", (h.detach().clone(), coeff.detach().clone(),
+                                                        module.w.detach(), module.b.detach()))
+            handles.append(mod.register_forward_pre_hook(hook))
+    TEN.fk_chain = record_fk
+    try:
+        with torch.no_grad():
+            env.step(state, action)
+    finally:
+        TEN.fk_chain = fk
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def twohand_main_phase(dev, card: str, gen):
+    """nadal (left-handed, the two-hand backhand) at its 30,720 envs,
+    graphed, one epoch: K2 and K3 counted through the replays against the
+    code's count per step; K2 at B = 30,720 and K3 at N = 30,720 (and the
+    candidates' 256) held to their plain versions on the inputs one more
+    step from the epoch's state gives them, K2 timed there beside its bound
+    and cuBLAS; the IK alone at 30,720 rows, eager and replayed from a graph,
+    the graphed against the eager. Returns the epoch's launches and K2's
+    times at B = 30,720."""
+    import gc
+
+    import torch
+
+    from vid2player3d_torch.ops import fk as FK
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+
+    t0 = time.perf_counter()
+    agent = _twohand_agent(dev, gen)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    T = agent.cfg.horizon
+    # per env step: one decode (3 prep + 3 GEMM); K3 in the candidate reset
+    # (N = 256) and the FK targets (N = 30,720); the IK's FK is plain torch
+    want = {"moe_linear": 3 * T, "moe_split_w": 3 * T, "fk_chain": 2 * T}
+    ts, epoch_s, rollout_s, rows, launches, stats, peak_gib = _graphed_epochs(
+        "twohand_main", agent, ts, 1, want)
+    env = agent.env
+
+    # K2 and K3 on the path's own inputs: one more step from the epoch's state
+    with torch.no_grad():
+        mu, _ = agent._forward(ts.params, ts.obs_norm, ts.last_obs)
+    before = _kernel_counts()
+    seen = _record_k2_k3(env, ts.env_state, mu)
+    k2_in = [seen[f"k2/{mi}/{TWOHAND_ENVS}"] for mi in range(len(MOE_LAYERS))]
+    k2_err = 0.0
+    for a in k2_in:
+        want_out = MOE.moe_linear_ref(*a)
+        e = float((MOE.moe_linear(*a) - want_out).abs().max())
+        k2_err = max(k2_err, e)
+        if not e <= 1e-4 * max(1.0, float(want_out.abs().max())):
+            fail(f"K2 disagrees with its plain version at B={TWOHAND_ENVS} on nadal's inputs: {e}")
+    k3_err = {}
+    for n in (TWOHAND_ENVS, env.cfg.reset_candidates):
+        args = seen[f"k3/{n}"]
+        k3_err[n] = max(float((a - b).abs().max())
+                        for a, b in zip(FK.fk_chain(*args), FK._fk_plain(*args)))
+    if any(k3_err.values()):
+        fail(f"K3 disagrees with its plain version on nadal's inputs: {k3_err}")
+    k2 = _k2_times(dev, card, TWOHAND_ENVS, None, k2_in)
+    # the comparison's and timing's launches are not the main path's
+    FK.fk_chain.launches, MOE.moe_linear.launches, MOE.split_weights.launches = (
+        before["k3"], before["k2_gemm"], before["k2_prep"])
+    del seen, k2_in
+
+    ik = _ik_alone(env, _in_backhand(env, ts.env_state.mvae))
+    steps = agent.num_minibatches * agent.cfg.mini_epochs
+    keep = ("hit_rate", "contact_rate", "racket_ball_dist", "cycles", "done_rate", "reward_mean",
+            "c_loss", "kl", "grad_skip")
+    k2_keys = ("ms", "graph_ms", "plain_ms", "plain_graph_ms", "library_ms", "library_graph_ms",
+               "bound_ms", "bound_by", "f32_simt_bound_ms", "share_of_3xtf32_bound",
+               "achieved_tflops", "flops")
+    say("twohand_main", card=card, nvidia_smi=nvidia_smi(), config="nadal", envs=TWOHAND_ENVS,
+        horizon=T, substeps=env.cfg.substeps, candidates=env.cfg.reset_candidates,
+        two_hand_iters=env.cfg.two_hand_iters, righthand=False, graphed=agent.graphed,
+        note="one epoch: it captures both graphs", setup_s=setup_s, epoch_s=epoch_s,
+        rollout_s=rollout_s, update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+        rollout_ms_per_env_step=[r / T * 1e3 for r in rollout_s],
+        optimizer_steps_per_epoch=steps,
+        optimizer_step_ms=[(e - r) / steps * 1e3 for e, r in zip(epoch_s, rollout_s)],
+        epoch_env_steps_per_s=[TWOHAND_ENVS * T / e for e in epoch_s],
+        launches_per_epoch=launches, launches_per_env_step={k: v // T for k, v in want.items()},
+        graphs=stats, peak_mem_gib=peak_gib, two_hand_ik=ik,
+        k2_B30720=dict({k: k2[k] for k in k2_keys}, max_abs_err=k2_err, tol=1e-4),
+        k3_max_abs_err=k3_err, metrics=[{k: r[k] for k in keep} for r in rows])
+    one = {k: launches[-1][k] for k in ("moe_linear", "moe_split_w", "fk_chain")}
+    del agent, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one, dict({k: k2[k] for k in k2_keys}, max_abs_err=k2_err)
+
+
+def twohand_eager_phase(dev, card: str, gen=None):
+    """One eager epoch of twohand_main's learner (`_train_epoch_eager`, every
+    op dispatched from the host), for comparison with the graphed one; not
+    run by `main`. Alone: `python3 -c "import sys; sys.path.insert(0, '.');
+    import torch, chip_smoke as C; from vid2player3d_torch.ops import build;
+    build.build_kernels(); d = torch.device('cuda', 0); c =
+    torch.cuda.get_device_name(0); C.twohand_main_phase(d, c, None);
+    C.twohand_eager_phase(d, c)"`."""
+    import gc
+
+    import torch
+
+    agent = _twohand_agent(dev, gen)
+    ts = agent.init_state()
+    times = []
+    _wrap_timer(agent, "_rollout_eager", times)
+    try:
+        ts, m, epoch_s = _timed_epoch(agent._train_epoch_eager, ts)
+    finally:
+        delattr(agent, "_rollout_eager")
+    T = agent.cfg.horizon
+    steps = agent.num_minibatches * agent.cfg.mini_epochs
+    say("twohand_eager", card=card, nvidia_smi=nvidia_smi(), config="nadal", envs=TWOHAND_ENVS,
+        horizon=T, epoch_s=epoch_s, rollout_s=times[0],
+        rollout_ms_per_env_step=times[0] / T * 1e3,
+        optimizer_step_ms=(epoch_s - times[0]) / steps * 1e3,
+        grad_skip=float(m["grad_skip"]), reward_mean=float(m["reward_mean"]))
+    del agent, ts
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4246,6 +4531,8 @@ def main() -> None:
     ts, stage2_launches = tennis_graphs_phase(dev, card, agent, ts, stage2_env)
     dual_parity_phase(dev)
     dual_agent, dual_ts, dual_launches = dual_main_phase(dev, card)
+    dual_graphs_phase(dev, card, dual_agent.env.gen)
+    twohand_launches, k2_b30720 = twohand_main_phase(dev, card, agent.env.gen)
     dr_parity_phase(dev)
     ctx_parity_phase(dev)
     k1_dr = im_dr_main_phase(dev, card)
@@ -4267,8 +4554,9 @@ def main() -> None:
     physics_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
-    # one dual step (~105 k device events, each step runs the serve and the
-    # hand-off): cut from two, whose events took ~100 s to read back
+    # one replayed dual step (~105 k device events eager, each step runs the
+    # serve and the hand-off): cut from two, whose events took ~100 s to read
+    # back
     rollout_profile_phase("dual_profile", card, dual_agent, dual_ts, horizon=1)
 
     b16, f32 = k1["bf16"], k1["f32"]   # bf16: the main path's moment type on the card
@@ -4276,8 +4564,9 @@ def main() -> None:
                  "replaces": "vid2player3d_tpu/ops/fused_adam.py:66"}
     # K1 runs on four main paths (the imitation epochs, amass_im_dr's,
     # amass_im_corrupt's and amass_im's on the converted AMASS library); K2
-    # and K3 on three (the stage-1 tennis epochs, the dual rally's and
-    # federer_train_stage_1_dr's), K2 also on the MotionVAE trainer's (on the
+    # and K3 on four (the stage-1 tennis epochs, the dual rally's, nadal's
+    # two-hand epoch and federer_train_stage_1_dr's; the first three counted
+    # through graph replays), K2 also on the MotionVAE trainer's (on the
     # synthetic pose dataset and, through the command line, on the generated
     # tennis dataset) and K3 on the warm-started stage-2 steps. `launches` is K1's
     # on the imitation path and K2's and K3's on the dual path, each path's
@@ -4295,7 +4584,7 @@ def main() -> None:
 
     def per_path(name):
         paths = {"tennis_stage1": tennis_launches[name], "tennis_stage2": stage2_launches[name],
-                 "dual_rally": dual_launches[name],
+                 "dual_rally": dual_launches[name], "two_hand_single": twohand_launches[name],
                  "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name]}
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
@@ -4342,9 +4631,10 @@ def main() -> None:
          **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "unit": "one MVAE decode (3 prep + 3 GEMM launches) at B=10240, per_lane_B7680 "
-                 "one lane's decode in the dual rally, stage2_B15360 the stage-2 decode; "
-                 "bound: 3xTF32",
+                 "one lane's decode in the dual rally, stage2_B15360 the stage-2 decode, "
+                 "two_hand_B30720 nadal's decode on its own inputs; bound: 3xTF32",
          "per_lane_B7680": k2["per_lane_B7680"], "stage2_B15360": k2["stage2_B15360"],
+         "two_hand_B30720": k2_b30720,
          "mvae_B100": k2_b100,
          "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
          "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
@@ -4354,10 +4644,10 @@ def main() -> None:
          **per_path("fk_chain"),
          **{k: k3[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "unit": "one FK at N=10240 (N15360: the dual rally's and stage 2's); ms and graph_ms "
-                 "with cold inputs (sets over 4x the L2 in turn), warm_ms and warm_graph_ms one "
-                 "set again and again",
-         "N15360": k3["N15360"],
+         "unit": "one FK at N=10240 (N15360: the dual rally's and stage 2's; N30720: "
+                 "nadal's and djokovic's); ms and graph_ms with cold inputs (sets over 4x the "
+                 "L2 in turn), warm_ms and warm_graph_ms one set again and again",
+         "N15360": k3["N15360"], "N30720": k3["N30720"],
          "graph_ms": k3["graph_ms"], "warm_ms": k3["warm_ms"],
          "warm_graph_ms": k3["warm_graph_ms"], "plain_graph_ms": k3["plain_graph_ms"],
          "host_ms_per_call": k3["host_ms_per_call"], "share_of_bound": k3["share_of_bound"]},

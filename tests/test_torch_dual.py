@@ -1,7 +1,8 @@
 """The port's dual-player rally against the JAX package's: the hand-off's
 `estimate_in`, `DualTennisEnv` (reset, six steps, the hand-off and the
 netted shot), the two-hand fix on mixed handedness, a single-player env with
-the two-hand backhand, and one lane-routed `V2PPPO(num_policies=2)` epoch.
+the two-hand backhand, and one lane-routed `V2PPPO(num_policies=2)` epoch,
+eager and staged as the card replays it from CUDA graphs.
 
 The rally pairs two player identities as `nadal_federer` does: lane 0 a
 left-handed nadal with the two-hand backhand, lane 1 a right-handed federer,
@@ -411,29 +412,45 @@ def _epoch_draws(jagent, jts):
 
 
 @pytest.fixture(scope="module")
-def epoch(envs, tmp_path_factory):
-    """One JAX `V2PPPO(num_policies=2)` epoch on the dual env and the port's
-    fed its draws; the JAX agent's checkpoint after it."""
+def epoch_start(envs):
+    """The JAX `V2PPPO(num_policies=2)` agent on the dual env, its initial
+    train state, that epoch's draws, and the start as the port takes it
+    (params, env state arrays, last obs)."""
     _, _, e = envs
-    jenv, tenv, _, _ = e["dual"]
+    jenv, _, _, _ = e["dual"]
     jagent = JV2P(jenv, JV2PCfg(**LEARNER), seed=SEED)
     jts0 = jagent.init_state()
     draws = _epoch_draws(jagent, jts0)
-    init_params = CK.params_from_jax(_flatten(jts0.params))
-    env_state0 = _state_arrays(jts0.env_state)
-    last_obs0 = np.asarray(jts0.last_obs)
+    start = (CK.params_from_jax(_flatten(jts0.params)), _state_arrays(jts0.env_state),
+             np.asarray(jts0.last_obs))
+    return jagent, jts0, draws, start
+
+
+def _port_start(tagent, start):
+    """The port's train state at the JAX epoch's start."""
+    init_params, env_state0, last_obs0 = start
+    ts = tagent.init_state(init_params)
+    ts.env_state = CK.tennis_state_from_jax(env_state0)
+    ts.last_obs = torch.tensor(last_obs0)
+    return ts
+
+
+@pytest.fixture(scope="module")
+def epoch(envs, epoch_start, tmp_path_factory):
+    """One JAX `V2PPPO(num_policies=2)` epoch on the dual env and the port's
+    fed its draws; the JAX agent's checkpoint after it."""
+    _, _, e = envs
+    _, tenv, _, _ = e["dual"]
+    jagent, jts0, draws, start = epoch_start
     jts1, jm = jagent.train_epoch(jts0)
     jm = {k: float(v) for k, v in jm.items()}
     path = str(tmp_path_factory.mktemp("dual") / "v2p_dual.npz")
     jagent.save_checkpoint(path, jts1)
 
     tagent = V2PPPO(tenv, V2PConfig(**LEARNER), seed=SEED, device="cpu")
-    tts0 = tagent.init_state(init_params)
-    tts0.env_state = CK.tennis_state_from_jax(env_state0)
-    tts0.last_obs = torch.tensor(last_obs0)
-    tts1, tm = tagent.train_epoch(tts0, draws=draws)
+    tts1, tm = tagent.train_epoch(_port_start(tagent, start), draws=draws)
     tm = {k: float(v) for k, v in tm.items()}
-    return jts1, jm, tagent, tts1, tm, init_params, path
+    return jts1, jm, tagent, tts1, tm, start[0], path
 
 
 METRIC_ATOL = {"a_loss": 1e-4, "c_loss": 1e-3, "b_loss": 1e-6, "kl": 1e-5, "lr": 1e-9}
@@ -474,6 +491,37 @@ def test_dual_epoch_params_match(epoch):
         np.testing.assert_allclose(t.mean.numpy(), np.asarray(j.mean), atol=1e-4, rtol=1e-4)
         np.testing.assert_allclose(t.var.numpy(), np.asarray(j.var), atol=1e-4, rtol=1e-4)
     _assert_states_match(tts1.env_state, jts1.env_state, 1e-4)
+
+
+def test_staged_dual_epoch_matches_jax(epoch_start, epoch):
+    """The port's staged dual epoch (`_train_epoch_graphed`: each env step
+    and each optimizer step one `StaticGraph` call, the path the card
+    replays) from the JAX epoch's start on its draws: every metric and the
+    stacked params held to the JAX epoch at `test_dual_epoch_metrics_match`'s
+    and `test_dual_epoch_params_match`'s bounds, and bit for bit with the
+    port's eager epoch on the same draws."""
+    jts1, jm, tagent, tts1, tm, init_params, _ = epoch
+    _, _, draws, start = epoch_start
+    ts, m = tagent._train_epoch_graphed(_port_start(tagent, start), draws=draws)
+    assert (tagent._st.step.captures, tagent._st.update.captures) == (1, 1)
+    m = {k: float(v) for k, v in m.items()}
+    assert set(m) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(m[k], jm[k], atol=METRIC_ATOL.get(k, 1e-5), rtol=1e-4,
+                                   err_msg=k)
+        assert m[k] == tm[k] or (np.isnan(m[k]) and np.isnan(tm[k])), k
+    assert m["grad_skip"] == 0.0
+    jp = CK.params_from_jax(_flatten(jts1.params))
+    diff2 = ref2 = 0.0
+    for k, v in ts.params.items():
+        got, want = v.detach().numpy(), jp[k].numpy()
+        np.testing.assert_allclose(got, want, atol=2e-6, err_msg=k)
+        diff2 += float(((got - want) ** 2).sum())
+        ref2 += float(((want - init_params[k].numpy()) ** 2).sum())
+        assert torch.equal(v, tts1.params[k]), k
+    assert np.sqrt(diff2) <= 1e-3 * np.sqrt(ref2), (np.sqrt(diff2), np.sqrt(ref2))
+    assert int(ts.opt_state.count) == MINI_EPOCHS * (N * T_H // MB)
+    _assert_states_match(ts.env_state, jts1.env_state, 1e-4)
 
 
 def test_other_policy_gradient_is_zero(epoch):

@@ -2,9 +2,9 @@
 moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
 versions on the card; and the dual rally's step and two-hand IK on the card
 against the same on the CPU, with K2's and K3's launches per dual step; the
-epochs replayed from CUDA graphs (imitation, MotionVAE, tennis stage 1)
-against their eager bodies, the launch counts through replays, a capture
-that fails.
+epochs replayed from CUDA graphs (imitation, MotionVAE, tennis stage 1,
+the two-hand single-player env, the dual rally) against their eager
+bodies, the launch counts through replays, a capture that fails.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -804,10 +804,10 @@ def test_mvae_fuse_on_the_card(cuda, tmp_path):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _tennis_learner(cuda, n, horizon):
+def _tennis_learner(cuda, n, horizon, **env_kw):
     """A stage-1 learner on the card at test widths (the same seeded weights
     on every call): reach reward, discrete targets, 2 candidate resets,
-    episodes of 6 steps."""
+    episodes of 6 steps; `env_kw` replaces env config fields."""
     import numpy as np
 
     from vid2player3d_torch.envs import TennisConfig, TennisEnv
@@ -826,9 +826,10 @@ def _tennis_learner(cuda, n, horizon):
     pi_low = FrozenImitator(net=ImitatorNet(num_actions=75,
                                             generator=torch.Generator().manual_seed(0)).to(cuda),
                             obs_norm=RN.RunningNormState.create(734, cuda))
-    env = TennisEnv(TennisConfig(num_envs=n, substeps=2, max_episode_length=6,
-                                 reset_reaction_nframes=6, reward_type="reach",
-                                 use_random_ball_target="discrete", reset_candidates=2),
+    env = TennisEnv(TennisConfig(**dict(dict(
+                        num_envs=n, substeps=2, max_episode_length=6, reset_reaction_nframes=6,
+                        reward_type="reach", use_random_ball_target="discrete",
+                        reset_candidates=2), **env_kw)),
                     P.make_random_spec(0, hidden=32, experts=2, device=cuda), frames,
                     ball_generator=gen, pi_low=pi_low, device=cuda)
     return V2PPPO(env, V2PConfig(horizon=horizon, minibatch_size=16, mini_epochs=2,
@@ -846,17 +847,14 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-def test_graphed_tennis_epoch_equals_eager_on_the_card(cuda, deterministic):
-    """`V2PPPO.train_epoch` (graphed on the card) against `_train_epoch_eager`
-    from one state and one seed of each generator, two epochs at 8 envs
-    under deterministic algorithms: metrics, params, moments, norms, env
-    state and last obs bit for bit; K2 (3 prep + 3 GEMM) and K3 (2) per env
-    step through the replays, as the eager epoch launches them; one capture
-    per graph."""
+def _hold_graphed_to_eager(agent, T, per_step):
+    """`agent.train_epoch` (graphed on the card) against `_train_epoch_eager`
+    from one state and one seed of each generator, two epochs: metrics,
+    params, moments, norms, env state and last obs bit for bit; K2 (prep,
+    GEMM) and K3 launched `per_step` times per env step through the
+    replays, as the eager epoch launches them; one capture per graph."""
     from vid2player3d_torch.parallel import mesh as PM
 
-    T = 4
-    agent = _tennis_learner(cuda, 8, T)
     assert agent.graphed
     env = agent.env
     g = env.generator.get_state()
@@ -877,7 +875,7 @@ def test_graphed_tennis_epoch_equals_eager_on_the_card(cuda, deterministic):
             launched.append((MOE.moe_linear.launches - before[0],
                              MOE.split_weights.launches - before[1],
                              FK.fk_chain.launches - before[2]))
-        assert launched == [(3 * T, 3 * T, 2 * T)] * 2, launched
+        assert launched == [tuple(n * T for n in per_step)] * 2, launched
         for k in ma:
             assert torch.equal(ma[k], mb[k]) or bool(ma[k].isnan() & mb[k].isnan()), k
         for x, y in zip(PM.tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu, a.obs_norm,
@@ -887,7 +885,30 @@ def test_graphed_tennis_epoch_equals_eager_on_the_card(cuda, deterministic):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
         assert torch.equal(a.opt_state.count, b.opt_state.count)
     assert agent._st.step.captures == agent._st.update.captures == 1
-    assert agent._st.step.launches[2:] == (3, 3, 2)
+    assert agent._st.step.launches[2:] == per_step
+
+
+def test_graphed_tennis_epoch_equals_eager_on_the_card(cuda, deterministic):
+    """The stage-1 learner's graphed epochs against its eager ones, two
+    epochs at 8 envs under deterministic algorithms, bit for bit; K2 (3 prep
+    + 3 GEMM) and K3 (2) per env step through the replays
+    (`_hold_graphed_to_eager`)."""
+    _hold_graphed_to_eager(_tennis_learner(cuda, 8, 4), 4, (3, 3, 2))
+
+
+def test_graphed_two_hand_and_dual_epochs_equal_eager_on_the_card(cuda, deterministic):
+    """The same for a single-player env with the two-hand backhand (the
+    IK's autograd inside the step graph; K2 3 + 3 and K3 2 per step) and
+    for the dual rally at 8 envs with two policies (the serve and hand-off
+    flights; K2 6 + 6, one decode per lane, and K3 2 per step)."""
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+
+    _hold_graphed_to_eager(_tennis_learner(cuda, 8, 4, two_hand_backhand=True,
+                                           two_hand_iters=4), 4, (3, 3, 2))
+    dual = V2PPPO(_dual_env(cuda, 8), V2PConfig(
+        horizon=4, minibatch_size=16, mini_epochs=2, actor_units=(64, 32),
+        critic_units=(64, 32), compute_dtype="f32", num_policies=2), seed=7, device=cuda)
+    _hold_graphed_to_eager(dual, 4, (6, 6, 2))
 
 
 def test_cli_curriculum_runs_on_the_card_by_default(cuda, tmp_path):

@@ -197,8 +197,8 @@ GRAPHED = ("federer_train_stage_1", "federer_train_stage_2", "federer_train_stag
            "djokovic_train_stage_1", "nadal_train_stage_2", "federer_train_stage_1a",
            "federer_train_stage_2a", "federer_train_stage_2b", "federer_train_stage_2c",
            "federer_train_stage_1sync", "federer_train_stage_2sync", "federer_train_serve",
-           "federer")
-EAGER = ("djokovic", "nadal", "federer_train_stage_1_dr")
+           "federer", "djokovic", "nadal")
+EAGER = ("federer_train_stage_1_dr",)
 
 
 @pytest.fixture(scope="module")
@@ -210,10 +210,10 @@ def port_parts(shared):
 
 @pytest.mark.parametrize("name", GRAPHED + EAGER)
 def test_which_configs_take_the_graphs(port_parts, name):
-    """On a card the single-player configs replay their epochs from graphs;
-    the two-hand IK and domain randomization stay eager. The predicate
-    reads the config and the device only (here the device is set to the
-    card's type without touching one)."""
+    """On a card the single-player configs replay their epochs from graphs,
+    the two-hand `djokovic` and `nadal` included; domain randomization stays
+    eager. The predicate reads the config and the device only (here the
+    device is set to the card's type without touching one)."""
     spec, feats, pool, pi_low = port_parts
     env_cfg, v2p_cfg = preset(name, num_envs=4, reset_candidates=2)
     env = TennisEnv(env_cfg, spec, feats, ball_generator=pool, pi_low=pi_low, device="cpu")
@@ -224,20 +224,24 @@ def test_which_configs_take_the_graphs(port_parts, name):
 
 
 def test_dual_mesh_and_cpu_stay_eager(port_parts):
-    """The dual rally (two policies on a `DualTennisEnv`) and a learner over
-    a mesh stay eager on a card; any learner on the CPU is eager."""
+    """The dual rallies (two policies on a `DualTennisEnv`, `nadal_federer`
+    and `federer_djokovic`) replay their epochs from graphs on a card; a
+    learner over a mesh stays eager there, and any learner on the CPU is
+    eager."""
     spec, feats, pool, pi_low = port_parts
-    env_cfg, v2p_cfg = preset("nadal_federer", num_envs=4)
-    dual = DualTennisEnv(env_cfg, (dataclasses.replace(spec, righthand=False), spec),
-                         (feats, feats), ball_generator=pool, pi_low=pi_low,
-                         two_hand_lanes=(False, False), device="cpu")
-    learners = [V2PPPO(dual, dataclasses.replace(v2p_cfg, **LEARNER, num_policies=2),
-                       device="cpu")]
+    duals = []
+    for name, lanes in (("nadal_federer", (True, False)), ("federer_djokovic", (False, True))):
+        env_cfg, v2p_cfg = preset(name, num_envs=4)
+        dual = DualTennisEnv(env_cfg, (dataclasses.replace(spec, righthand=False), spec),
+                             (feats, feats), ball_generator=pool, pi_low=pi_low,
+                             two_hand_lanes=lanes, device="cpu")
+        duals.append(V2PPPO(dual, dataclasses.replace(v2p_cfg, **LEARNER, num_policies=2),
+                            device="cpu"))
     mesh = parallel.data_parallel_mesh(device="cpu")
     env = TennisEnv(TennisConfig(**STAGE1), spec, feats, ball_generator=pool, pi_low=pi_low,
                     device="cpu")
-    learners.append(V2PPPO(env.shard(mesh), V2PConfig(**LEARNER), mesh=mesh))
-    for agent in learners:
+    meshed = V2PPPO(env.shard(mesh), V2PConfig(**LEARNER), mesh=mesh)
+    for agent in duals + [meshed]:
         assert not agent.graphed
         agent.device = torch.device("cuda", 0)
-        assert not agent.graphed
+        assert agent.graphed == (agent is not meshed)

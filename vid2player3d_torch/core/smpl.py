@@ -198,6 +198,24 @@ def rest_joints(model: SMPLModel, betas):
     return torch.einsum("jv,...vc->...jc", model.J_regressor, v)
 
 
+# (parents, device, dtype) -> the tree's index tensors and the [0, 0, 0, 1] row
+_TREE_TENSORS: dict = {}
+
+
+def _tree_tensors(parents: np.ndarray, device, dtype):
+    """(parent index, has-parent mask (J, 1), the homogeneous row) of a tree
+    on a device, made once: a tensor built from host data on every call is
+    a host copy, which a step replayed from a CUDA graph cannot hold."""
+    key = (tuple(int(p) for p in parents), torch.device(device), dtype)
+    hit = _TREE_TENSORS.get(key)
+    if hit is None:
+        hit = _TREE_TENSORS[key] = (
+            torch.as_tensor(np.maximum(parents, 0), dtype=torch.long, device=device),
+            torch.as_tensor(parents >= 0, device=device)[:, None],
+            torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device))
+    return hit
+
+
 def batch_rigid_transform(rot_mats, joints, parents=SMPL_PARENTS):
     """FK over the SMPL tree with per-joint rotation matrices.
 
@@ -206,13 +224,11 @@ def batch_rigid_transform(rot_mats, joints, parents=SMPL_PARENTS):
     """
     parents = np.asarray(parents)
     J = joints.shape[-2]
-    par = torch.as_tensor(np.maximum(parents, 0), dtype=torch.long, device=joints.device)
-    has_par = torch.as_tensor(parents >= 0, device=joints.device)[:, None]
+    par, has_par, bot = _tree_tensors(parents, joints.device, rot_mats.dtype)
     rel = joints - torch.where(has_par, joints[..., par, :], torch.zeros_like(joints))
 
     def make_T(Rm, t):
         top = torch.cat([Rm, t[..., None]], dim=-1)
-        bot = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=Rm.dtype, device=Rm.device)
         return torch.cat([top, bot.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
     T_glob = [make_T(rot_mats[..., 0, :, :], rel[..., 0, :])]

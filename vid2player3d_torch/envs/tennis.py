@@ -525,13 +525,19 @@ class TennisEnv:
     @property
     def rest_joints_smpl(self):
         """(N, 24, 3) global rest joint positions, SMPL order: the rest pose
-        of the two-hand IK."""
-        off = self.model.joint_pos
-        g = [torch.zeros_like(off[:, 0])]
-        for j in range(1, 24):
-            g.append(g[int(self.model.parents[j])] + off[:, j])
-        return torch.stack(g, dim=1)[:, torch.as_tensor(S.MUJOCO_2_SMPL, dtype=torch.long,
-                                                        device=off.device)]
+        of the two-hand IK. Computed once per model and kept with it (a copy
+        stepping another model, as `with_model` and `shard` make, computes its
+        own), so a step replayed from a CUDA graph reads one tensor."""
+        model, rest = getattr(self, "_rest_smpl", (None, None))
+        if model is not self.model:
+            off = self.model.joint_pos
+            g = [torch.zeros_like(off[:, 0])]
+            for j in range(1, 24):
+                g.append(g[int(self.model.parents[j])] + off[:, j])
+            rest = torch.stack(g, dim=1)[:, torch.as_tensor(S.MUJOCO_2_SMPL, dtype=torch.long,
+                                                            device=off.device)]
+            self._rest_smpl = (self.model, rest)
+        return rest
 
     # -- random draws ----------------------------------------------------------
 
@@ -559,17 +565,15 @@ class TennisEnv:
     def step_draws(self, generator: Optional[torch.Generator] = None) -> Dict:
         """One `step`'s draws from `generator` (the env's own unless given),
         in the order, shapes and dtypes in which `step(draws=None)` draws
-        them: the masked reset's (`reset`: `root_xy_u`, `init_idx`,
-        `ball_idx` unless the serve toss launches the ball, `tt`, `target_u`;
-        for the K candidates, or for every env), `rw_noise` (with the random
-        walk in recovery), `ball_idx`, `near_jitter`, `tt` and `target_u`.
-        `step` given them draws nothing, so a step replayed from a CUDA graph
-        takes them as static inputs and sees the numbers the eager step
-        draws. The draws are global (a sharded env's `step` keeps its rows).
-        One lane only: the dual rally draws its serve and hand-off too."""
-        if len(self._lane_specs) > 1:
-            raise ValueError("step_draws covers one lane; this env has "
-                             f"{len(self._lane_specs)}")
+        them: the masked reset's (`reset`: `root_xy_u`, `init_idx` lane by
+        lane, `ball_idx` unless the serve toss launches the ball, `tt`,
+        `target_u`, then the hook `_post_reset`'s; for the K candidates, or
+        for every env), `rw_noise` (with the random walk in recovery), the
+        hook `_reaction_ball`'s (`ball_idx`, `near_jitter`), `tt` and
+        `target_u`. `step` given them draws nothing, so a step replayed from
+        a CUDA graph takes them as static inputs and sees the numbers the
+        eager step draws. The draws are global (a sharded env's `step` keeps
+        its rows)."""
         cfg, dev = self.cfg, self.device
         g = self.generator if generator is None else generator
         n = self.num_envs_global
@@ -585,19 +589,38 @@ class TennisEnv:
         def target(k):
             return rand(k) if cfg.use_random_ball_target == "discrete" else rand(k, 3)
 
-        reset = {"root_xy_u": rand(m, 2), "init_idx": randint(0, self._init_per_lane, m)}
+        reset = {"root_xy_u": rand(m, 2), "init_idx": self._init_idx_draws(m, g)}
         if cfg.init_ball_type != "serve_toss":
             reset["ball_idx"] = self.gen.pool_idx(m, g)
         reset["tt"] = randint(-5, 5, m)
         reset["target_u"] = target(m)
+        reset.update(self._post_reset_draws(m, g))
         draws = {"reset": reset}
         if cfg.random_walk_in_recovery:
             draws["rw_noise"] = torch.randn((n, cfg.num_latents), generator=g, device=dev)
-        draws["ball_idx"] = self.gen.pool_idx(n, g)
-        draws["near_jitter"] = self.gen.near_jitter(n, g)
+        draws.update(self._reaction_draws(n, g))
         draws["tt"] = randint(-5, 5, n)
         draws["target_u"] = target(n)
         return draws
+
+    def _init_idx_draws(self, m: int, g: torch.Generator) -> torch.Tensor:
+        """The (m,) init rows `_mvae_reset` draws for m envs: lane by lane
+        (lane l's rows are l::lanes), each lane's in one call."""
+        L = len(self._lane_specs)
+        idx = torch.empty(m, dtype=torch.long, device=self.device)
+        for l in range(L):
+            idx[l::L] = torch.randint(0, self._init_per_lane, (len(range(l, m, L)),),
+                                      generator=g, device=self.device)
+        return idx
+
+    def _post_reset_draws(self, m: int, g: torch.Generator) -> Dict:
+        """The draws of `_post_reset` for m envs (the dual env's serve)."""
+        return {}
+
+    def _reaction_draws(self, n: int, g: torch.Generator) -> Dict:
+        """The draws of `_reaction_ball` for n envs: the pool sample and the
+        near-launch jitter."""
+        return {"ball_idx": self.gen.pool_idx(n, g), "near_jitter": self.gen.near_jitter(n, g)}
 
     # -- kinematic targets -------------------------------------------------------
 
@@ -644,9 +667,10 @@ class TennisEnv:
                 & self.two_hand_mask)
         rm = mvae.joint_rotmat
         hands = {bool(sp.righthand) for sp, th in zip(self._lane_specs, self._lane_two_hand) if th}
+        rest = self.rest_joints_smpl
         for rh in sorted(hands):
             rm = twohand.optimize_two_hand_backhand(
-                rm, self.rest_joints_smpl, righthand=rh, iters=self.cfg.two_hand_iters,
+                rm, rest, righthand=rh, iters=self.cfg.two_hand_iters,
                 mask=mask & (self.righthand == rh),
                 num_rows=None if self.shard_info is None else self.num_envs_global)
         return dataclasses.replace(mvae, joint_rotmat=rm)

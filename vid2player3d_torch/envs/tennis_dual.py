@@ -36,7 +36,8 @@ class DualTennisEnv(TennisEnv):
     """Paired-lane rally env: an even `num_envs`, the full masked reset
     (`reset_candidates=0`, the serves are lane-paired); lane i's opponent is
     lane i ^ 1. The serve draws are `serve_u` (N, 3) uniforms in the reset
-    draws, or the env's generator."""
+    draws, or the env's generator; `step_draws` holds them, and no
+    step-level `ball_idx` or `near_jitter`."""
 
     def __init__(self, cfg, *args, **kw):
         if cfg.num_envs % 2:
@@ -48,6 +49,10 @@ class DualTennisEnv(TennisEnv):
         self._swap = torch.arange(N, device=self.device) ^ 1
         self._lane = torch.arange(N, device=self.device) % 2
         self._mirror = torch.tensor(_MIRROR, device=self.device)
+        # the serve's velocity box (m/s), made once: the step reads only
+        # tensors that outlive it
+        self._serve_lo = torch.tensor([-2.0, 28.0, 5.0], device=self.device)
+        self._serve_hi = torch.tensor([2.0, 32.0, 8.0], device=self.device)
 
     def shard(self, mesh) -> "DualTennisEnv":
         """This rank's block of the envs (``TennisEnv.shard``); the pairs
@@ -74,8 +79,7 @@ class DualTennisEnv(TennisEnv):
         N = self.cfg.num_envs
         with torch.autograd.profiler.record_function("serve"):
             u = self._rand(draws, "serve_u", (N, 3))
-            lo = torch.tensor([-2.0, 28.0, 5.0], device=self.device)
-            hi = torch.tensor([2.0, 32.0, 8.0], device=self.device)
+            lo, hi = self._serve_lo, self._serve_hi
             serve_vel = torch.maximum(lo, u * (hi - lo) + lo)
             serve_pos = state.racket_pos
             vspin = torch.full((N,), 40.0 / (2 * np.pi), device=self.device)
@@ -94,6 +98,13 @@ class DualTennisEnv(TennisEnv):
             ball_vel=_rows_where(receiving, vel_in, serve_vel),
             ball_vspin=torch.where(receiving, vspin_in, vspin),
             ball_traj=_rows_where(receiving, res.traj, state.ball_traj))
+
+    def _post_reset_draws(self, m: int, g: torch.Generator):
+        return {"serve_u": torch.rand((m, 3), generator=g, device=self.device)}
+
+    def _reaction_draws(self, n: int, g: torch.Generator):
+        # the hand-off draws nothing
+        return {}
 
     def _reaction_trigger(self, state: TennisState, tar_time, contact_now):
         # my reaction = the opponent just hit (not a timer)

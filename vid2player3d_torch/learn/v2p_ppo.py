@@ -26,11 +26,11 @@ Differences from `ImitationPPO`, as in the JAX learner:
 One `train_epoch` = horizon rollout → next-value bootstrap → GAE →
 mini_epochs × minibatches. The draws (action noise, minibatch permutations,
 the env's per-step draws) come from generators, or from `draws=` so a test
-can feed the JAX learner's. On the card, one policy on a single-player env
-without a mesh, domain randomization or the two-hand IK (`graphed`) replays
-each env step and each optimizer step from a CUDA graph, as the JAX
-learner runs its epoch as one jitted program; the draws stay outside the
-graphs (`TennisEnv.step_draws`).
+can feed the JAX learner's. On the card, without a mesh or domain
+randomization (`graphed`: single-player, two-hand and dual envs, one or two
+policies), each env step and each optimizer step is replayed from a CUDA
+graph, as the JAX learner runs its epoch as one jitted program; the draws
+stay outside the graphs (`TennisEnv.step_draws`).
 
 `save_checkpoint` writes, and `load_checkpoint` reads, the JAX package's
 `V2PPPO.save_checkpoint` `.npz` (stacked leaves included);
@@ -273,7 +273,10 @@ class V2PPPO:
             return functional_call(self.net, params, (obs_n,))
         outs = [functional_call(self.net, {k: v[p] for k, v in params.items()}, (obs_n,))
                 for p in range(self.num_policies)]
-        sel = torch.nn.functional.one_hot(lane, self.num_policies).T.to(outs[0][0].dtype)
+        # the one-hot rows by a comparison (`one_hot` reads the lanes' range
+        # on the host off the card)
+        policies = torch.arange(self.num_policies, device=lane.device)
+        sel = (policies[:, None] == lane[None]).to(outs[0][0].dtype)
         mu = (torch.stack([o[0] for o in outs]) * sel[..., None]).sum(0)
         value = (torch.stack([o[1] for o in outs]) * sel).sum(0)
         return mu, value
@@ -293,14 +296,13 @@ class V2PPPO:
     def graphed(self) -> bool:
         """Whether `train_epoch` and `rollout` replay their steps from CUDA
         graphs (``utils/graphs.py``), as the JAX learner runs its epoch as one
-        jitted program: on the card, for one policy on a single-player
-        `TennisEnv` without a mesh, domain randomization or the two-hand IK
-        (the stage 1-3 configs, the curriculum aids, `federer`). Their steps
-        make no host sync and no draw."""
-        env = self.env
-        return (self.device.type == "cuda" and self.mesh is None and env.randomizer is None
-                and self.num_policies == 1 and not isinstance(env, DualTennisEnv)
-                and not env.any_two_hand)
+        jitted program: on the card, without a mesh or domain randomization
+        (every tennis config but the `_dr` ones: the stage 1-3 configs, the
+        curriculum aids, the two-hand `djokovic` and `nadal`, the dual
+        rallies with their two policies). Their steps make no host sync and
+        no draw."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and self.env.randomizer is None)
 
     @torch.no_grad()
     def rollout(self, ts: V2PTrainState, draws: Optional[Dict] = None,
@@ -647,17 +649,24 @@ class V2PPPO:
 
     def _step_key(self, params) -> tuple:
         """The `step` graph's key: the addresses of what it reads in place
-        (the params; the env's MVAE decoders and stats, frozen π_low, model,
-        ball pool, init frames and body channel) and the env's constants the
-        capture bakes in (its config, ball and contact constants)."""
+        (the params; every lane's MVAE decoder and stats and frozen π_low;
+        the env's model, ball pool, init frames, body channel and per-env
+        hand, grip and two-hand arrays; the two-hand IK's rest pose; the dual
+        env's lane swap, lanes, mirror and serve box) and the env's constants
+        the capture bakes in (its config, ball and contact constants)."""
         env = self.env
-        held = list(params.values()) + [self.sigma]
+        held = list(params.values()) + [self.sigma, self._lane]
         for obj in env._lane_specs + (env.pi_low, env.pi_low_b):
             held += _held_tensors(obj)
         gen = env.gen
         held += PM.tree_leaves(env.model) + [
             gen.traj_pool, gen.launch_pos, gen.launch_vel, gen.launch_vspin, gen.x_order,
             env.init_conditions, env.motion_bodies]
+        held += [getattr(env, f) for f in env._ENV_FIELDS]
+        if env.any_two_hand:
+            held.append(env.rest_joints_smpl)
+        if isinstance(env, DualTennisEnv):
+            held += [env._swap, env._lane, env._mirror, env._serve_lo, env._serve_hi]
         return (graphs.tensor_key(held), env.cfg, tuple(env.ball_params), env.contact_params,
                 id(env), id(env.pi_low), id(env.pi_low_b))
 

@@ -12,9 +12,10 @@ as in the JAX package: the means' denominators scale every row's gradient
 against Adam's eps, so gathering the masked rows would change the result.
 The gradient comes from autograd on a detached leaf under a local
 `torch.enable_grad()`, so the fix also runs inside the rollout's
-`torch.no_grad()`. The absolute value is `abs_jax`: its gradient at 0 is +1,
-as `jax.grad(jnp.abs)` gives (torch.abs gives 0), and the deltas start at
-exactly 0.
+`torch.no_grad()`; it makes no host copy and no host sync, so a CUDA graph
+of the env step holds the fix, its backward included. The absolute value
+is `abs_jax`: its gradient at 0 is +1, as `jax.grad(jnp.abs)` gives
+(torch.abs gives 0), and the deltas start at exactly 0.
 """
 
 from __future__ import annotations
@@ -30,6 +31,18 @@ _IDX = {n: i for i, n in enumerate(SMPL_BONE_ORDER_NAMES)}
 # free-arm IK chains, by the racket hand
 _IK_RIGHT = (_IDX["L_Wrist"], _IDX["L_Elbow"], _IDX["L_Shoulder"], _IDX["L_Thorax"])
 _IK_LEFT = (_IDX["R_Wrist"], _IDX["R_Elbow"], _IDX["R_Shoulder"], _IDX["R_Thorax"])
+# (righthand, device) -> the chain's joints as an index tensor, made once: a
+# Python list index is a host copy on every call, which a step replayed from
+# a CUDA graph cannot hold
+_IK_INDEX: dict = {}
+
+
+def _ik_index(righthand: bool, device) -> torch.Tensor:
+    key = (righthand, torch.device(device))
+    if key not in _IK_INDEX:
+        _IK_INDEX[key] = torch.tensor(_IK_RIGHT if righthand else _IK_LEFT, dtype=torch.long,
+                                      device=device)
+    return _IK_INDEX[key]
 
 
 def abs_jax(x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +69,7 @@ def optimize_two_hand_backhand(joint_rotmat, rest_smpl, righthand: bool = True,
       rank's N rows are a block of `num_rows`); default N.
 
     Returns the adjusted (N, 24, 3, 3) rotations (no autograd history)."""
-    ik = list(_IK_RIGHT if righthand else _IK_LEFT)
+    ik = _ik_index(righthand, joint_rotmat.device)
     fh = _IDX["L_Hand"] if righthand else _IDX["R_Hand"]
     N = joint_rotmat.shape[0]
     joint_rotmat = joint_rotmat.detach()
@@ -65,12 +78,12 @@ def optimize_two_hand_backhand(joint_rotmat, rest_smpl, righthand: bool = True,
     with torch.no_grad():
         posed0, _ = batch_rigid_transform(joint_rotmat, rest_smpl)
         target = two_hand_target(posed0, righthand)
-        aa0 = R.rotmat_to_angle_axis(joint_rotmat[:, ik].reshape(-1, 3, 3)).reshape(N, 4, 3)
+        aa0 = R.rotmat_to_angle_axis(joint_rotmat.index_select(1, ik).reshape(-1, 3, 3)
+                                     ).reshape(N, 4, 3)
 
     def with_arm(aa):
-        rm = joint_rotmat.clone()
-        rm[:, ik] = R.angle_axis_to_rotmat(aa.reshape(-1, 3)).reshape(N, 4, 3, 3)
-        return rm
+        return joint_rotmat.index_copy(1, ik, R.angle_axis_to_rotmat(aa.reshape(-1, 3)
+                                                                     ).reshape(N, 4, 3, 3))
 
     def mean(x):
         return x.mean() if num_rows is None else x.sum() / (num_rows * (x.numel() // N))
