@@ -3046,11 +3046,15 @@ def _check_report(what, rep, lanes=()):
             fail(f"{what}: {k} = {v}")
 
 
-def _cli_subprocess(argv):
+def _cli_subprocess(argv, timed=False):
     """`python -m vid2player3d_torch argv` started in a process of its own
-    (the card by default, no --device); (process, start time)."""
+    (the card by default, no --device); with `timed`, the same entry point
+    through `timed_cli`, which prints each evaluation rollout's seconds;
+    (process, start time)."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    return (subprocess.Popen([sys.executable, "-m", "vid2player3d_torch", *argv], cwd=REPO,
+    cmd = ["-c", "import sys, chip_smoke as C; sys.exit(C.timed_cli(sys.argv[1:]))"] if timed \
+        else ["-m", "vid2player3d_torch"]
+    return (subprocess.Popen([sys.executable, *cmd, *argv], cwd=REPO,
                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             time.perf_counter())
 
@@ -3080,15 +3084,15 @@ def cli_phase(dev, card: str):
     apart. Then nadal_federer's eval with --render runs as a process of its
     own while this one evaluates stage 1 with --render and --select_best
     from its best.npz and runs the pool CLI with the native and the torch
-    backends at 100,000 candidates, both files loaded on the card. The
-    evaluation rollouts are bound by the host issuing kernels, so the two
-    processes overlap them on the machine's cores."""
+    backends at 100,000 candidates, both files loaded on the card. Each
+    evaluation rollout is timed around the path it takes (each step a graph
+    replay on the card), the dual process's as it prints them; every
+    record set and shape is captured once."""
     import shutil
 
     import numpy as np
     import torch
 
-    from vid2player3d_torch import eval as EV
     from vid2player3d_torch.learn import V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
@@ -3184,23 +3188,15 @@ def cli_phase(dev, card: str):
                                                       "racket_ball_dist", "cycles")})
 
         # 4. the dual rally's evaluation in a process of its own, beside the
-        # stage's evaluation (each rollout's seconds per step) and the pools
+        # stage's evaluation and the pools; each process times its rollouts
+        # around the path taken (graphed on the card)
         dual_html = os.path.join(D, "dual.html")
         dual = _cli_subprocess(["--cfg", "nadal_federer", "--num_envs", str(CLI_DUAL_ENVS),
-                                "--test", "--epochs", "1", "--render", dual_html, "--out", D])
+                                "--test", "--epochs", "1", "--render", dual_html, "--out", D],
+                               timed=True)
         procs.append(dual[0])
         rollouts = []
-        orig_roll = EV._tennis_rollout
-
-        def timed_roll(agent, ts, seed, num_steps, draws, record):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = orig_roll(agent, ts, seed, num_steps, draws, record)
-            torch.cuda.synchronize()
-            rollouts.append(dict(key=seed, steps=num_steps, s=time.perf_counter() - t0))
-            return res
-
-        EV._tennis_rollout = timed_roll
+        undo = _eval_timer(rollouts)
         try:
             html = os.path.join(D, "roll.html")
             text, out["eval_s"] = _cli_call(
@@ -3208,15 +3204,15 @@ def cli_phase(dev, card: str):
                  "--epochs", "1", "--render", html, "--select_best", "--out", D,
                  "--checkpoint", os.path.join(D, "best.npz")])
         finally:
-            EV._tennis_rollout = orig_roll
+            undo()
         rep = _json_block(text)
         _check_report("cli eval", rep)
+        _check_eval_rollouts("cli eval", rollouts)
         ids = json.loads(text.split("select_best env ids: ")[1].splitlines()[0])
         page = open(html).read() if os.path.exists(html) else ""
         if f'"envs": {json.dumps(ids)}' not in page or len(ids) != 4:
             fail(f"cli eval: {html} does not hold the selected envs {ids}")
-        out.update(eval_report=rep, select_best=ids,
-                   eval_rollouts=[dict(r, s_per_step=r["s"] / r["steps"]) for r in rollouts])
+        out.update(eval_report=rep, select_best=ids, eval_rollouts=rollouts)
 
         # 5. the pool CLI, both backends, and the two files on the card
         pools = {}
@@ -3244,16 +3240,23 @@ def cli_phase(dev, card: str):
                    pool_traj_max_abs_diff=float((nat.traj_pool[i] - tor.traj_pool[j])
                                                 .abs().max()))
 
-        text, out["dual_eval_s"] = _cli_wait("nadal_federer --test", dual)
+        text, out["dual_eval_wall_s"] = _cli_wait("nadal_federer --test", dual)
         dual_rep = _json_block(text)
+        dual_rolls = json.loads(text.split("eval_rollouts: ")[1].splitlines()[0])
+        _check_eval_rollouts("cli dual eval", dual_rolls)
         _check_report("cli dual eval", dual_rep, lanes=("lane_a", "lane_b"))
         page = open(dual_html).read() if os.path.exists(dual_html) else ""
         if '"envs": [0, 2, 4, 6]' not in page:
             fail(f"cli dual eval: {dual_html} does not hold the paired lanes 0, 2, 4, 6")
         roll = np.load(os.path.join(D, "dual.npz"))
         mask = (roll["swing"] == 2) & (roll["phase"] > 2.0) & (roll["phase"] < 5.0)
-        # 64 + 150 steps, with the process's start and set-up
-        out.update(dual_report=dual_rep, dual_s_per_step=out["dual_eval_s"] / 214,
+        # the rollouts' own seconds (64 + 150 steps), the process's start,
+        # set-up, reports, refinement and files apart in its wall
+        steps = [r for r in dual_rolls if "steps" in r]
+        out.update(dual_report=dual_rep, dual_rollouts=dual_rolls,
+                   dual_rollout_s=sum(r["s"] for r in steps),
+                   dual_s_per_step=sum(r["s"] for r in steps) / sum(r["steps"] for r in steps),
+                   dual_refinement_s=sum(r.get("refinement_pass_s", 0.0) for r in dual_rolls),
                    dual_two_hand_frames=int(mask[:, 0::2].sum()))
     finally:
         for proc in procs:
@@ -3265,6 +3268,410 @@ def cli_phase(dev, card: str):
         eval_envs=CLI_EVAL_ENVS, dual_eval_envs=CLI_DUAL_ENVS,
         phase_s=time.perf_counter() - t_phase, **out)
     return out["stage1_epoch_launches"]
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the evaluation rollouts replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+EVAL_SMALL_ENVS = CLI_EVAL_ENVS      # the command line's evaluations
+EVAL_STAGE1_STEPS, EVAL_DUAL_STEPS = 16, 8
+EVAL_FULL_STAGE1_STEPS, EVAL_FULL_DUAL_STEPS = 64, 16
+WALK_ENVS, WALK_STEPS = 8, 120       # the MotionVAE report's envs; mvae_main's walk
+# K2 (prep, GEMM) and K3 per evaluation step, as the training steps launch them
+EVAL_STAGE1_LAUNCHES = {"k2_prep": 3, "k2_gemm": 3, "k3": 2}
+EVAL_DUAL_LAUNCHES = {"k2_prep": 6, "k2_gemm": 6, "k3": 2}
+WALK_LAUNCHES = {"k2_prep": 3, "k2_gemm": 3, "k3": 0}
+
+
+def _eval_timer(rollouts):
+    """Wrap `eval._tennis_rollout` (the dispatcher every tennis evaluation
+    and export calls: the path taken, graphed or eager, inside it) and the
+    export's post-hoc two-hand refinement; each rollout appends its key,
+    steps, envs, synchronized seconds, the path, its record set and its
+    graph's captures and stats, each refinement pass its seconds. Returns
+    the function that undoes the wrapping."""
+    import torch
+
+    from vid2player3d_torch import eval as EV
+    from vid2player3d_torch.tennis import twohand as TH
+
+    orig_roll, orig_ik = EV._tennis_rollout, TH.optimize_two_hand_backhand
+    inside = [False]
+
+    def timed_roll(agent, ts, seed, num_steps, draws, record):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inside[0] = True
+        try:
+            res = orig_roll(agent, ts, seed, num_steps, draws, record)
+        finally:
+            inside[0] = False
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        st = agent._eval_st.get(record) if agent.graphed else None
+        rollouts.append(dict(key=seed, record=record.__name__, steps=num_steps,
+                             envs=agent.env.cfg.num_envs, s=s, s_per_step=s / num_steps,
+                             graphed=agent.graphed,
+                             graph=None if st is None else _graph_stats(st.step)))
+        return res
+
+    def timed_ik(*args, **kw):
+        if inside[0]:                         # the step's own IK (inside a graph)
+            return orig_ik(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_ik(*args, **kw)
+        torch.cuda.synchronize()
+        rollouts.append(dict(refinement_pass_s=time.perf_counter() - t0,
+                             iters=kw.get("iters")))
+        return out
+
+    EV._tennis_rollout, TH.optimize_two_hand_backhand = timed_roll, timed_ik
+
+    def undo():
+        EV._tennis_rollout, TH.optimize_two_hand_backhand = orig_roll, orig_ik
+    return undo
+
+
+def timed_cli(argv) -> int:
+    """`cli.run.main(argv)` with every tennis evaluation rollout timed
+    (`_eval_timer`), printed after the call as one line `eval_rollouts:
+    [...]`: the process of its own that runs the dual evaluation."""
+    from vid2player3d_torch.cli.run import main as cli_main
+
+    rollouts = []
+    undo = _eval_timer(rollouts)
+    try:
+        rc = cli_main(argv)
+    finally:
+        undo()
+    print("eval_rollouts: " + json.dumps(rollouts), flush=True)
+    return rc
+
+
+def _check_eval_rollouts(what, rollouts):
+    """Every rollout graphed, each record set and shape captured once (a
+    repeated record set replays)."""
+    rolls = [r for r in rollouts if "steps" in r]
+    if not rolls or not all(r["graphed"] and r["graph"]["captures"] == 1 for r in rolls):
+        fail(f"{what}: an evaluation rollout did not replay one capture per record set and "
+             f"shape: {rolls}")
+
+
+def _timed_call(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _records_differ(a, b) -> list:
+    """The record names whose arrays are not equal to the bit."""
+    return sorted(k for k in a if a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes())
+
+
+def _per_step_launches(what, counts, reset, steps, want) -> dict:
+    got = {k: (counts[k] - reset[k]) / steps for k in want}
+    if got != want:
+        fail(f"{what}: launches per step through the replays {got}, expected {want}")
+    return got
+
+
+def _tennis_eval_case(what, agent, ts, steps, want, eager=True, deterministic=True):
+    """`eval_tennis`'s record set from key 4321: the graphed rollout (its
+    capture; K2/K3 launches per step through the replays, the eager
+    reset's apart, against `want`), again (replays only), and eagerly,
+    timed; then under deterministic algorithms, the graphs made anew in
+    that mode, eager and graphed again, compared bit for bit."""
+    import torch
+
+    from vid2player3d_torch import eval as EV
+
+    rec = EV._tennis_eval_record
+    agent._eval_st.clear()
+    _zero_kernel_counts()
+    with torch.no_grad():
+        EV._seeded(agent.env, 4321).reset_all()
+    reset = _kernel_counts()
+    _zero_kernel_counts()
+    first, first_s = _timed_call(lambda: EV._tennis_rollout_graphed(agent, ts, 4321, steps,
+                                                                    None, rec))
+    out = dict(envs=agent.env.cfg.num_envs, steps=steps, first_graphed_s=first_s,
+               launches_per_step=_per_step_launches(what, _kernel_counts(), reset, steps, want),
+               reset_launches={k: reset[k] for k in want})
+    again, again_s = _timed_call(lambda: EV._tennis_rollout_graphed(agent, ts, 4321, steps,
+                                                                   None, rec))
+    st = agent._eval_st[rec]
+    if st.step.captures != 1:
+        fail(f"{what}: the repeated record set captured {st.step.captures} times")
+    out.update(graphed_s=again_s, graphed_s_per_step=again_s / steps, graph=_graph_stats(st.step),
+               graphed_twice_differ=_records_differ(first[2], again[2]))
+    if eager:
+        e, e_s = _timed_call(lambda: EV._tennis_rollout_eager(agent, ts, 4321, steps, None, rec))
+        out.update(eager_s=e_s, eager_s_per_step=e_s / steps,
+                   eager_over_graphed=e_s / again_s,
+                   default_mode_differ=_records_differ(e[2], again[2]))
+    agent._eval_st.clear()
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            e = EV._tennis_rollout_eager(agent, ts, 4321, steps, None, rec)
+            g = EV._tennis_rollout_graphed(agent, ts, 4321, steps, None, rec)
+            det_graph = _graph_stats(agent._eval_st[rec].step)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            agent._eval_st.clear()
+        differ = _records_differ(e[2], g[2]) + ([] if (e[1] == g[1]).all() else ["tar0"])
+        out.update(deterministic_differ=differ, deterministic_graph=det_graph)
+        if differ:
+            fail(f"{what}: under deterministic algorithms the graphed evaluation differs from "
+                 f"the eager one in {differ}")
+    return out
+
+
+def _hold_k2_k3_eval(what, card, env, state, action, k2_batches, k3_ns):
+    """K2 and K3 on one eager evaluation step's own inputs, held to their
+    plain versions (K2 1e-4 relative, K3 bit for bit); K2's times at each
+    batch in `k2_batches` (eager and graph, bound, cuBLAS) and K3's at each
+    N in `k3_ns` (eager and graph, bound). The launches are not the path's."""
+    from vid2player3d_torch.ops import fk as FK
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+
+    before = _kernel_counts()
+    seen = _record_k2_k3(env, state, action)
+    out = {}
+    for b in k2_batches:
+        layers = [seen[f"k2/{mi}/{b}"] for mi in range(len(MOE_LAYERS))]
+        err = 0.0
+        for a in layers:
+            want = MOE.moe_linear_ref(*a)
+            e = float((MOE.moe_linear(*a) - want).abs().max())
+            err = max(err, e)
+            if not e <= 1e-4 * max(1.0, float(want.abs().max())):
+                fail(f"{what}: K2 disagrees with its plain version at B={b}: {e}")
+        out[f"k2_B{b}"] = dict(_k2_small(card, b, layers), max_abs_err=err, tol=1e-4)
+    for n in k3_ns:
+        args = seen[f"k3/{n}"]
+        err = max(float((a - b).abs().max()) for a, b in zip(FK.fk_chain(*args),
+                                                             FK._fk_plain(*args)))
+        if err:
+            fail(f"{what}: K3 disagrees with its plain version at N={n}: {err}")
+        out[f"k3_N{n}"] = dict(_k3_small(card, args), max_abs_err=err, tol=0.0)
+    FK.fk_chain.launches, MOE.moe_linear.launches, MOE.split_weights.launches = (
+        before["k3"], before["k2_gemm"], before["k2_prep"])
+    return out
+
+
+def _k2_small(card, batch, layers) -> dict:
+    keep = ("ms", "graph_ms", "plain_ms", "plain_graph_ms", "library_ms", "library_graph_ms",
+            "bound_ms", "bound_by", "share_of_3xtf32_bound")
+    t = _k2_times(None, card, batch, None, layers)
+    return {k: t[k] for k in keep}
+
+
+def _k3_small(card, args) -> dict:
+    """K3 on one set of inputs (warm: a small N stays in L2 between calls),
+    eager and as a graph, its plain version, beside its bound."""
+    from vid2player3d_torch.ops import fk as FK
+
+    n = args[0].shape[0]
+    nbytes = 4 * (24 * 9 + 24 * 3 + 3 + 24 * 3 + 24 * 9) * n
+    flops = n * 23 * (9 * 5 + 3 * 6)
+    rate = hbm_rate(card)
+    return dict(ms=cuda_ms(lambda: FK.fk_chain(*args), K3_TIMED),
+                graph_ms=_graph_ms(lambda: FK.fk_chain(*args), K3_TIMED),
+                plain_ms=cuda_ms(lambda: FK._fk_plain(*args), KERNEL_TIMED),
+                plain_graph_ms=_graph_ms(lambda: FK._fk_plain(*args)),
+                bound_ms=max(nbytes / rate, flops / F32_FLOPS_PER_S) * 1e3, bytes=nbytes,
+                bound_by="bytes" if nbytes / rate >= flops / F32_FLOPS_PER_S else "operations",
+                library_ms=None)
+
+
+def _imitation_eval_case(dev, lib):
+    """eval_imitation's record set on amass_im at 4096 envs, one context
+    segment from the reset of key 1234: graphed and eager, timed; under
+    deterministic algorithms both again, bit for bit."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch import eval as EV
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+
+    env = HumanoidImEnv(HumanoidImConfig(num_envs=NUM_ENVS, substeps=SUBSTEPS), lib, rng=0,
+                        device=dev)
+    agent = ImitationPPO(env, PPOConfig(horizon=HORIZON, minibatch_size=MINIBATCH,
+                                        mini_epochs=MINI_EPOCHS), seed=7, device=dev)
+    ts = agent.init_state()
+    if not agent.graphed:
+        fail("eval_graphs: the imitation learner does not take the graphs")
+    rec, L = EV._im_eval_record, env.cfg.context_length
+
+    def segment(seg):
+        s, o, ctx = next(EV._imitation_resets(env, 1234, 1, None))
+        return seg(agent, env, ts, s, o, ctx["feat"], L, rec)[2]
+
+    out = dict(envs=NUM_ENVS, steps=L)
+    segment(EV._imitation_segment_graphed)               # the capture
+    g, g_s = _timed_call(lambda: segment(EV._imitation_segment_graphed))
+    e, e_s = _timed_call(lambda: segment(EV._imitation_segment_eager))
+    st = agent._eval_st[rec]
+    out.update(graphed_s=g_s, graphed_s_per_step=g_s / L, eager_s=e_s, eager_s_per_step=e_s / L,
+               eager_over_graphed=e_s / g_s, graph=_graph_stats(st.step),
+               alive_ratio=float(g["alive"].mean()),
+               default_mode_differ=_records_differ(e, g))
+    agent._eval_st.clear()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        e, g = segment(EV._imitation_segment_eager), segment(EV._imitation_segment_graphed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        agent._eval_st.clear()
+    out["deterministic_differ"] = differ = _records_differ(e, g)
+    if differ:
+        fail(f"eval_graphs: the graphed imitation segment differs from the eager one in {differ}")
+    rep = EV.eval_imitation(agent, num_rollouts=1, ts=ts, max_steps=L)
+    if not all(np.isfinite(v) for v in rep.values()):
+        fail(f"eval_graphs: eval_imitation's report {rep}")
+    out["report"] = rep
+    return out
+
+
+def _walk_case(dev, card):
+    """The MotionVAE random walk at full width (federer's 256 hidden, 6
+    experts), 8 envs, 120 steps from seed 0: graphed (K2 3 + 3 per step
+    through the replays) and eager, timed and bit for bit; K2 at B = 8 on
+    fresh inputs of the decoder's shapes against its plain version, timed."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.mvae import eval as MVE
+    from vid2player3d_torch.tennis import player as P
+    from vid2player3d_torch.utils import graphs as G
+
+    spec = P.make_random_spec(0, hidden=256, experts=6, device=dev)
+    init = _init_frames()[:WALK_ENVS]
+    made, orig = [], G.StaticGraph
+
+    class Recorded(orig):
+        """The walk's graph, with the time its capture call ended."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def __call__(self, key=()):
+            super().__call__(key)
+            if not hasattr(self, "captured_at"):
+                torch.cuda.synchronize()
+                self.captured_at = time.perf_counter()
+
+    G.StaticGraph = Recorded
+    try:
+        _zero_kernel_counts()
+        g, g_s = _timed_call(lambda: MVE.random_walk_rollout(spec, init, WALK_STEPS, 0))
+        replays_s = time.perf_counter() - made[0].captured_at
+        counts = _kernel_counts()
+    finally:
+        G.StaticGraph = orig
+    if len(made) != 1 or made[0].captures != 1:
+        fail(f"eval_graphs: the random walk made {len(made)} graphs")
+    launches = _per_step_launches("eval_graphs random walk", counts, {k: 0 for k in counts},
+                                  WALK_STEPS, WALK_LAUNCHES)
+    e, e_s = _timed_call(lambda: MVE._random_walk_eager(spec, init, WALK_STEPS, 0, 1.0, None))
+    differ = [i for i, (a, b) in enumerate(zip(e, g)) if a.tobytes() != b.tobytes()]
+    if differ:
+        fail(f"eval_graphs: the graphed random walk differs from the eager one in {differ}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layers = [_moe_layer_inputs(dev, WALK_ENVS, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+    before = _kernel_counts()
+    err = 0.0
+    for a in layers:
+        want = MOE.moe_linear_ref(*a)
+        err = max(err, float((MOE.moe_linear(*a) - want).abs().max()))
+        if not err <= 1e-4 * max(1.0, float(want.abs().max())):
+            fail(f"eval_graphs: K2 disagrees with its plain version at B={WALK_ENVS}: {err}")
+    k2 = dict(_k2_small(card, WALK_ENVS, layers), max_abs_err=err,
+              tol=1e-4, inputs="fresh, the decoder's layer shapes")
+    MOE.moe_linear.launches, MOE.split_weights.launches = before["k2_gemm"], before["k2_prep"]
+    return dict(envs=WALK_ENVS, steps=WALK_STEPS, graphed_s=g_s,
+                graphed_s_per_step=g_s / WALK_STEPS,
+                replays_s_per_step=replays_s / (WALK_STEPS - 1),
+                eager_s=e_s, eager_s_per_step=e_s / WALK_STEPS, eager_over_graphed=e_s / g_s,
+                note="graphed_s: the call, its one capture included (the graph lives for the "
+                     "call); replays_s_per_step: the steps after the capture, each the "
+                     "normals' draw and one replay, and the host copy",
+                graph=_graph_stats(made[0]), launches_per_step=launches,
+                finite=bool(np.isfinite(g[1]).all()), k2_B8=k2)
+
+
+def eval_graphs_phase(dev, card: str, stage1_agent, stage1_ts, dual_agent, dual_ts, gen):
+    """The evaluation rollouts replayed from CUDA graphs (`eval.py`,
+    `mvae/eval.py`), each against its eager body. At the command line's 64
+    envs: stage 1 (16 steps) and the nadal_federer dual rally (8 steps),
+    graphed (capture, then replays only) and eager, timed, K2/K3 launches
+    per step through the replays, bit for bit under deterministic
+    algorithms; K2 (B = 64, 32 per dual lane) and K3 (N = 64) on those
+    steps' inputs against their plain versions, timed. eval_imitation's
+    segment at 4096 envs and the MotionVAE random walk at 8 alike. At full
+    width, graphed only: stage 1 at 10,240 envs for 64 steps and the dual
+    rally at 15,360 for 16 (the learners of `tennis_main` and
+    `dual_main`). Returns the full-width rollouts' K2/K3 launches."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    small = _stage1_agent(dev, EVAL_SMALL_ENVS, gen, horizon=16, minibatch=EVAL_SMALL_ENVS,
+                          mini_epochs=1)
+    ts = small.init_state()
+    out["stage1_64"] = _tennis_eval_case("eval_graphs stage 1", small, ts, EVAL_STAGE1_STEPS,
+                                         EVAL_STAGE1_LAUNCHES)
+    with torch.no_grad():
+        mu, _ = small._forward(ts.params, ts.obs_norm, ts.last_obs)
+    out["stage1_64"]["kernels"] = _hold_k2_k3_eval("eval_graphs stage 1", card, small.env,
+                                                   ts.env_state, mu, (EVAL_SMALL_ENVS,),
+                                                   (EVAL_SMALL_ENVS,))
+    del small, ts
+    dual = _dual_agent(dev, EVAL_SMALL_ENVS, gen, horizon=16, minibatch=EVAL_SMALL_ENVS,
+                       mini_epochs=1)
+    ts = dual.init_state()
+    out["dual_64"] = _tennis_eval_case("eval_graphs dual", dual, ts, EVAL_DUAL_STEPS,
+                                       EVAL_DUAL_LAUNCHES)
+    with torch.no_grad():
+        mu, _ = dual._forward(ts.params, ts.obs_norm, ts.last_obs)
+    out["dual_64"]["kernels"] = _hold_k2_k3_eval("eval_graphs dual", card, dual.env,
+                                                 ts.env_state, mu, (EVAL_SMALL_ENVS // 2,),
+                                                 (EVAL_SMALL_ENVS,))
+    del dual, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+
+    out["imitation_4096"] = _imitation_eval_case(dev, make_synthetic_motion_lib(
+        num_motions=8, T=300, fps=30.0, seed=0, device=dev))
+    out["random_walk_8"] = _walk_case(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = {}
+    for name, agent, ts, steps, want in (
+            ("stage1_full", stage1_agent, stage1_ts, EVAL_FULL_STAGE1_STEPS, EVAL_STAGE1_LAUNCHES),
+            ("dual_full", dual_agent, dual_ts, EVAL_FULL_DUAL_STEPS, EVAL_DUAL_LAUNCHES)):
+        out[name] = _tennis_eval_case(f"eval_graphs {name}", agent, ts, steps, want, eager=False,
+                                      deterministic=False)
+        full[name] = {k: int(v * steps) for k, v in out[name]["launches_per_step"].items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("eval_graphs", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t_phase,
+        unit="s per evaluation step (host clock, synchronized); graphed_s: replays only, the "
+             "first call's capture apart (first_graphed_s)", **out)
+    return full
 
 
 # ---------------------------------------------------------------------------
@@ -4543,6 +4950,7 @@ def main() -> None:
     del stage2_env, im_lib
     mvae_parity_phase(dev)
     mvae_launches, k2_b100 = mvae_main_phase(dev, card, agent, ts)
+    eval_launches = eval_graphs_phase(dev, card, agent, ts, dual_agent, dual_ts, agent.env.gen)
     cli_launches = cli_phase(dev, card)
     # dp_parity and dp_cli only check: they run side by side, and their wall
     # times, printed as overlapped, measure nothing
@@ -4583,15 +4991,17 @@ def main() -> None:
             **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
+        key = {"moe_linear": "k2_gemm", "moe_split_w": "k2_prep", "fk_chain": "k3"}[name]
         paths = {"tennis_stage1": tennis_launches[name], "tennis_stage2": stage2_launches[name],
                  "dual_rally": dual_launches[name], "two_hand_single": twohand_launches[name],
-                 "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name]}
+                 "tennis_stage1_dr": tennis_dr_launches[name], "cli": cli_launches[name],
+                 "eval_stage1_graphed": eval_launches["stage1_full"][key],
+                 "eval_dual_graphed": eval_launches["dual_full"][key]}
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
             paths["data_mvae"] = data_launches["k2"][name]
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
-        key = {"moe_linear": "k2_gemm", "moe_split_w": "k2_prep", "fk_chain": "k3"}[name]
         paths.update(dp_paths(key, ("federer_train_stage_1", "nadal_federer")))
         return {"launches": dual_launches[name], "launches_per_path": paths}
 

@@ -128,6 +128,28 @@ def test_eval_tennis_matches(tennis_eval):
         np.testing.assert_allclose(g_pe[k], np.asarray(v), atol=1e-5, err_msg=k)
 
 
+def test_staged_eval_tennis_matches(tennis, tennis_eval, monkeypatch):
+    """The staged rollout (each step the body a CUDA graph replays on the
+    card, here run on the CPU; tests/test_torch_eval_graphs.py holds it to
+    the eager one bit for bit) fed the same JAX draws: JAX's report and
+    per-env stats at `test_eval_tennis_matches`'s tolerances."""
+    jenv, _, _, tagent, tts = tennis
+    (w_rep, w_pe), _ = tennis_eval
+    monkeypatch.setattr(V2PPPO, "graphed", property(lambda self: True))
+    g_rep, g_pe = E.eval_tennis(tagent, num_steps=EVAL_STEPS, per_env=True, ts=tts,
+                                draws=_tennis_draws(jenv, 4321, EVAL_STEPS))
+    assert tagent._eval_st[E._tennis_eval_record].step.captures == 1
+    assert set(g_rep) == set(w_rep) and g_rep["cycles"] == w_rep["cycles"]
+    for k, v in w_rep.items():
+        if v is None:
+            assert g_rep[k] is None, k
+        else:
+            np.testing.assert_allclose(g_rep[k], v, atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(g_pe["cycles"], w_pe["cycles"])
+    for k, v in w_pe.items():
+        np.testing.assert_allclose(g_pe[k], np.asarray(v), atol=1e-5, err_msg=k)
+
+
 def test_evaluate_dispatches(tennis):
     """`evaluate` runs `eval_tennis` for a V2PPPO (64 steps per epoch) and
     rejects other agents."""

@@ -911,6 +911,57 @@ def test_graphed_two_hand_and_dual_epochs_equal_eager_on_the_card(cuda, determin
     _hold_graphed_to_eager(dual, 4, (6, 6, 2))
 
 
+def test_graphed_evaluation_equals_eager_on_the_card(cuda, deterministic):
+    """The evaluation rollouts replayed from graphs (`eval.py`) against
+    their eager bodies under deterministic algorithms, bit for bit:
+    `eval_tennis`'s and `export_rollout`'s record sets on the stage-1
+    learner at 8 envs and on the dual rally (two policies, a two-handed
+    lane), K2 and K3 launched through the replays as the eager rollout
+    launches them (per step 3 + 3 and 2; the dual 6 + 6 and 2), one capture
+    per record set and a second call replaying; the MotionVAE random walk
+    at 8 envs (K2 3 + 3 per step)."""
+    import numpy as np
+
+    from vid2player3d_torch import eval as E
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+    from vid2player3d_torch.mvae import eval as ME
+    from vid2player3d_torch.tennis import player as P
+
+    def counts():
+        return (MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches)
+
+    dual = V2PPPO(_dual_env(cuda, 8), V2PConfig(
+        horizon=4, minibatch_size=16, mini_epochs=2, actor_units=(64, 32),
+        critic_units=(64, 32), compute_dtype="f32", num_policies=2), seed=7, device=cuda)
+    for agent, per_step in ((_tennis_learner(cuda, 8, 4), (3, 3, 2)), (dual, (6, 6, 2))):
+        assert agent.graphed
+        ts = agent.init_state()
+        for record in (E._tennis_eval_record, E._tennis_export_record):
+            launched, recs = [], []
+            for roll in (E._tennis_rollout_eager, E._tennis_rollout, E._tennis_rollout):
+                before = counts()
+                recs.append(roll(agent, ts, 7, 6, None, record))
+                torch.cuda.synchronize()
+                launched.append(tuple(a - b for a, b in zip(counts(), before)))
+            assert launched[0] == launched[1] == launched[2], launched
+            for tar0, rec in ((r[1], r[2]) for r in recs[1:]):
+                np.testing.assert_array_equal(tar0, recs[0][1])
+                for k, v in recs[0][2].items():
+                    np.testing.assert_array_equal(rec[k], v, err_msg=k)
+            st = agent._eval_st[record]
+            assert st.step.captures == 1 and st.step.launches[2:] == per_step
+    spec = P.make_random_spec(0, hidden=32, experts=2, device=cuda)
+    init = (np.random.default_rng(3).standard_normal((8, P.FRAME_SIZE)) * 0.05
+            ).astype(np.float32)
+    init[:, 2] = 0.95
+    want = ME._random_walk_eager(spec, init, 10, 3, 1.0, None)
+    before = counts()
+    got = ME.random_walk_rollout(spec, init, 10, 3)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (30, 30, 0)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_cli_curriculum_runs_on_the_card_by_default(cuda, tmp_path):
     """`cli.run.main` with no `--device` at test widths: mvae_federer (1
     epoch of 2 batches) -> federer_im (8 envs) -> federer_train_stage_1 (8

@@ -22,10 +22,10 @@ import inspect
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from test_torch_epoch import LR, METRIC_ATOL, MB, MINI_EPOCHS, N, SEED, T, _draws
 from test_torch_mvae_train import jax_normals, tiny
+from torch_dispatch import _refused
 from vid2player3d_tpu.data.synthetic import make_synthetic_motion_lib as j_make_lib
 from vid2player3d_tpu.envs import HumanoidImConfig as JEnvCfg
 from vid2player3d_tpu.envs import HumanoidImEnv as JEnv
@@ -247,40 +247,6 @@ def test_which_configs_take_the_graphs(name, graphed):
     assert not agent.graphed
     agent.device = torch.device("cuda", 0)
     assert agent.graphed == graphed
-
-
-# ops a CUDA graph cannot hold: a read of a device value on the host, a
-# shape that depends on data, a tensor made from host data ("host data"; a
-# 0-d one is a Python scalar, which the card takes as a fill)
-_REFUSED = ("_local_scalar_dense", "nonzero", "masked_select", "unique", "repeat_interleave",
-            "item", "host data", "boolean index", "scalar index_put")
-
-
-class _Ops(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.names = set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.__name__.split(".")[0]
-        self.names.add(name)
-        if name == "lift_fresh" and args[0].dim() > 0:
-            self.names.add("host data")
-        if name in ("index", "index_put", "index_put_"):
-            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in args[1]
-                   if i is not None):
-                self.names.add("boolean index")
-            # a Python scalar assigned through a tensor index is a 0-d tensor
-            # on the host, which the card would copy in
-            if name != "index" and args[2].dim() == 0:
-                self.names.add("scalar index_put")
-        return func(*args, **(kwargs or {}))
-
-
-def _refused(fn):
-    with _Ops() as ops:
-        fn()
-    return sorted(n for n in ops.names if n in _REFUSED)
 
 
 def test_staged_steps_hold_no_refused_op():

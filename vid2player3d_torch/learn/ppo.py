@@ -271,6 +271,8 @@ class ImitationPPO:
         self.stat_names = STAT_NAMES + (AUX_STAT_NAMES if cfg.use_context_ik else ())
         # the graphed epoch's static tensors and graphs, made at its first call
         self._st = None
+        # the graphed evaluation's, one per record set (`eval.py` `_eval_statics`)
+        self._eval_st = {}
 
     def _sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the ranks (itself without collectives)."""

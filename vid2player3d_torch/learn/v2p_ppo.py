@@ -173,6 +173,8 @@ class V2PPPO:
         self.last_env = env
         # the graphed epoch's static tensors and graphs (`_statics`)
         self._st = None
+        # the graphed evaluation's, one per record set (`eval.py` `_eval_statics`)
+        self._eval_st = {}
 
     def _initial_params(self) -> Dict[str, torch.Tensor]:
         if self.num_policies == 1:

@@ -27,26 +27,41 @@ import numpy as np
 import torch
 
 from ..core.smpl import SMPL_BONE_ORDER_NAMES, SMPL_PARENTS
+from ..parallel import mesh as PM
 from ..tennis import player as P
+from ..utils import graphs
 from ..utils.runtime import as_draw
 
 
-@torch.no_grad()
 def random_walk_rollout(spec: "P.MVAEPlayerSpec", init_feature_raw,
                         num_steps: int = 300, seed: int = 0,
                         latent_scale: float = 1.0, draws=None):
     """Autoregressive rollout with z = latent_scale * N(0, 1) from raw init
     frames (N, F). `draws` (num_steps, N, latent) feeds the normals.
     Returns numpy (T, N, 3) root_pos, (T, N, 23, 3) joint_pos, (T, N)
-    phase."""
+    phase. On the card each step is one replay of a CUDA graph over
+    `P.step`, the normals drawn outside it, as JAX scans the rollout."""
+    roll = _random_walk_graphed if spec.avg.device.type == "cuda" else _random_walk_eager
+    return roll(spec, init_feature_raw, num_steps, seed, latent_scale, draws)
+
+
+def _walk_start(spec, init_feature_raw, seed, draws):
+    """(the reset state, the latents' generator or None, the fed normals or
+    None)."""
     dev = spec.avg.device
     state = P.reset(spec, torch.as_tensor(np.asarray(init_feature_raw), dtype=torch.float32,
                                           device=dev))
-    N = state.root_pos.shape[0]
     if draws is None:
-        gen = torch.Generator(dev).manual_seed(seed)
-    else:
-        draws = as_draw(draws, torch.float32, dev)
+        return state, torch.Generator(dev).manual_seed(seed), None
+    return state, None, as_draw(draws, torch.float32, dev)
+
+
+@torch.no_grad()
+def _random_walk_eager(spec, init_feature_raw, num_steps, seed, latent_scale, draws):
+    """`random_walk_rollout` op by op from the host: the oracle of the
+    graphed one, and the path off the card."""
+    state, gen, draws = _walk_start(spec, init_feature_raw, seed, draws)
+    N, dev = state.root_pos.shape[0], spec.avg.device
     roots, joints, phases = [], [], []
     for t in range(num_steps):
         z = draws[t] if draws is not None else torch.randn(
@@ -57,6 +72,39 @@ def random_walk_rollout(spec: "P.MVAEPlayerSpec", init_feature_raw,
         phases.append(state.phase_pred)
     return (torch.stack(roots).cpu().numpy(), torch.stack(joints).cpu().numpy(),
             torch.stack(phases).cpu().numpy())
+
+
+@torch.no_grad()
+def _random_walk_graphed(spec, init_feature_raw, num_steps, seed, latent_scale, draws):
+    """`random_walk_rollout` with each step one replay of a `StaticGraph`
+    over the static state and latents, the rows written into static
+    (T, N, ...) buffers; the normals drawn (or copied in) outside it. The
+    graph lives for the call (a spec is a frozen snapshot, made anew for
+    each report)."""
+    state, gen, draws = _walk_start(spec, init_feature_raw, seed, draws)
+    N, dev = state.root_pos.shape[0], spec.avg.device
+    st = PM.tree_map(torch.clone, state)
+    z = torch.empty(N, spec.latent_size, device=dev)
+    row = torch.zeros(1, dtype=torch.long, device=dev)
+    out = tuple(torch.empty((num_steps,) + x.shape, dtype=x.dtype, device=dev)
+                for x in (state.root_pos, state.joint_pos_kin, state.phase_pred))
+
+    def body():
+        with torch.no_grad():
+            s = P.step(spec, st, latent_scale * z, None)
+            for buf, x in zip(out, (s.root_pos, s.joint_pos_kin, s.phase_pred)):
+                buf.index_copy_(0, row, x[None])
+            row.add_(1)
+            graphs.refresh(PM.tree_leaves(st), PM.tree_leaves(s))
+
+    step = graphs.StaticGraph(body, dev)
+    for t in range(num_steps):
+        if draws is None:
+            torch.randn((N, spec.latent_size), generator=gen, device=dev, out=z)
+        else:
+            z.copy_(draws[t])
+        step()
+    return tuple(x.cpu().numpy() for x in out)
 
 
 def _bone_lengths(root, joints):
