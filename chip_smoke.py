@@ -125,17 +125,25 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
   15. ctx parity  a small amass_im_corrupt epoch (4 envs, f32, 24 leaves) on
               the card against the CPU, and the context IK alone at B = 512
               (outputs and the gradient into the heads)
-  16. im dr main    amass_im_dr at phase 7's sizes, one epoch (cut from two):
-              K1's launches, the epoch's perturbed model against the base,
-              the schedule's strength
-  17. im ctx main   amass_im_corrupt at phase 7's sizes, one epoch of 2
-              mini-epochs (cut from two epochs of 6; 24 leaves): K1's
-              launches, finite auxiliary losses, the context
-              IK's ms per rollout step and per optimizer step and its host
-              syncs
+  16. im dr main    amass_im_dr at phase 7's sizes, two epochs replayed
+              from CUDA graphs (the first captures, the second runs under
+              `set_sync_debug_mode("error")`): K1's launches through the
+              replays, the captures per epoch, the graphs' nodes, capture
+              and pool, each epoch's perturbed model against the base and
+              the other's, the schedule's strength
+  17. im ctx main   amass_im_corrupt at phase 7's sizes, two epochs of 2
+              mini-epochs (cut from 6; 24 leaves) replayed the same way:
+              K1's launches, finite auxiliary losses; the context IK alone
+              per rollout step and per optimizer step, eager (host syncs:
+              0) and replayed from a graph, and its share of the steps
   18. tennis dr main  federer_train_stage_1_dr at its own sizes (10,240 envs,
-              the federer MVAE width), one epoch (cut from two): K2's and
-              K3's launches, grad_skip 0, the epoch's ball constants
+              the federer MVAE width), two epochs replayed the same way:
+              K2's and K3's launches through the replays, grad_skip 0, each
+              epoch's ball constants
+  18b. ctx dr graphs  amass_im_corrupt, amass_im_dr (from epoch 300) and
+              federer_train_stage_1_dr (from epoch 300) at 8 envs: the
+              graphed epochs against eager ones over two epochs under
+              deterministic algorithms, bit for bit
   19. ckpt    the port's checkpoints in the JAX package's layout: the
               tennis_main learner's save -> load bit for bit;
               `load_stage_checkpoint` of that file into a stage-2 learner on
@@ -281,9 +289,10 @@ TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 tensor cores, dense
 # the imitation phases' sizes; `main` runs one epoch (cut from two to keep the
 # whole run inside its time limit on slow hosts), slice 4's imitation phases two
 NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 6, 1
-# slice 4's main phases, cut from two epochs to make room for the cli
-# phase; im_ctx_main's epoch also from 6 mini-epochs to 2 (512 optimizer steps)
-SLICE4_EPOCHS = 1
+# slice 4's main phases, replayed from graphs: the first epoch captures, the
+# second replays under the sync check; im_ctx_main's epochs cut from 6
+# mini-epochs to 2 (512 optimizer steps each)
+SLICE4_EPOCHS = 2
 CTX_MINI_EPOCHS = 2
 K1_CHECK_STEPS = 4
 # record_function spans on the main paths (the dual env's serve runs inside
@@ -369,6 +378,10 @@ def _timed_rollouts(agent):
     times = []
     _wrap_timer(agent, name, times)
     return times, lambda: delattr(agent, name)
+
+
+def _nothing() -> None:
+    pass
 
 
 # ---------------------------------------------------------------------------
@@ -1334,10 +1347,11 @@ def tennis_parity_phase(dev):
 # phase 9: the tennis main path
 # ---------------------------------------------------------------------------
 
-def _v2p_snapshot(agent, ts):
-    """A function giving fresh copies of a tennis train state, each with the
-    learner's and the env's generators set back to where they stood, so
-    that every epoch from a copy takes the same draws."""
+def _snapshot(agent, ts):
+    """A function giving fresh copies of a train state (tennis or
+    imitation), each with the learner's and (tennis) the env's generators
+    set back to where they stood, so that every epoch from a copy takes the
+    same draws."""
     import dataclasses
 
     import torch
@@ -1347,10 +1361,12 @@ def _v2p_snapshot(agent, ts):
 
     saved = PM.tree_map(lambda t: t.detach().clone(), dataclasses.replace(ts, generator=None))
     gen_state = ts.generator.get_state()
-    env_gen = agent.env.generator.get_state()
+    env_gen = getattr(agent.env, "generator", None)
+    env_gen = None if env_gen is None else env_gen.get_state()
 
     def fresh():
-        agent.env.generator.set_state(env_gen)
+        if env_gen is not None:
+            agent.env.generator.set_state(env_gen)
         gen = torch.Generator(ts.generator.device)
         gen.set_state(gen_state)
         c = PM.tree_map(torch.clone, saved)
@@ -1435,8 +1451,9 @@ STAGE2_HORIZON, STAGE2_MINIBATCH = 32, 16384   # federer_train_stage_2's learner
 
 
 def _differ(a, ma, b, mb) -> dict:
-    """What differs between two tennis train states and their metrics: each
-    quantity's largest absolute difference, where it is not 0."""
+    """What differs between two train states (tennis or imitation) and their
+    metrics: each quantity's largest absolute difference, where it is not
+    0."""
     import math
 
     from vid2player3d_torch.parallel import mesh as PM
@@ -1452,9 +1469,10 @@ def _differ(a, ma, b, mb) -> dict:
                 mu=max(err(x, y) for x, y in zip(a.opt_state.mu, b.opt_state.mu)),
                 nu=max(err(x, y) for x, y in zip(a.opt_state.nu, b.opt_state.nu)),
                 count=int(a.opt_state.count) - int(b.opt_state.count),
-                env_state=max(err(x, y) for x, y in zip(PM.tree_leaves(a.env_state),
-                                                        PM.tree_leaves(b.env_state))),
-                last_obs=err(a.last_obs, b.last_obs),
+                **({} if not hasattr(a, "env_state") else dict(
+                    env_state=max(err(x, y) for x, y in zip(PM.tree_leaves(a.env_state),
+                                                            PM.tree_leaves(b.env_state))),
+                    last_obs=err(a.last_obs, b.last_obs))),
                 **{f"{n}_{f}": err(getattr(getattr(a, n), f), getattr(getattr(b, n), f))
                    for n in ("obs_norm", "val_norm") for f in ("n", "mean", "var")},
                 **{"metric_" + k: metric(k) for k in ma})
@@ -1503,7 +1521,7 @@ def tennis_graphs_phase(dev, card: str, agent, ts, stage2_env):
 
     # the default mode: what differs
     learner = small()
-    fresh = _v2p_snapshot(learner, learner.init_state())
+    fresh = _snapshot(learner, learner.init_state())
     e1, e2 = (learner._train_epoch_eager(fresh()) for _ in range(2))
     g1 = learner.train_epoch(fresh())
     out["default_mode_stage1_8"] = dict(eager_vs_eager=_differ(*e2, *e1),
@@ -1752,13 +1770,51 @@ def _ik_alone(env, mvae, reps: int = 5) -> dict:
                 graphed_vs_eager_max_abs_err=err)
 
 
-def _graphed_epochs(what, agent, ts, epochs, want):
+def _sync_checked_epoch(what, agent, ts):
+    """One `train_epoch` under `torch.cuda.set_sync_debug_mode("error")`: a
+    host sync anywhere in it (a read of a device value, a step that fell
+    back to eager work that syncs) raises, and the phase fails. Its rollout
+    is timed with CUDA events, which need no sync inside the epoch.
+    Returns (the state, the metrics, the epoch's s on a synchronized host
+    clock, the rollout's s)."""
+    import torch
+
+    name = "_rollout_graphed"
+    rollout, events = getattr(agent, name), []
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rollout(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(agent, name, timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, m = agent.train_epoch(ts)
+    except RuntimeError as e:
+        fail(f"{what}: a host sync in a replayed epoch: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        delattr(agent, name)
+    torch.cuda.synchronize()
+    return ts, m, time.perf_counter() - t0, events[0][0].elapsed_time(events[0][1]) / 1e3
+
+
+def _graphed_epochs(what, agent, ts, epochs, want, checked=False, on_epoch=None):
     """`epochs` graphed `train_epoch`s of `agent` (the first captures both
     graphs, the rest replay them), the kernels' counters set to 0 just
-    before each and read just after; fails unless each epoch launched
-    `want` (K2 prep and GEMM, K3) and no K1, every metric is finite,
-    `grad_skip` is 0 and each graph was captured once. Returns (the state, the epochs' s, rollouts' s, metrics,
-    launches, the graphs' stats, the peak GiB)."""
+    before each and read just after; with `checked` the last runs under
+    `_sync_checked_epoch`; `on_epoch(agent)` after each. Fails unless each
+    epoch launched `want` (K2 prep and GEMM, K3) and no K1, every metric is
+    finite, `grad_skip` is 0 and each graph was captured once, in the first
+    epoch. Returns (the state, the epochs' s, rollouts' s, metrics,
+    launches, the graphs' stats with the captures per epoch, the peak
+    GiB)."""
     import math
 
     import torch
@@ -1767,16 +1823,26 @@ def _graphed_epochs(what, agent, ts, epochs, want):
         fail(f"{what}: the learner does not take the graphs")
     torch.cuda.reset_peak_memory_stats()
     rollout_s, unwrap = _timed_rollouts(agent)
-    epoch_s, rows, launches = [], [], []
+    epoch_s, rows, launches, captures = [], [], [], []
     try:
-        for _ in range(epochs):
+        for e in range(epochs):
             _zero_kernel_counts()
-            ts, m, s = _timed_epoch(agent.train_epoch, ts)
+            before = _captures(agent)
+            if checked and e == epochs - 1 and e > 0:
+                unwrap()
+                unwrap = _nothing
+                ts, m, s, r = _sync_checked_epoch(what, agent, ts)
+                rollout_s.append(r)
+            else:
+                ts, m, s = _timed_epoch(agent.train_epoch, ts)
+            captures.append(_captures(agent) - before)
             epoch_s.append(s)
             rows.append({k: float(v) for k, v in m.items()})
             c = _kernel_counts()
             launches.append({"moe_linear": c["k2_gemm"], "moe_split_w": c["k2_prep"],
                              "fk_chain": c["k3"], "k1": c["k1_update"] + c["k1_norm"]})
+            if on_epoch is not None:
+                on_epoch(agent)
     finally:
         unwrap()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1795,9 +1861,16 @@ def _graphed_epochs(what, agent, ts, epochs, want):
     if not bool(torch.isfinite(ts.last_obs).all()):
         fail(f"{what}: the rollout's obs are not finite")
     stats = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
-    if any(v["captures"] != 1 for v in stats.values()):
-        fail(f"{what}: the graphs captured {stats} times over {epochs} epochs")
+    stats["captures_per_epoch"] = captures
+    if any(stats[g]["captures"] != 1 for g in ("step", "update")) or any(captures[1:]):
+        fail(f"{what}: the graphs captured {captures} times over {epochs} epochs")
     return ts, epoch_s, rollout_s, rows, launches, stats, peak_gib
+
+
+def _captures(agent) -> int:
+    """The captures of a learner's step and update graphs so far."""
+    st = agent._st
+    return 0 if st is None else st.step.captures + st.update.captures
 
 
 def dual_main_phase(dev, card: str):
@@ -1860,11 +1933,12 @@ DUAL_DET_FULL_HORIZON, DUAL_DET_FULL_MINIBATCH = 4, 15360
 
 def _deterministic_pairs(what, cases) -> dict:
     """Under `torch.use_deterministic_algorithms` (each learner captured in
-    that mode), for each (name, make the learner, epochs): the graphed
-    epochs against eager ones from one state and one seed of each
-    generator, what differs after each epoch, and with two or more epochs
-    what differs between two eager first epochs; the times, the captures,
-    the step graph; the ops the mode warned lack a deterministic form."""
+    that mode), for each (name, make the learner, epochs[, start epoch]):
+    the graphed epochs against eager ones from one state and one seed of
+    each generator, what differs after each epoch, and with two or more
+    epochs what differs between two eager first epochs; the times, the
+    captures, the step graph; the ops the mode warned lack a deterministic
+    form."""
     import gc
     import warnings
 
@@ -1875,16 +1949,18 @@ def _deterministic_pairs(what, cases) -> dict:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for name, make, epochs in cases:
+            for name, make, epochs, *start in cases:
                 learner = make()
                 if not learner.graphed:
                     fail(f"{what}: the {name} learner does not take the graphs")
-                fresh = _v2p_snapshot(learner, learner.init_state())
+                ts0 = learner.init_state()
+                ts0.epoch = start[0] if start else 0
+                fresh = _snapshot(learner, ts0)
                 a, b = fresh(), fresh()
                 r = det[name] = dict(envs=learner.env.cfg.num_envs, horizon=learner.cfg.horizon,
                                      differ=[], graphed_epoch_s=[], eager_epoch_s=[])
                 for e in range(epochs):
-                    again = _v2p_snapshot(learner, b)
+                    again = _snapshot(learner, b)
                     a, ma, tg = _timed_epoch(learner.train_epoch, a)
                     b, mb, te = _timed_epoch(learner._train_epoch_eager, again())
                     r["differ"].append(_differ(a, ma, b, mb))
@@ -2295,12 +2371,14 @@ def ctx_parity_phase(dev):
                                           ik_err)))
 
 
-def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None):
+def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None, checked=False):
     """`epochs` epochs of a named imitation configuration at the main path's
     sizes (4096 envs, full width, fused K1; `mini_epochs` passes per epoch)
-    on `lib` (by default the synthetic 8 motions x 300 frames) with K1's
-    counters set to 0 just before and read just after; (agent, ts, rows, K1
-    launches, timings)."""
+    on `lib` (by default the synthetic 8 motions x 300 frames), replayed
+    from graphs (the first epoch captures), with K1's counters set to 0 just
+    before and read just after; with `checked` the last epoch runs under
+    `_sync_checked_epoch`. Fails on a capture after the first epoch. Returns
+    (agent, ts, rows, K1 launches, each epoch's env, timings and graphs)."""
     import dataclasses
     import math
 
@@ -2320,6 +2398,8 @@ def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None):
                          dataclasses.replace(ppo_cfg, horizon=HORIZON, minibatch_size=MINIBATCH,
                                              mini_epochs=mini_epochs, fused_optimizer="on"),
                          seed=7, device=dev)
+    if not agent.graphed:
+        fail(f"{name}: the learner does not take the graphs")
     ts = agent.init_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -2328,13 +2408,19 @@ def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None):
     rollout_s, unwrap = _timed_rollouts(agent)
     torch.cuda.reset_peak_memory_stats()
     FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
-    epoch_s, rows, envs = [], [], []
+    epoch_s, rows, envs, captures = [], [], [], []
     try:
-        for _ in range(epochs):
-            t0 = time.perf_counter()
-            ts, m = agent.train_epoch(ts)
-            torch.cuda.synchronize()
-            epoch_s.append(time.perf_counter() - t0)
+        for e in range(epochs):
+            before = _captures(agent)
+            if checked and e == epochs - 1 and e > 0:
+                unwrap()
+                unwrap = _nothing
+                ts, m, s, r = _sync_checked_epoch(name, agent, ts)
+                rollout_s.append(r)
+            else:
+                ts, m, s = _timed_epoch(agent.train_epoch, ts)
+            captures.append(_captures(agent) - before)
+            epoch_s.append(s)
             rows.append({k: float(v) for k, v in m.items()})
             envs.append(agent.last_env)
     finally:
@@ -2351,25 +2437,38 @@ def _imitation_main(dev, name, epochs, mini_epochs=MINI_EPOCHS, lib=None):
             fail(f"{name} epoch {i}: alive_ratio {r['alive_ratio']}")
     if int(ts.opt_state.count) != epochs * steps_per_epoch:
         fail(f"{name}: optimizer count {int(ts.opt_state.count)}")
+    graphs = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
+    graphs["captures_per_epoch"] = captures
+    if any(graphs[g]["captures"] != 1 for g in ("step", "update")) or any(captures[1:]):
+        fail(f"{name}: the graphs captured {captures} times over {epochs} epochs")
     timing = dict(setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
                   update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+                  rollout_ms_per_env_step=[r / HORIZON * 1e3 for r in rollout_s],
+                  optimizer_step_ms=[(e - r) / steps_per_epoch * 1e3
+                                     for e, r in zip(epoch_s, rollout_s)],
                   rollout_env_steps_per_s=[NUM_ENVS * HORIZON / r for r in rollout_s],
                   epoch_env_steps_per_s=[NUM_ENVS * HORIZON / e for e in epoch_s],
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                  optimizer_steps_per_epoch=steps_per_epoch)
+                  optimizer_steps_per_epoch=steps_per_epoch, graphs=graphs,
+                  note="epoch 0 captures both graphs, the later ones replay them"
+                       + ("; the last under the sync check (its rollout timed with CUDA "
+                          "events)" if checked and epochs > 1 else ""))
     return agent, ts, rows, launches, envs, timing
 
 
 def im_dr_main_phase(dev, card: str):
-    """amass_im_dr at the main path's sizes, one epoch: K1's launches, the
-    epoch's perturbed model (drawn from the base model: it differs from the
-    base and lies inside the specs' ranges of it) and the schedule's
+    """amass_im_dr at the main path's sizes, two epochs replayed from graphs
+    (the second under the sync check): K1's launches through the replays,
+    each epoch's perturbed model (drawn from the base model: it differs from
+    the base and from the other epoch's and lies inside the specs' ranges of
+    the base; each epoch's `last_env` keeps its own) and the schedule's
     strength per epoch."""
     import torch
 
     from vid2player3d_torch.envs.domain_rand import _sched_scale
 
-    agent, ts, rows, launches, envs, timing = _imitation_main(dev, "amass_im_dr", SLICE4_EPOCHS)
+    agent, ts, rows, launches, envs, timing = _imitation_main(dev, "amass_im_dr", SLICE4_EPOCHS,
+                                                              checked=True)
     base = agent.env.model
     dr = agent.env.randomizer
     ranges = {}
@@ -2379,41 +2478,35 @@ def im_dr_main_phase(dev, card: str):
         for x in r:
             if not (float(x.min()) >= lo - 1e-6 and float(x.max()) <= hi + 1e-6):
                 fail(f"im_dr_main: {sp.field} factor outside [{lo}, {hi}]")
-        if all(torch.equal(x, torch.ones_like(x)) for x in r):
-            fail(f"im_dr_main: the epoch stepped the base {sp.field}")
+        if any(torch.equal(x, torch.ones_like(x)) for x in r) or torch.equal(r[0], r[-1]):
+            fail(f"im_dr_main: an epoch stepped the base {sp.field}, or both the same one")
         ranges[sp.field] = [[float(x.min()), float(x.max())] for x in r]
     scales = {sp.field: [_sched_scale(sp, e * HORIZON) for e in range(SLICE4_EPOCHS)]
               for sp in dr.obs_specs + dr.act_specs}
     keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "clip_frac")
     say("im_dr_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_dr", envs=NUM_ENVS,
         horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=MINI_EPOCHS, epochs=SLICE4_EPOCHS,
-        cut="8192 -> 4096 envs, 1 epoch", compute_dtype=str(agent.compute_dtype),
-        leaves=len(ts.params),
+        cut="8192 -> 4096 envs, 2 epochs", compute_dtype=str(agent.compute_dtype),
+        leaves=len(ts.params), graphed=agent.graphed,
         k1_launches=launches, model_factor_ranges=ranges, schedule_scale_per_epoch=scales,
         metrics=[{k: r[k] for k in keep} for r in rows], **timing)
     return launches
 
 
-def im_ctx_main_phase(dev, card: str):
-    """amass_im_corrupt at the main path's sizes, one epoch (24 leaves):
-    K1's launches and finite auxiliary losses; then the context IK alone on
-    a synchronized host clock, per rollout step (the 4096 envs' targets) and
-    per optimizer step (the 512-row minibatch's IK, forward and backward into
-    the heads), with the host syncs each call makes."""
+def _ctx_ik_alone(agent, ts, dev) -> dict:
+    """The context IK alone at the main path's sizes, per rollout step (the
+    4096 envs' targets) and per optimizer step (the 512-row minibatch's IK,
+    forward and backward into the heads): eager on a synchronized host
+    clock with the host syncs each call makes (fails unless 0), and
+    replayed from a graph (CUDA events)."""
     import warnings
 
     import torch
 
-    agent, ts, rows, launches, _, timing = _imitation_main(dev, "amass_im_corrupt",
-                                                           SLICE4_EPOCHS, CTX_MINI_EPOCHS)
-    for i, r in enumerate(rows):
-        if not r["aux_dof_loss"] > 0.0:
-            fail(f"im_ctx_main epoch {i}: aux_dof_loss {r['aux_dof_loss']}")
-    if len(ts.params) != 24:
-        fail(f"im_ctx_main: {len(ts.params)} leaves")
+    from vid2player3d_torch.utils import graphs
 
     env = agent.env
-    _, raw_obs, ctx = env.reset_all(ts.generator)
+    _, _, ctx = env.reset_all(ts.generator)
     cb_pos = agent._ctx_frame(ctx["feat"], 0)[0]
     conf = ctx["conf"][:, env.cfg.context_padding]
     rest = env.rest_joints_smpl
@@ -2430,7 +2523,7 @@ def im_ctx_main_phase(dev, card: str):
 
     out, reps = {}, 5
     for name, fn in (("rollout_step", rollout_ik), ("optimizer_step", update_ik)):
-        fn()
+        want = fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -2444,35 +2537,60 @@ def im_ctx_main_phase(dev, card: str):
                 fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        out[name + "_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
-    per_step_ms = [r / HORIZON * 1e3 for r in timing["rollout_s"]]
+        syncs = out[name + "_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+        if syncs:
+            fail(f"im_ctx_main: the context IK per {name} made {syncs} host syncs")
+        static = [torch.empty_like(x) for x in want]
+        g = graphs.StaticGraph(lambda: [s.copy_(x) for s, x in zip(static, fn())], dev)
+        g()
+        out[name + "_graph_ms"] = cuda_ms(g, reps * 4)
+        out[name + "_graph"] = _graph_stats(g)
+        err = max(float((s - x).abs().max()) for s, x in zip(static, want))
+        if not err <= 1e-5 * max(1.0, max(float(x.abs().max()) for x in want)):
+            fail(f"im_ctx_main: the replayed context IK per {name} differs by {err}")
+        out[name + "_graph_vs_eager_max_abs_err"] = err
+    return out
+
+
+def im_ctx_main_phase(dev, card: str):
+    """amass_im_corrupt at the main path's sizes, two epochs of 2
+    mini-epochs (24 leaves) replayed from graphs, the second under the sync
+    check: K1's launches through the replays and finite auxiliary losses;
+    then the context IK alone (`_ctx_ik_alone`), eager and replayed."""
+    agent, ts, rows, launches, _, timing = _imitation_main(
+        dev, "amass_im_corrupt", SLICE4_EPOCHS, CTX_MINI_EPOCHS, checked=True)
+    for i, r in enumerate(rows):
+        if not r["aux_dof_loss"] > 0.0:
+            fail(f"im_ctx_main epoch {i}: aux_dof_loss {r['aux_dof_loss']}")
+    if len(ts.params) != 24:
+        fail(f"im_ctx_main: {len(ts.params)} leaves")
+    ik = _ctx_ik_alone(agent, ts, dev)
+    per_step_ms = timing["rollout_ms_per_env_step"]
     keep = ("reward_mean", "alive_ratio", "a_loss", "c_loss", "kl", "aux_dof_loss",
             "aux_pos_loss")
     say("im_ctx_main", card=card, nvidia_smi=nvidia_smi(), config="amass_im_corrupt",
         envs=NUM_ENVS, horizon=HORIZON, minibatch=MINIBATCH, mini_epochs=CTX_MINI_EPOCHS,
-        epochs=SLICE4_EPOCHS, cut="8192 -> 4096 envs, 1 epoch of 2 mini-epochs",
-        compute_dtype=str(agent.compute_dtype),
-        leaves=len(ts.params), k1_launches=launches, ik=out,
-        rollout_ms_per_env_step=per_step_ms,
-        ik_share_of_rollout_step=out["rollout_step_ms"] / per_step_ms[-1],
+        epochs=SLICE4_EPOCHS, cut="8192 -> 4096 envs, 2 epochs of 2 mini-epochs",
+        compute_dtype=str(agent.compute_dtype), graphed=agent.graphed,
+        leaves=len(ts.params), k1_launches=launches, ik=ik,
+        ik_replayed_share_of_rollout_step=ik["rollout_step_graph_ms"] / per_step_ms[-1],
+        ik_replayed_share_of_optimizer_step=(ik["optimizer_step_graph_ms"]
+                                             / timing["optimizer_step_ms"][-1]),
         metrics=[{k: r[k] for k in keep} for r in rows], **timing)
     return launches
 
 
 def tennis_dr_main_phase(dev, card: str):
     """federer_train_stage_1_dr at its own sizes (10,240 envs, the federer
-    MVAE width, full-width pi_low and V2PNet), one epoch: K2 and K3's
-    launches, no skipped update, and the epoch's ball constants (they differ
-    from the base and lie inside the specs' ranges of it)."""
-    import math
-
+    MVAE width, full-width pi_low and V2PNet), two epochs replayed from
+    graphs (the second under the sync check): K2 and K3's launches through
+    the replays, no skipped update, and each epoch's ball constants (they
+    differ from the base and from each other and lie inside the specs'
+    ranges of the base)."""
     import torch
 
     from vid2player3d_torch.envs.presets import preset
     from vid2player3d_torch.learn import V2PPPO
-    from vid2player3d_torch.ops import fk as FK
-    from vid2player3d_torch.ops import fused_adam as FA
-    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
 
     t0 = time.perf_counter()
     env_cfg, v2p_cfg = preset("federer_train_stage_1_dr")
@@ -2482,43 +2600,19 @@ def tennis_dr_main_phase(dev, card: str):
     setup_s = time.perf_counter() - t0
     steps_per_epoch = agent.num_minibatches * v2p_cfg.mini_epochs
     horizon = v2p_cfg.horizon
-
-    rollout_s, unwrap = _timed_rollouts(agent)
-    torch.cuda.reset_peak_memory_stats()
-    MOE.moe_linear.launches = MOE.split_weights.launches = FK.fk_chain.launches = 0
-    FA.leaf_update.launches = FA.global_norm_scalars.launches = 0
-    epoch_s, rows, balls = [], [], []
-    try:
-        for _ in range(SLICE4_EPOCHS):
-            t0 = time.perf_counter()
-            ts, m = agent.train_epoch(ts)
-            torch.cuda.synchronize()
-            epoch_s.append(time.perf_counter() - t0)
-            rows.append({k: float(v) for k, v in m.items()})
-            balls.append(agent.last_env.ball_params)
-    finally:
-        unwrap()
-    k2, k2_prep, k3 = MOE.moe_linear.launches, MOE.split_weights.launches, FK.fk_chain.launches
-    k1 = FA.leaf_update.launches + FA.global_norm_scalars.launches
-    env_steps = SLICE4_EPOCHS * horizon
-    if k2 != 3 * env_steps or k2_prep != 3 * env_steps:
-        fail(f"K2 launched {k2} GEMMs and {k2_prep} preps on the DR tennis path, expected "
-             f"{3 * env_steps} each")
-    if k3 != 2 * env_steps:
-        fail(f"K3 launched {k3} times on the DR tennis path, expected {2 * env_steps}")
-    for i, r in enumerate(rows):
-        bad = [k for k, v in r.items() if not math.isfinite(v)]
-        if bad:
-            fail(f"DR tennis epoch {i}: non-finite metrics {bad}")
-        if r["grad_skip"] != 0.0:
-            fail(f"DR tennis epoch {i}: grad_skip {r['grad_skip']}")
+    want = {"moe_linear": 3 * horizon, "moe_split_w": 3 * horizon, "fk_chain": 2 * horizon}
+    balls = []
+    ts, epoch_s, rollout_s, rows, launches, stats, peak_gib = _graphed_epochs(
+        "tennis_dr_main", agent, ts, SLICE4_EPOCHS, want, checked=True,
+        on_epoch=lambda a: balls.append(a.last_env.ball_params))
     base = agent.env.ball_params
     consts = {}
     for sp in agent.env.randomizer.ball_specs:
         name = sp.field[len("ball_"):]
         vals = [float(getattr(b, name)) for b in balls]
         f = [v / getattr(base, name) for v in vals]
-        if not all(sp.rng[0] - 1e-6 <= x <= sp.rng[1] + 1e-6 for x in f) or 1.0 in f:
+        if (not all(sp.rng[0] - 1e-6 <= x <= sp.rng[1] + 1e-6 for x in f) or 1.0 in f
+                or len(set(vals)) != len(vals)):
             fail(f"DR tennis: {name} per epoch {vals} against {getattr(base, name)}")
         consts[name] = vals
     keep = ("hit_rate", "contact_rate", "racket_ball_dist", "cycles", "done_rate", "reward_mean",
@@ -2526,15 +2620,74 @@ def tennis_dr_main_phase(dev, card: str):
     say("tennis_dr_main", card=card, nvidia_smi=nvidia_smi(), config="federer_train_stage_1_dr",
         envs=env_cfg.num_envs, horizon=horizon, substeps=env_cfg.substeps,
         minibatch=v2p_cfg.minibatch_size, mini_epochs=v2p_cfg.mini_epochs, epochs=SLICE4_EPOCHS,
-        cut="1 epoch", compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts",
+        cut="2 epochs", compute_dtype=str(agent.compute_dtype), mvae="hidden 256, 6 experts",
+        graphed=agent.graphed, note="epoch 0 captures both graphs, epoch 1 replays them under "
+        "the sync check (its rollout timed with CUDA events)",
         ball_constants_per_epoch=consts, setup_s=setup_s, epoch_s=epoch_s, rollout_s=rollout_s,
         update_s=[e - r for e, r in zip(epoch_s, rollout_s)],
+        rollout_ms_per_env_step=[r / horizon * 1e3 for r in rollout_s],
+        optimizer_step_ms=[(e - r) / steps_per_epoch * 1e3 for e, r in zip(epoch_s, rollout_s)],
         rollout_env_steps_per_s=[env_cfg.num_envs * horizon / r for r in rollout_s],
         epoch_env_steps_per_s=[env_cfg.num_envs * horizon / e for e in epoch_s],
-        optimizer_steps_per_epoch=steps_per_epoch, k2_launches=k2, k2_prep_launches=k2_prep,
-        k3_launches=k3, k1_launches=k1, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        metrics=[{k: r[k] for k in keep} for r in rows])
-    return {"moe_linear": k2, "moe_split_w": k2_prep, "fk_chain": k3}
+        optimizer_steps_per_epoch=steps_per_epoch, launches_per_epoch=launches, graphs=stats,
+        peak_mem_gib=peak_gib, metrics=[{k: r[k] for k in keep} for r in rows])
+    return {k: launches[-1][k] for k in ("moe_linear", "moe_split_w", "fk_chain")}
+
+
+# the deterministic comparisons of the context-IK and domain-randomized
+# epochs: 8 envs, horizon 4, two epochs each (the DR ones from epoch 300,
+# where the linear noise is on and grows), so a stale schedule or stale
+# constants in the second epoch would show
+CTX_DR_DET_ENVS, CTX_DR_DET_EPOCH = 8, 300
+
+
+def _small_imitation_learner(dev, name, n):
+    """A small learner of a named imitation configuration: `n` envs, horizon
+    4, minibatch 8, 2 mini-epochs, the card's compute dtype, fused K1."""
+    import dataclasses
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import ImitationPPO
+
+    env_cfg, ppo_cfg = preset(name, num_envs=n, substeps=2)
+    env = HumanoidImEnv(env_cfg, make_synthetic_motion_lib(num_motions=2, T=60, seed=0,
+                                                           device=dev), rng=0, device=dev)
+    return ImitationPPO(env, dataclasses.replace(ppo_cfg, horizon=4, minibatch_size=8,
+                                                 mini_epochs=2, fused_optimizer="on"),
+                        seed=7, device=dev)
+
+
+def _small_dr_tennis_learner(dev, n, gen=None):
+    """federer_train_stage_1_dr at `n` envs and test widths (MVAE hidden 64,
+    3 experts; trunks (64, 32)), horizon 4, episodes of 6 steps."""
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import V2PConfig, V2PPPO
+
+    env_cfg, _ = preset("federer_train_stage_1_dr", num_envs=n, max_episode_length=6,
+                        reset_reaction_nframes=6, reset_candidates=2)
+    return V2PPPO(_tennis_env(dev, env_cfg, hidden=64, experts=3, gen=gen),
+                  V2PConfig(horizon=4, minibatch_size=8, mini_epochs=2, actor_units=(64, 32),
+                            critic_units=(64, 32)), seed=7, device=dev)
+
+
+def ctx_dr_graphs_phase(dev, card: str):
+    """The graphed context-IK and domain-randomized epochs against the eager
+    ones under `torch.use_deterministic_algorithms` (each learner captured
+    in that mode): amass_im_corrupt, amass_im_dr and
+    federer_train_stage_1_dr at 8 envs over two epochs, metrics, params,
+    moments, count, both norms (and the tennis env state and last obs) bit
+    for bit, two eager epochs agreeing too."""
+    t_phase = time.perf_counter()
+    n, e0 = CTX_DR_DET_ENVS, CTX_DR_DET_EPOCH
+    det = _deterministic_pairs("ctx_dr_graphs", (
+        ("amass_im_corrupt", lambda: _small_imitation_learner(dev, "amass_im_corrupt", n), 2),
+        ("amass_im_dr", lambda: _small_imitation_learner(dev, "amass_im_dr", n), 2, e0),
+        ("federer_train_stage_1_dr", lambda: _small_dr_tennis_learner(dev, n), 2, e0)))
+    say("ctx_dr_graphs", card=card, nvidia_smi=nvidia_smi(),
+        phase_s=time.perf_counter() - t_phase, deterministic_mode=det)
+    _hold_deterministic_pairs("ctx_dr_graphs", det)
 
 
 # ---------------------------------------------------------------------------
@@ -3543,49 +3696,43 @@ def _imitation_eval_case(dev, lib):
 
 def _walk_case(dev, card):
     """The MotionVAE random walk at full width (federer's 256 hidden, 6
-    experts), 8 envs, 120 steps from seed 0: graphed (K2 3 + 3 per step
-    through the replays) and eager, timed and bit for bit; K2 at B = 8 on
-    fresh inputs of the decoder's shapes against its plain version, timed."""
+    experts), 8 envs, 120 steps from seed 0, as the report after MotionVAE
+    training walks: graphed twice, from two spec snapshots (the first call
+    captures, the second only replays the kept graph: fails unless it is
+    faster than the eager walk and captures nothing), K2 3 + 3 per step
+    through the replays, and eager; timed and bit for bit. K2 at B = 8 on
+    fresh inputs of the decoder's shapes against its plain version,
+    timed."""
+    import copy
+    import dataclasses
+
     import numpy as np
     import torch
 
     from vid2player3d_torch.mvae import eval as MVE
     from vid2player3d_torch.tennis import player as P
-    from vid2player3d_torch.utils import graphs as G
 
     spec = P.make_random_spec(0, hidden=256, experts=6, device=dev)
     init = _init_frames()[:WALK_ENVS]
-    made, orig = [], G.StaticGraph
-
-    class Recorded(orig):
-        """The walk's graph, with the time its capture call ended."""
-
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            made.append(self)
-
-        def __call__(self, key=()):
-            super().__call__(key)
-            if not hasattr(self, "captured_at"):
-                torch.cuda.synchronize()
-                self.captured_at = time.perf_counter()
-
-    G.StaticGraph = Recorded
-    try:
-        _zero_kernel_counts()
-        g, g_s = _timed_call(lambda: MVE.random_walk_rollout(spec, init, WALK_STEPS, 0))
-        replays_s = time.perf_counter() - made[0].captured_at
-        counts = _kernel_counts()
-    finally:
-        G.StaticGraph = orig
-    if len(made) != 1 or made[0].captures != 1:
-        fail(f"eval_graphs: the random walk made {len(made)} graphs")
+    MVE._WALKS.clear()          # the first call captures (mvae_main's report kept a graph)
+    g, first_s = _timed_call(lambda: MVE.random_walk_rollout(spec, init, WALK_STEPS, 0))
+    walk = MVE._WALKS[str(dev)]
+    # a second report: a new snapshot of the same weights, as each report makes
+    again = dataclasses.replace(spec, decoder=copy.deepcopy(spec.decoder))
+    _zero_kernel_counts()
+    g2, g_s = _timed_call(lambda: MVE.random_walk_rollout(again, init, WALK_STEPS, 0))
+    counts = _kernel_counts()
+    if MVE._WALKS[str(dev)] is not walk or walk.step.captures != 1:
+        fail(f"eval_graphs: the second random walk captured again ({walk.step.captures})")
     launches = _per_step_launches("eval_graphs random walk", counts, {k: 0 for k in counts},
                                   WALK_STEPS, WALK_LAUNCHES)
     e, e_s = _timed_call(lambda: MVE._random_walk_eager(spec, init, WALK_STEPS, 0, 1.0, None))
-    differ = [i for i, (a, b) in enumerate(zip(e, g)) if a.tobytes() != b.tobytes()]
+    differ = [i for i, (a, b, c) in enumerate(zip(e, g, g2))
+              if a.tobytes() != b.tobytes() or a.tobytes() != c.tobytes()]
     if differ:
         fail(f"eval_graphs: the graphed random walk differs from the eager one in {differ}")
+    if not g_s < e_s:
+        fail(f"eval_graphs: the replayed {WALK_STEPS}-step walk took {g_s} s, eager {e_s} s")
     gen = torch.Generator(device=dev).manual_seed(5)
     layers = [_moe_layer_inputs(dev, WALK_ENVS, d_in, d_out, gen) for d_in, d_out in MOE_LAYERS]
     MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
@@ -3599,14 +3746,14 @@ def _walk_case(dev, card):
     k2 = dict(_k2_small(card, WALK_ENVS, layers), max_abs_err=err,
               tol=1e-4, inputs="fresh, the decoder's layer shapes")
     MOE.moe_linear.launches, MOE.split_weights.launches = before["k2_gemm"], before["k2_prep"]
-    return dict(envs=WALK_ENVS, steps=WALK_STEPS, graphed_s=g_s,
+    return dict(envs=WALK_ENVS, steps=WALK_STEPS, first_graphed_s=first_s, graphed_s=g_s,
                 graphed_s_per_step=g_s / WALK_STEPS,
-                replays_s_per_step=replays_s / (WALK_STEPS - 1),
                 eager_s=e_s, eager_s_per_step=e_s / WALK_STEPS, eager_over_graphed=e_s / g_s,
-                note="graphed_s: the call, its one capture included (the graph lives for the "
-                     "call); replays_s_per_step: the steps after the capture, each the "
-                     "normals' draw and one replay, and the host copy",
-                graph=_graph_stats(made[0]), launches_per_step=launches,
+                captures=walk.step.captures,
+                note="first_graphed_s: the first call, its capture included; graphed_s: the "
+                     "second call on a new spec snapshot (its leaves copied into the kept "
+                     "statics, every step a replay, the host copy)",
+                graph=_graph_stats(walk.step), launches_per_step=launches,
                 finite=bool(np.isfinite(g[1]).all()), k2_B8=k2)
 
 
@@ -4945,6 +5092,7 @@ def main() -> None:
     k1_dr = im_dr_main_phase(dev, card)
     k1_ctx = im_ctx_main_phase(dev, card)
     tennis_dr_launches = tennis_dr_main_phase(dev, card)
+    ctx_dr_graphs_phase(dev, card)
     warm_launches = ckpt_phase(dev, card, agent, ts, stage2_env, dual_agent, im_agent, im_ts,
                                im_lib)
     del stage2_env, im_lib

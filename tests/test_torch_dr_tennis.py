@@ -96,7 +96,7 @@ def epoch():
                      ball_generator=CK.ball_pool_from_jax(jgen, device="cpu"),
                      pi_low=tfrozen.as_pi_low(), device="cpu")
     tagent = V2PPPO(tenv, V2PConfig(**LEARNER), seed=SEED, device="cpu")
-    tts0 = tagent.init_state(init_params)
+    tts0 = tagent.init_state(params=init_params)
     tts0.env_state = CK.tennis_state_from_jax(env_state0)
     tts0.last_obs = torch.tensor(last_obs0)
     tts0.epoch = EPOCH

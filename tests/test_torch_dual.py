@@ -429,7 +429,7 @@ def epoch_start(envs):
 def _port_start(tagent, start):
     """The port's train state at the JAX epoch's start."""
     init_params, env_state0, last_obs0 = start
-    ts = tagent.init_state(init_params)
+    ts = tagent.init_state(params=init_params)
     ts.env_state = CK.tennis_state_from_jax(env_state0)
     ts.last_obs = torch.tensor(last_obs0)
     return ts

@@ -78,7 +78,7 @@ def _agents(jenv, tenv, **learner):
     jnorm, tnorm = _obs_norm(jenv.obs_dim, 1)
     jts = dataclasses.replace(jts, obs_norm=jnorm)
     tagent = V2PPPO(tenv, V2PConfig(**LEARNER, **learner), seed=3, device="cpu")
-    tts = tagent.init_state(CK.params_from_jax(_flatten(jts.params)))
+    tts = tagent.init_state(params=CK.params_from_jax(_flatten(jts.params)))
     tts.obs_norm = tnorm
     return jagent, jts, tagent, tts
 

@@ -275,14 +275,13 @@ def test_staged_random_walk_equals_eager(staged):
 
 
 def test_dr_and_context_ik_evaluate_eagerly(pool, monkeypatch):
-    """`evaluate` on `federer_train_stage_1_dr` and `amass_im_corrupt`, the
-    learners' device set to the card's type without touching one: their
-    predicate is false, so the rollouts run eagerly and keep no graph."""
-    def refuse(*a, **k):
-        raise AssertionError("took the graphed path")
-
-    monkeypatch.setattr(E, "_tennis_rollout_graphed", refuse)
-    monkeypatch.setattr(E, "_imitation_segment_graphed", refuse)
+    """`evaluate` on `federer_train_stage_1_dr` and `amass_im_corrupt`. The
+    eager evaluation (the CPU's path and the oracle) steps the agent's own
+    env with no randomization noise, the context IK on the full-confidence
+    context; on a card their predicate is true (the learners' device set to
+    the card's type without touching one), and the staged evaluation equals
+    the eager one bit for bit, one capture per record set, its steps free of
+    the ops a capture refuses."""
     env_cfg, v2p_cfg = preset("federer_train_stage_1_dr", num_envs=N, reset_candidates=2)
     env = TennisEnv(env_cfg, _spec(0), _frames(0), ball_generator=pool, pi_low=_pi_low(0),
                     device="cpu")
@@ -291,13 +290,25 @@ def test_dr_and_context_ik_evaluate_eagerly(pool, monkeypatch):
     im = ImitationPPO(HumanoidImEnv(env_cfg, make_synthetic_motion_lib(
         num_motions=2, T=60, fps=30.0, seed=0, device="cpu"), device="cpu"),
         dataclasses.replace(ppo_cfg, horizon=4, minibatch_size=8), device="cpu")
+    states = {}
     for agent in (tennis, im):
-        ts = agent.init_state()
+        states[agent] = agent.init_state()
         agent.device = torch.device("cuda", 0)
-        assert not agent.graphed
-        if agent is tennis:
-            rep = E.evaluate(agent, num_epochs=1, steps_per_epoch=3, ts=ts)
-        else:
-            rep = E.eval_imitation(agent, num_rollouts=1, ts=ts, max_steps=4)
-        assert all(v is None or np.isfinite(v) for v in rep.values())
-        assert agent._eval_st == {}
+        assert agent.graphed
+        agent.device = torch.device("cpu")
+    on = [False]
+    for cls in (V2PPPO, ImitationPPO):
+        monkeypatch.setattr(cls, "graphed", property(lambda self: on[0]))
+    monkeypatch.setattr(graphs, "StaticGraph", _Checked)
+    _Checked.seen = set()
+    for agent, ts in states.items():
+        got = []
+        for on[0] in (False, True):
+            if agent is tennis:
+                got.append(E.evaluate(agent, num_epochs=1, steps_per_epoch=3, ts=ts))
+            else:
+                got.append(E.eval_imitation(agent, num_rollouts=1, ts=ts, max_steps=4))
+        _same_tree(got[0], got[1])
+        assert all(v is None or np.isfinite(v) for v in got[1].values())
+        assert [s.step.captures for s in agent._eval_st.values()] == [1]
+    assert sorted(n for n in _Checked.seen if n in _REFUSED) == []

@@ -3,8 +3,9 @@ moe_linear: prep and 3xTF32 GEMM; K3 fk_chain) against their plain PyTorch
 versions on the card; and the dual rally's step and two-hand IK on the card
 against the same on the CPU, with K2's and K3's launches per dual step; the
 epochs replayed from CUDA graphs (imitation, MotionVAE, tennis stage 1,
-the two-hand single-player env, the dual rally) against their eager
-bodies, the launch counts through replays, a capture that fails.
+the two-hand single-player env, the dual rally, the context-IK and
+domain-randomized configs) against their eager bodies, the launch counts
+through replays, a replay with no host sync, a capture that fails.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -909,6 +910,74 @@ def test_graphed_two_hand_and_dual_epochs_equal_eager_on_the_card(cuda, determin
         horizon=4, minibatch_size=16, mini_epochs=2, actor_units=(64, 32),
         critic_units=(64, 32), compute_dtype="f32", num_policies=2), seed=7, device=cuda)
     _hold_graphed_to_eager(dual, 4, (6, 6, 2))
+
+
+def _ctx_dr_learner(cuda, name):
+    """A small learner of amass_im_corrupt, amass_im_dr (4 envs, horizon 4,
+    f32, fused K1) or federer_train_stage_1_dr (`_tennis_learner` at 4 envs
+    under the config's randomization) on the card."""
+    import dataclasses
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImEnv
+    from vid2player3d_torch.envs.presets import preset
+    from vid2player3d_torch.learn import ImitationPPO
+
+    env_cfg, ppo_cfg = preset(name, num_envs=4)
+    if name == "federer_train_stage_1_dr":
+        return _tennis_learner(cuda, 4, 4, rand_specs=env_cfg.rand_specs)
+    env = HumanoidImEnv(dataclasses.replace(env_cfg, substeps=2), make_synthetic_motion_lib(
+        num_motions=2, T=60, seed=0, device=cuda), device=cuda)
+    return ImitationPPO(env, dataclasses.replace(ppo_cfg, horizon=4, minibatch_size=8,
+                                                 mini_epochs=2, compute_dtype="f32",
+                                                 fused_optimizer="on"), seed=7, device=cuda)
+
+
+@pytest.mark.parametrize("name", ["amass_im_corrupt", "amass_im_dr", "federer_train_stage_1_dr"])
+def test_ctx_dr_graphed_epoch_equals_eager_on_the_card(cuda, deterministic, name):
+    """The context-IK and domain-randomized epochs replayed from graphs
+    against their eager ones, two epochs at 4 envs under deterministic
+    algorithms from epoch 300 (the linear noise on and growing, the model or
+    ball constants drawn anew each epoch): metrics, params, moments, count
+    and norms (and the tennis env state and last obs) bit for bit, one
+    capture per graph; then one replayed step and one replayed update under
+    `set_sync_debug_mode("error")`: no host sync."""
+    from vid2player3d_torch.parallel import mesh as PM
+
+    agent = _ctx_dr_learner(cuda, name)
+    assert agent.graphed
+    gen = getattr(agent.env, "generator", None)
+    g = None if gen is None else gen.get_state()
+    a = agent.init_state()
+    if gen is not None:
+        gen.set_state(g)
+    b = agent.init_state()
+    a.epoch = b.epoch = 300
+    for _ in range(2):
+        g = None if gen is None else gen.get_state()
+        a, ma = agent.train_epoch(a)
+        if gen is not None:
+            gen.set_state(g)
+        b, mb = agent._train_epoch_eager(b)
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]) or bool(ma[k].isnan() & mb[k].isnan()), k
+        fields = ("params", "opt_state", "obs_norm", "val_norm") + (
+            ("env_state", "last_obs") if gen is not None else ())
+        for f in fields:
+            for x, y in zip(PM.tree_leaves(getattr(a, f)), PM.tree_leaves(getattr(b, f))):
+                torch.testing.assert_close(x, y, rtol=0, atol=0, msg=f)
+    st = agent._st
+    assert st.step.captures == st.update.captures == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for graph in (st.step, st.update):
+            st.row.zero_()
+            graph(graph.key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert st.step.captures == st.update.captures == 1
 
 
 def test_graphed_evaluation_equals_eager_on_the_card(cuda, deterministic):

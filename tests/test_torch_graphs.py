@@ -233,12 +233,12 @@ def test_train_epoch_signature_is_jaxs():
 
 @pytest.mark.parametrize("name,graphed", [
     ("amass_im", True), ("djokovic_im", True), ("federer_im", True), ("nadal_im", True),
-    ("amass_im_dr", False), ("amass_im_corrupt", False)])
+    ("amass_im_dr", True), ("amass_im_corrupt", True)])
 def test_which_configs_take_the_graphs(name, graphed):
-    """On a card the four plain imitation configs replay their epochs from
-    graphs; domain randomization and the context IK stay eager. The
-    predicate reads the config and the device only (here the device is
-    set to the card's type without touching one)."""
+    """On a card every imitation config replays its epochs from graphs,
+    domain randomization and the context IK included. The predicate reads
+    the config and the device only (here the device is set to the card's
+    type without touching one)."""
     env_cfg, ppo_cfg = preset(name, num_envs=4)
     env = HumanoidImEnv(env_cfg, t_make_lib(num_motions=2, T=60, fps=30.0, seed=0,
                                             device="cpu"), device="cpu")
@@ -247,6 +247,22 @@ def test_which_configs_take_the_graphs(name, graphed):
     assert not agent.graphed
     agent.device = torch.device("cuda", 0)
     assert agent.graphed == graphed
+
+
+@pytest.mark.parametrize("name", ["amass_im", "amass_im_dr", "amass_im_corrupt"])
+def test_a_mesh_stays_eager(name):
+    """A learner over a mesh (one rank here) stays eager on a card, whatever
+    its config."""
+    from vid2player3d_torch import parallel
+
+    env_cfg, ppo_cfg = preset(name, num_envs=4)
+    env = HumanoidImEnv(env_cfg, t_make_lib(num_motions=2, T=60, fps=30.0, seed=0,
+                                            device="cpu"), device="cpu")
+    mesh = parallel.data_parallel_mesh(device="cpu")
+    agent = ImitationPPO(env.shard(mesh), dataclasses.replace(ppo_cfg, horizon=T,
+                                                              minibatch_size=MB), mesh=mesh)
+    agent.device = torch.device("cuda", 0)
+    assert not agent.graphed
 
 
 def test_staged_steps_hold_no_refused_op():

@@ -197,8 +197,7 @@ GRAPHED = ("federer_train_stage_1", "federer_train_stage_2", "federer_train_stag
            "djokovic_train_stage_1", "nadal_train_stage_2", "federer_train_stage_1a",
            "federer_train_stage_2a", "federer_train_stage_2b", "federer_train_stage_2c",
            "federer_train_stage_1sync", "federer_train_stage_2sync", "federer_train_serve",
-           "federer", "djokovic", "nadal")
-EAGER = ("federer_train_stage_1_dr",)
+           "federer", "djokovic", "nadal", "federer_train_stage_1_dr")
 
 
 @pytest.fixture(scope="module")
@@ -208,26 +207,26 @@ def port_parts(shared):
     return _port_spec(jspec), feats, CK.ball_pool_from_jax(jgen, device="cpu"), tfrozen
 
 
-@pytest.mark.parametrize("name", GRAPHED + EAGER)
+@pytest.mark.parametrize("name", GRAPHED)
 def test_which_configs_take_the_graphs(port_parts, name):
     """On a card the single-player configs replay their epochs from graphs,
-    the two-hand `djokovic` and `nadal` included; domain randomization stays
-    eager. The predicate reads the config and the device only (here the
-    device is set to the card's type without touching one)."""
+    the two-hand `djokovic` and `nadal` and domain randomization included.
+    The predicate reads the config and the device only (here the device is
+    set to the card's type without touching one)."""
     spec, feats, pool, pi_low = port_parts
     env_cfg, v2p_cfg = preset(name, num_envs=4, reset_candidates=2)
     env = TennisEnv(env_cfg, spec, feats, ball_generator=pool, pi_low=pi_low, device="cpu")
     agent = V2PPPO(env, dataclasses.replace(v2p_cfg, **LEARNER), device="cpu")
     assert not agent.graphed
     agent.device = torch.device("cuda", 0)
-    assert agent.graphed == (name in GRAPHED)
+    assert agent.graphed
 
 
 def test_dual_mesh_and_cpu_stay_eager(port_parts):
     """The dual rallies (two policies on a `DualTennisEnv`, `nadal_federer`
     and `federer_djokovic`) replay their epochs from graphs on a card; a
-    learner over a mesh stays eager there, and any learner on the CPU is
-    eager."""
+    learner over a mesh (domain-randomized or not) stays eager there, and
+    any learner on the CPU is eager."""
     spec, feats, pool, pi_low = port_parts
     duals = []
     for name, lanes in (("nadal_federer", (True, False)), ("federer_djokovic", (False, True))):
@@ -241,7 +240,10 @@ def test_dual_mesh_and_cpu_stay_eager(port_parts):
     env = TennisEnv(TennisConfig(**STAGE1), spec, feats, ball_generator=pool, pi_low=pi_low,
                     device="cpu")
     meshed = V2PPPO(env.shard(mesh), V2PConfig(**LEARNER), mesh=mesh)
-    for agent in duals + [meshed]:
+    env_cfg, _ = preset("federer_train_stage_1_dr", num_envs=4, reset_candidates=2)
+    dr_env = TennisEnv(env_cfg, spec, feats, ball_generator=pool, pi_low=pi_low, device="cpu")
+    meshed_dr = V2PPPO(dr_env.shard(mesh), V2PConfig(**LEARNER), mesh=mesh)
+    for agent in duals + [meshed, meshed_dr]:
         assert not agent.graphed
         agent.device = torch.device("cuda", 0)
-        assert agent.graphed == (agent is not meshed)
+        assert agent.graphed == (agent not in (meshed, meshed_dr))

@@ -73,7 +73,7 @@ def jax_run():
 
 def _port_start(run):
     """The port's train state at the JAX epoch's start."""
-    tts0 = run["tagent"].init_state(run["init_params"])
+    tts0 = run["tagent"].init_state(params=run["init_params"])
     tts0.env_state = CK.tennis_state_from_jax(run["env_state0"])
     tts0.last_obs = torch.tensor(run["last_obs0"])
     return tts0

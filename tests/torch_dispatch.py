@@ -9,9 +9,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 # ops a CUDA graph cannot hold: a read of a device value on the host, a
 # shape that depends on data, a tensor made from host data ("host data"; a
-# 0-d one is a Python scalar, which the card takes as a fill)
+# 0-d one is a Python scalar, which the card takes as a fill), and the
+# solvers that read their convergence info back to the host on the card
+# (the CPU runs them without a sync)
 _REFUSED = ("_local_scalar_dense", "nonzero", "masked_select", "unique", "repeat_interleave",
-            "item", "host data", "boolean index", "scalar index_put")
+            "item", "host data", "boolean index", "scalar index_put",
+            "linalg_svd", "_linalg_svd", "linalg_eigh", "_linalg_eigh", "linalg_eig")
 
 
 class _Ops(TorchDispatchMode):

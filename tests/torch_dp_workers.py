@@ -79,7 +79,7 @@ def tennis_epoch(mesh, case):
         env = env.shard(mesh)
     agent = V2PPPO(env, V2PConfig(**case["learner"]), seed=case["seed"], mesh=mesh,
                    device="cpu")
-    ts = agent.init_state(case.get("params"))
+    ts = agent.init_state(params=case.get("params"))
     if "env_state" in case:
         state = CK.tennis_state_from_jax(case["env_state"])
         obs = torch.tensor(case["last_obs"])

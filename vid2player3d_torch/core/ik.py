@@ -5,10 +5,11 @@ Given target joint positions (possibly corrupted video estimates), per-bone
 twist angles (phis, as cos/sin) and the rest-pose skeleton, recover per-joint
 rotation matrices whose FK reproduces the targets. The tree is processed
 level by level with static index lists (9 levels); the two orientation fits
-(pelvis, spine) are batched SVDs of (B, 3, 3) systems, degenerate ones masked
-to the identity. Everything is differentiable in the twist and leaf inputs
-except the spine fit's target, which is a constant of the data (the SVD's
-gradient is NaN for repeated singular values).
+(pelvis, spine) are batched 3×3 orthogonal Procrustes fits in Horn's
+quaternion form, a fixed number of plain tensor ops with no solver call and
+no host sync (so a CUDA graph holds them), degenerate ones masked to the
+identity. Everything is differentiable in the twist and leaf inputs; the
+fits read only data (the spine fit's target is detached).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def _safe_norm(x, dim=-1, keepdim=True):
 
 
 # Topological levels of the SMPL tree. Level 3 is the 3-child spine joint
-# (Chest=9, fit by SVD over Neck/L_Thorax/R_Thorax); the last level holds the
+# (Chest=9, fit by Procrustes over Neck/L_Thorax/R_Thorax); the last level holds the
 # leaves, whose local rotation comes from `leaf_rotmats`.
 IK_LEVELS = [
     [0],
@@ -67,27 +68,53 @@ def _tables(device: torch.device):
             "ident6": t([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], torch.float32)}
 
 
-def _det3(m):
-    """Determinant of (..., 3, 3) by cofactors (no solver call)."""
-    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
-            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
-            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]))
+# squarings of the shifted Horn matrix: its top eigenvector's share grows as
+# the ratio of the two largest eigenvalues to the power 2**k
+_HORN_SQUARINGS = 20
 
 
 def _kabsch(rest_cols, target_cols):
-    """Batched orthogonal Procrustes: the rotation R minimizing
+    """Batched orthogonal Procrustes: the proper rotation R minimizing
     |R @ rest - target| for (B, 3, K) matrices of K corresponding vectors.
-    All-zero systems give the identity."""
+    All-zero systems give the identity.
+
+    Horn's form: R is the rotation of the unit quaternion that is the top
+    eigenvector of the symmetric 4×4 matrix N built from S = rest·targetᵀ.
+    N shifted by a bound of its spectral radius is positive semidefinite;
+    squared `_HORN_SQUARINGS` times (renormalized by its trace) it tends to
+    v·vᵀ, whose column of largest diagonal is ±v. This is the reference's
+    V·diag(1, 1, sign det(V·Uᵀ))·Uᵀ of the SVD S = U·Σ·Vᵀ wherever that is
+    unique (S of rank 2 or more, apart from a reflection with σ₂ = σ₃); the
+    reference's `det == 0` guard never decides there, as det(V·Uᵀ) of
+    orthogonal factors is ±1. Of rank 1 every rotation taking S's left to
+    its right singular vector is optimal: this picks one, the reference's
+    SVD another (there its pick follows the rounding of S)."""
     S = rest_cols @ target_cols.transpose(-1, -2)                # (B, 3, 3)
     eye = torch.eye(3, dtype=S.dtype, device=S.device)
     degenerate = torch.abs(S).sum(dim=(-1, -2), keepdim=True) < _EPS
-    U, _, Vh = torch.linalg.svd(torch.where(degenerate, eye, S))
-    V = Vh.transpose(-1, -2)
-    Ut = U.transpose(-1, -2)
-    det = _det3(V @ Ut)
-    sign = torch.where(det == 0, 1.0, torch.sign(det))
-    D = torch.diag_embed(torch.stack([torch.ones_like(sign), torch.ones_like(sign), sign], -1))
-    return torch.where(degenerate, eye, V @ D @ Ut)
+    S = torch.where(degenerate, eye, S)
+    (sxx, sxy, sxz), (syx, syy, syz), (szx, szy, szz) = (r.unbind(-1) for r in S.unbind(-2))
+    N = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1)], -2)
+    # |eigenvalues of N| <= σ₁ + σ₂ + σ₃ <= √3·|S|_F
+    shift = 1.7320508 * torch.sqrt((S * S).sum((-1, -2)))
+    M = N + shift[..., None, None] * torch.eye(4, dtype=S.dtype, device=S.device)
+    for _ in range(_HORN_SQUARINGS):
+        # elementwise products and sums: no matmul library, no TF32
+        M = (M[..., :, :, None] * M[..., None, :, :]).sum(-2)
+        M = M / M.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    j = M.diagonal(dim1=-2, dim2=-1).argmax(-1)
+    q = torch.take_along_dim(M, j[..., None, None].expand(M.shape[:-1] + (1,)), -1)[..., 0]
+    w, x, y, z = (q / torch.sqrt((q * q).sum(-1, keepdim=True))).unbind(-1)
+    R = torch.stack([
+        torch.stack([w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z], -1),
+    ], -2)
+    return torch.where(degenerate, eye, R)
 
 
 def _rodrigues(axis, cos, sin):
@@ -159,7 +186,7 @@ def batch_inverse_kinematics(pose_skeleton, phis, rest_pose, leaf_rotmats=None,
         if level == IK_LEVELS[-1]:
             rot = torch.stack([leaf_rotmats[:, leaf_slot[j]] for j in level], dim=1)
         elif level == [SPINE_JOINT]:
-            # 3-child SVD fit in the parent frame, a constant of the data
+            # 3-child Procrustes fit in the parent frame, a constant of the data
             tgt = final_pose[:, spine_ch] - placed[:, 0:1]
             tgt = torch.einsum("bji,bkj->bki", chain[_PARENTS[SPINE_JOINT]], tgt).detach()
             rst = rel_rest[:, spine_ch]

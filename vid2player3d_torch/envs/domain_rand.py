@@ -147,18 +147,87 @@ class DomainRandomizer:
             updates[name] = _apply(getattr(params, name), _value(sp, d, step), sp.operation)
         return params._replace(**updates)
 
+    def noise_values(self, specs, shape, step=0, generator=None, draws=None, shard=None,
+                     device=None):
+        """The per-element perturbations of obs or action noise (`specs`:
+        `obs_specs` or `act_specs`) at schedule `step`: one tensor of
+        `shape` per spec, in spec order, each from its standard draw
+        (`draws[i]`, the global one with a `shard`, or from `generator`).
+        Drawn before any is applied, they are the draws the spec-by-spec
+        loop takes, so a step replayed from a CUDA graph can take them as
+        static inputs."""
+        return [_value(sp, self._standard(sp, shape, device, generator, draws, i, shard), step)
+                for i, sp in enumerate(specs)]
+
+    def step_noise_statics(self, act_shape, obs_shape, device):
+        """Static tensors for one step's action and obs noise (one per spec),
+        which `draw_step_noise` fills and a CUDA graph's step reads."""
+        return ([torch.empty(act_shape, device=device) for _ in self.act_specs],
+                [torch.empty(obs_shape, device=device) for _ in self.obs_specs])
+
+    def draw_step_noise(self, act, obs, step, generator, draws_act=None, draws_obs=None):
+        """One step's action and obs noise at schedule `step`, drawn (or
+        taken from `draws_act`, `draws_obs`, one standard draw per spec) in
+        the eager step's order, after its policy noise: each action spec's,
+        then each obs spec's; copied into `step_noise_statics`' tensors."""
+        for static, specs, draws in ((act, self.act_specs, draws_act),
+                                     (obs, self.obs_specs, draws_obs)):
+            if static:
+                values = self.noise_values(specs, static[0].shape, step, generator, draws,
+                                           device=static[0].device)
+                for s, v in zip(static, values):
+                    s.copy_(v)
+
+    @staticmethod
+    def apply_noise(x, specs, values):
+        """`x` perturbed by `noise_values`' tensors, spec by spec."""
+        for sp, v in zip(specs, values):
+            x = _apply(x, v.to(x.dtype), sp.operation)
+        return x
+
     def randomize_obs(self, obs, step=0, generator=None, draws=None, shard=None):
         """Per-element observation noise; `draws[i]` is obs spec i's draw of
         obs's shape (the global one with a `shard`)."""
-        for i, sp in enumerate(self.obs_specs):
-            d = self._standard(sp, obs.shape, obs.device, generator, draws, i, shard)
-            obs = _apply(obs, _value(sp, d, step).to(obs.dtype), sp.operation)
-        return obs
+        return self.apply_noise(obs, self.obs_specs, self.noise_values(
+            self.obs_specs, obs.shape, step, generator, draws, shard, obs.device))
 
     def randomize_actions(self, actions, step=0, generator=None, draws=None, shard=None):
         """Per-element action noise; `draws[i]` is action spec i's draw of
         the actions' shape (the global one with a `shard`)."""
-        for i, sp in enumerate(self.act_specs):
-            d = self._standard(sp, actions.shape, actions.device, generator, draws, i, shard)
-            actions = _apply(actions, _value(sp, d, step).to(actions.dtype), sp.operation)
-        return actions
+        return self.apply_noise(actions, self.act_specs, self.noise_values(
+            self.act_specs, actions.shape, step, generator, draws, shard, actions.device))
+
+    def refresh_env(self, static, env) -> None:
+        """Copy `env`'s randomized constants (the model fields and ball
+        constants of this randomizer's specs, and the ball's gravity vector
+        where the env has one) into `static`'s tensors in place: `static`
+        is the one env a CUDA graph steps, `env` an epoch's randomized
+        copy, or the base env whose constants are plain floats."""
+        for sp in self.model_specs:
+            getattr(static.model, sp.field).copy_(getattr(env.model, sp.field))
+        for sp in self.ball_specs:
+            name = sp.field[len("ball_"):]
+            dst, src = getattr(static.ball_params, name), getattr(env.ball_params, name)
+            if isinstance(src, torch.Tensor):
+                dst.copy_(src)
+            else:
+                dst.fill_(src)
+        if self.ball_specs:
+            static._gvec.copy_(env._gvec)
+
+    def static_env(self, env):
+        """A copy of `env` whose randomized constants are tensors of its
+        own (`refresh_env` writes them): the model fields of the model
+        specs cloned, the ball constants of the ball specs as 0-d float32
+        tensors on the env's device. `env` itself is not changed."""
+        if not (self.model_specs or self.ball_specs):
+            return env
+        model = dataclasses.replace(env.model, **{sp.field: getattr(env.model, sp.field).clone()
+                                                 for sp in self.model_specs})
+        if not self.ball_specs:
+            return env.with_model(model)
+        ball = env.ball_params._replace(**{
+            sp.field[len("ball_"):]: torch.tensor(
+                getattr(env.ball_params, sp.field[len("ball_"):]), dtype=torch.float32,
+                device=env.device) for sp in self.ball_specs})
+        return env.with_model(model=model, ball_params=ball)

@@ -13,11 +13,13 @@ per-frame kinematics, the data that `vis.render_html` draws.
 Each rollout writes its steps' records into (T, N, ...) buffers on the
 device, which move to the host once, when the rollout (for imitation, the
 segment) ends, as JAX's scanned rollouts do. Where the learner replays its
-epoch from CUDA graphs (`agent.graphed`: the card, no mesh, no domain
-randomization, no context IK), each evaluation step is one replay of a
-`StaticGraph` (``utils/graphs.py``) over static tensors, the draws made
-outside it; elsewhere (the CPU, the `_dr` configs, `amass_im_corrupt`, a
-mesh) the step runs op by op from the host. The graphs and their buffers
+epoch from CUDA graphs (`agent.graphed`: the card, no mesh), each
+evaluation step is one replay of a `StaticGraph` (``utils/graphs.py``) over
+static tensors, the draws made outside it; elsewhere (the CPU, a mesh) the
+step runs op by op from the host. Either way an evaluation steps the
+agent's own env with no randomization noise (the `_dr` configs evaluate on
+the base model and ball), and the context IK takes the full-confidence
+context (`amass_im_corrupt`). The graphs and their buffers
 are kept on the agent (`agent._eval_st`, one per record set), so a
 repeated evaluation replays them. The JAX package resets from fixed keys
 (1234, 4321, 11, 7); here each function resets from a torch generator

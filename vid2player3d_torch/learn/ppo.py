@@ -36,13 +36,16 @@ train state's generator, or from `draws=` so a test can feed the JAX
 learner's draws.
 
 CUDA graphs (`graphed`): JAX runs the epoch as one jitted program. On the
-card, a learner with no mesh, domain randomization or context IK replays
-each env step (policy, noise, `env.step`, the trajectory row) and each
-optimizer step (gather, loss, gradient, K1 or the optax chain, adaptive lr,
-stats row) from a CUDA graph over static tensors (``utils/graphs.py``);
-the reset, the draws (in the eager order), GAE, the running norms and the
-metrics stay eager. `_train_epoch_eager` is the CPU path and the graphed
-epoch's oracle.
+card, a learner with no mesh replays each env step (policy, the context IK,
+noise, `env.step`, the trajectory row) and each optimizer step (gather, the
+context IK with its gradient, loss, gradient, K1 or the optax chain,
+adaptive lr, stats row) from a CUDA graph over static tensors
+(``utils/graphs.py``); the reset with its corruption, the draws (in the
+eager order), the randomization's per-step perturbations (drawn and
+scheduled outside, added inside), GAE, the running norms and the metrics
+stay eager. Under model randomization the graphs step one static env whose
+randomized fields take each epoch's values in place. `_train_epoch_eager`
+is the CPU path and the graphed epoch's oracle.
 
 Data parallelism (`mesh=`, a ``parallel.DataParallelMesh``; the env sharded
 with `env.shard(mesh)`): each of the D ranks steps its block of the envs, the
@@ -408,11 +411,10 @@ class ImitationPPO:
     def graphed(self) -> bool:
         """Whether `train_epoch` and `rollout` replay their steps from CUDA
         graphs (``utils/graphs.py``), as the JAX learner runs its epoch as one
-        jitted program: on the card, for every config without a mesh, domain
-        randomization or the context IK (amass_im, djokovic_im, federer_im,
-        nadal_im). Their steps make no host sync and no draw."""
-        return (self.device.type == "cuda" and self.mesh is None
-                and self.env.randomizer is None and not self.cfg.use_context_ik)
+        jitted program: on the card, for every config without a mesh
+        (amass_im, djokovic_im, federer_im, nadal_im, amass_im_dr,
+        amass_im_corrupt). Their steps make no host sync and no draw."""
+        return self.device.type == "cuda" and self.mesh is None
 
     @torch.no_grad()
     def rollout(self, ts: TrainState, draws: Optional[Dict] = None,
@@ -642,9 +644,13 @@ class ImitationPPO:
         the same staged steps run as they are). The reset, the draws, GAE,
         the running norms and the metrics stay eager. The draws come from the
         generator in the eager epoch's order (the reset's, T action noises,
-        each mini-epoch's permutation), so both epochs take the same."""
-        self.last_env = self.env
-        traj = self._rollout_graphed(ts, draws)
+        each mini-epoch's permutation), so both epochs take the same. The
+        epoch's randomized env (`epoch_env`) is made eager, kept as
+        `last_env`, and its constants copied into the static env the
+        graphs step."""
+        env = self.epoch_env(ts, draws)
+        self.last_env = env
+        traj = self._rollout_graphed(ts, draws, env)
         batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
         stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
         return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm)
@@ -797,11 +803,16 @@ class ImitationPPO:
     def _statics(self, env_state, raw_obs) -> SimpleNamespace:
         """The graphed epoch's static tensors (made at its first call, from
         the first reset's) and its two `StaticGraph`s: `step` (one env step)
-        and `update` (one optimizer step)."""
+        and `update` (one optimizer step). `env` is the env the step graph
+        steps: this learner's, or under model randomization a copy whose
+        randomized fields are its own (``envs/domain_rand.py``
+        `static_env`); `dr_act`, `dr_obs` the step's noise of each action
+        and obs spec; with the context IK `conf` the context frame's
+        confidence and the trajectory's rows of the update's inputs."""
         if self._st is not None:
             return self._st
-        cfg, dev = self.cfg, self.device
-        T, N, A = cfg.horizon, self.env.cfg.num_envs, self.num_actions
+        cfg, dev, env = self.cfg, self.device, self.env
+        T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
         traj = dict(obs=torch.empty(T, N, self.obs_dim, device=dev),
                     action=torch.empty(T, N, A, device=dev),
                     mu=torch.empty(T, N, A, device=dev),
@@ -809,72 +820,114 @@ class ImitationPPO:
                     sub_rewards=torch.empty(T, N, 4, device=dev))
         for k in ("neglogp", "value", "reward", "done", "terminate", "alive"):
             traj[k] = torch.empty(T, N, device=dev)
+        if cfg.use_context_ik:
+            traj.update(raw_obs=torch.empty((T,) + raw_obs.shape, device=dev),
+                        ctx_pos=torch.empty(T, N, 24, 3, device=dev),
+                        ctx_conf=torch.empty(T, N, 24, device=dev),
+                        gt_pos=torch.empty(T, N, 24, 3, device=dev),
+                        gt_dof=torch.empty(T, N, 69, device=dev))
+        dr = env.randomizer
         steps = cfg.mini_epochs * self.num_minibatches
         st = SimpleNamespace(
+            env=env if dr is None else dr.static_env(env),
             state=PM.tree_map(torch.clone, env_state), obs=raw_obs.clone(),
             obs_norm=RN.RunningNormState.create(self.obs_dim, dev),
             val_norm=RN.RunningNormState.create(1, dev),
             frame=torch.empty(N, FRAME_DIM, device=dev), noise=torch.empty(N, A, device=dev),
+            conf=torch.empty(N, 24, device=dev) if cfg.use_context_ik else None,
             traj=traj, row=torch.zeros(1, dtype=torch.long, device=dev),
             batch=None, idx=torch.empty(self.mb_local, dtype=torch.long, device=dev),
             lr=torch.zeros((), device=dev), count=torch.zeros((), dtype=torch.int32, device=dev),
             stats=torch.empty(steps, len(self.stat_names), device=dev),
             params=None, opt=None)
+        st.dr_act, st.dr_obs = ([], []) if dr is None else dr.step_noise_statics(
+            (N, A), raw_obs.shape, dev)
         st.step = graphs.StaticGraph(self._graphed_step, dev)
         st.update = graphs.StaticGraph(self._graphed_update, dev)
         self._st = st
         return st
 
     @torch.no_grad()
-    def _rollout_graphed(self, ts: TrainState, draws: Optional[Dict] = None):
+    def _rollout_graphed(self, ts: TrainState, draws: Optional[Dict] = None,
+                         env: Optional[HumanoidImEnv] = None):
         """The rollout with each step one call of the `step` graph; the
-        reset, the draws and the last value eager. Returns the static
-        trajectory, which the next call overwrites."""
-        cfg, env, dev = self.cfg, self.env, self.device
+        reset (with its corruption), the draws, the randomization's
+        scheduled noise and the last value eager. `env` (this learner's
+        unless given: an epoch's randomized copy) is reset, and its
+        randomized constants are copied into the static env the graph
+        steps. Returns the static trajectory, which the next call
+        overwrites."""
+        cfg, dev = self.cfg, self.device
+        env = self.env if env is None else env
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
         env_state, raw_obs, ctx = env.reset_all(
-            generator=ts.generator, motion_times=None if draws is None else draws["motion_times"])
+            generator=ts.generator, motion_times=None if draws is None else draws["motion_times"],
+            corrupt_draws=None if draws is None else draws.get("corrupt"))
         st = self._statics(env_state, raw_obs)
+        dr = self.env.randomizer
+        if st.env is not self.env:
+            dr.refresh_env(st.env, env)
         graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
                        PM.tree_leaves((env_state, raw_obs, ts.obs_norm, ts.val_norm)))
         st.params = ts.params
         st.row.zero_()
         key = graphs.tensor_key(list(ts.params.values()))
         feat, pad = ctx["feat"], env.cfg.context_padding
+        conf = ctx["conf"] if cfg.use_context_ik else None
+        dr_step = ts.epoch * cfg.horizon
         for t in range(T):
             st.frame.copy_(feat[:, pad + t])
+            if conf is not None:
+                st.conf.copy_(conf[:, pad + t])
+            # the eager step's draws, in its order: the policy noise, then
+            # each action spec's and each obs spec's
             if draws is None:
                 torch.randn((N, A), generator=ts.generator, device=dev, out=st.noise)
             else:
                 st.noise.copy_(torch.as_tensor(draws["noise"][t]))
+            if dr is not None:
+                dr.draw_step_noise(st.dr_act, st.dr_obs, dr_step, ts.generator,
+                                   *(None if draws is None or k not in draws else draws[k][t]
+                                     for k in ("dr_act", "dr_obs")))
             st.step(key)
         traj = dict(st.traj)
         _, _, _, vn_last, _ = self._forward_frame(ts.params, ts.obs_norm, st.obs,
-                                                  feat[:, pad + T])
+                                                  feat[:, pad + T],
+                                                  None if conf is None else conf[:, pad + T])
         v_next = torch.cat([traj["value"][1:], self._value(ts.val_norm, vn_last)[None]], dim=0)
         traj["next_value"] = v_next * (1.0 - traj["terminate"])
         return traj
 
     def _graphed_step(self) -> None:
-        """One env step on the static tensors: the policy on the static obs
-        and context frame, the static noise, `env.step`, the trajectory's
-        row `row`, the new state copied back."""
-        st = self._st
+        """One env step on the static tensors: the policy (with the context
+        IK on the static confidence) on the static obs and context frame,
+        the static noise, the randomization's static action noise, the
+        static env's `step`, its static obs noise, the trajectory's row
+        `row`, the new state copied back."""
+        st, cfg = self._st, self.cfg
+        dr = self.env.randomizer
         with torch.no_grad():
             io, _, mu, v_norm, c_dof = self._forward_frame(st.params, st.obs_norm, st.obs,
-                                                           st.frame)
+                                                           st.frame, st.conf)
             action = mu + self.sigma[None] * st.noise
             alive = (st.state.reset_buf == 0).float()
-            state, out = self.env.step(st.state, action)
+            env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
+                                                                  st.dr_act)
+            state, out = st.env.step(st.state, env_action)
             row = dict(obs=io, action=action, mu=mu,
                        neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
                        value=self._value(st.val_norm, v_norm), reward=out.reward,
                        done=out.done.float(), terminate=out.terminate.float(),
                        sub_rewards=out.sub_rewards, ctx_dof=c_dof, alive=alive)
+            if cfg.use_context_ik:
+                cb_pos, _, _, gt_pos, gt_dof = self._split_frame(st.frame)
+                row.update(raw_obs=st.obs, ctx_pos=cb_pos, ctx_conf=st.conf, gt_pos=gt_pos,
+                           gt_dof=gt_dof)
             for k, v in row.items():
                 st.traj[k].index_copy_(0, st.row, v[None])
             st.row.add_(1)
-            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, out.obs)))
+            obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
+            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
 
     def _update_graphed(self, ts: TrainState, batch_all, lr, draws):
         """The mini-epochs with each optimizer step one call of the `update`

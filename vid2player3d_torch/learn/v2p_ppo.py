@@ -26,11 +26,14 @@ Differences from `ImitationPPO`, as in the JAX learner:
 One `train_epoch` = horizon rollout → next-value bootstrap → GAE →
 mini_epochs × minibatches. The draws (action noise, minibatch permutations,
 the env's per-step draws) come from generators, or from `draws=` so a test
-can feed the JAX learner's. On the card, without a mesh or domain
-randomization (`graphed`: single-player, two-hand and dual envs, one or two
-policies), each env step and each optimizer step is replayed from a CUDA
-graph, as the JAX learner runs its epoch as one jitted program; the draws
-stay outside the graphs (`TennisEnv.step_draws`).
+can feed the JAX learner's. On the card, without a mesh (`graphed`:
+single-player, two-hand and dual envs, one or two policies, domain
+randomization included), each env step and each optimizer step is replayed
+from a CUDA graph, as the JAX learner runs its epoch as one jitted program;
+the draws stay outside the graphs (`TennisEnv.step_draws`, the
+randomization's scheduled noise), and under model or ball randomization the
+graphs step one static env whose randomized constants take each epoch's
+values in place.
 
 `save_checkpoint` writes, and `load_checkpoint` reads, the JAX package's
 `V2PPPO.save_checkpoint` `.npz` (stacked leaves included);
@@ -182,12 +185,29 @@ class V2PPPO:
         named = [dict(n.named_parameters()) for n in self.nets]
         return {k: torch.stack([d[k] for d in named]) for k in named[0]}
 
-    def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None,
+    # the fields a warm start may set (the JAX learner's `init_state(warm)`)
+    WARM_KEYS = ("params", "opt_state", "obs_norm", "val_norm", "epoch", "lr")
+
+    def init_state(self, warm: Optional[Dict[str, Any]] = None, *,
+                   params: Optional[Dict[str, torch.Tensor]] = None,
                    reset_draws: Optional[Dict] = None) -> V2PTrainState:
         """A fresh train state: the networks' initial params unless `params`
         is given (with num_policies > 1, leaves stacked on a leading policy
         axis), and a reset of every env (from the env's generator unless
-        `reset_draws` is given)."""
+        `reset_draws` is given). `warm` (the JAX learner's argument, from
+        `load_stage_checkpoint`'s loader) overrides any of `WARM_KEYS`:
+        `params` (as `params=`), `opt_state` (an `AdamState`), `obs_norm`
+        and `val_norm` (`RunningNormState`s), `epoch` (an int) and `lr`; each
+        is copied onto the learner's device."""
+        warm = dict(warm or {})
+        unknown = sorted(set(warm) - set(self.WARM_KEYS))
+        if unknown:
+            raise ValueError(f"warm keys {unknown[:4]} are not among {self.WARM_KEYS} (pass "
+                             "the params as params=)")
+        if "params" in warm:
+            if params is not None:
+                raise ValueError("params given twice: as params= and in warm")
+            params = warm["params"]
         src = params if params is not None else self._initial_params()
         if self.num_policies > 1:
             bad = [k for k, v in src.items() if v.shape[0] != self.num_policies]
@@ -197,14 +217,24 @@ class V2PPPO:
         params = {k: v.detach().to(self.device, torch.float32).clone().requires_grad_(True)
                   for k, v in src.items()}
         env_state, obs = self.env.reset_all(reset_draws)
+
+        def pick(name, default):
+            if name not in warm:
+                return default
+            return PM.tree_map(lambda x: x.detach().to(self.device).clone(), warm[name])
+
+        opt = pick("opt_state", None)
+        lr = warm.get("lr", self.cfg.learning_rate)
         return V2PTrainState(
             params=PM.replicate(params, self.mesh),
-            opt_state=init_adam(list(params.values()), self.compute_dtype),
-            obs_norm=RN.RunningNormState.create(self.obs_dim, self.device),
-            val_norm=RN.RunningNormState.create(1, self.device),
+            opt_state=init_adam(list(params.values()), self.compute_dtype) if opt is None
+            else opt,
+            obs_norm=pick("obs_norm", RN.RunningNormState.create(self.obs_dim, self.device)),
+            val_norm=pick("val_norm", RN.RunningNormState.create(1, self.device)),
             env_state=env_state, last_obs=obs,
             generator=torch.Generator(self.device).manual_seed(self.seed),
-            epoch=0, lr=torch.tensor(self.cfg.learning_rate, device=self.device))
+            epoch=int(warm.get("epoch", 0)),
+            lr=torch.as_tensor(lr, dtype=torch.float32).to(self.device).clone())
 
     def save_checkpoint(self, path: str, ts: V2PTrainState) -> None:
         """Write params, running stats, Adam state, epoch and lr to one
@@ -254,14 +284,19 @@ class V2PPPO:
                                      reset_draws)
 
     def _state_from_flat(self, flat, reset_draws) -> V2PTrainState:
+        """The train state of a checkpoint's flat leaves, through
+        `init_state(warm=...)`: params, Adam state, running stats, epoch,
+        and lr only under the adaptive schedule."""
         from ..utils import checkpoint as CK
 
-        ts = self.init_state(CK.params_from_jax(flat), reset_draws)
-        ts.opt_state, ts.obs_norm, ts.val_norm, ts.epoch, lr = CK.learner_state_from_jax(
-            flat, list(ts.params), self.device, self.compute_dtype)
+        params = CK.params_from_jax(flat)
+        opt, obs_norm, val_norm, epoch, lr = CK.learner_state_from_jax(
+            flat, list(params), self.device, self.compute_dtype)
+        warm = dict(params=params, opt_state=opt, obs_norm=obs_norm, val_norm=val_norm,
+                    epoch=epoch)
         if self.cfg.lr_schedule == "adaptive":
-            ts.lr = torch.tensor(lr, device=self.device)
-        return _replicate_state(ts, self.mesh)
+            warm["lr"] = lr
+        return _replicate_state(self.init_state(warm, reset_draws=reset_draws), self.mesh)
 
     # -- forward ----------------------------------------------------------------
 
@@ -298,13 +333,12 @@ class V2PPPO:
     def graphed(self) -> bool:
         """Whether `train_epoch` and `rollout` replay their steps from CUDA
         graphs (``utils/graphs.py``), as the JAX learner runs its epoch as one
-        jitted program: on the card, without a mesh or domain randomization
-        (every tennis config but the `_dr` ones: the stage 1-3 configs, the
-        curriculum aids, the two-hand `djokovic` and `nadal`, the dual
-        rallies with their two policies). Their steps make no host sync and
-        no draw."""
-        return (self.device.type == "cuda" and self.mesh is None
-                and self.env.randomizer is None)
+        jitted program: on the card, without a mesh (every tennis config: the
+        stage 1-3 configs, the curriculum aids, the two-hand `djokovic` and
+        `nadal`, the dual rallies with their two policies,
+        `federer_train_stage_1_dr`). Their steps make no host sync and no
+        draw."""
+        return self.device.type == "cuda" and self.mesh is None
 
     @torch.no_grad()
     def rollout(self, ts: V2PTrainState, draws: Optional[Dict] = None,
@@ -489,9 +523,12 @@ class V2PPPO:
         GAE, the running norms and the metrics stay eager; the draws come
         from the generators in the eager epoch's order, so both epochs take
         the same. The returned env state and last obs are copies of the
-        static ones."""
-        self.last_env = self.env
-        traj, env_state, last_obs = self._rollout_graphed(ts, draws)
+        static ones. The epoch's randomized env (`epoch_env`) is made eager,
+        kept as `last_env`, and its constants copied into the static env
+        the graphs step."""
+        env = self.epoch_env(ts, draws)
+        self.last_env = env
+        traj, env_state, last_obs = self._rollout_graphed(ts, draws, env)
         batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
         stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
         return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm,
@@ -618,7 +655,11 @@ class V2PPPO:
         """The graphed epoch's static tensors and its two `StaticGraph`s:
         `step` (one env step) and `update` (one optimizer step). Made at the
         first call, and anew when the horizon, the env count or the
-        minibatches change."""
+        minibatches change. `env` is the env the step graph steps: this
+        learner's, or under model or ball randomization a copy whose
+        randomized constants are its own (``envs/domain_rand.py``
+        `static_env`); `dr_act`, `dr_obs` the step's noise of each action
+        and obs spec."""
         cfg, env, dev = self.cfg, self.env, self.device
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
         shape = (T, N, cfg.mini_epochs, self.num_minibatches, self.mb_local)
@@ -633,8 +674,10 @@ class V2PPPO:
         for k in ("neglogp", "value", "reward", "done", "terminate"):
             traj[k] = torch.empty(T, N, device=dev)
         steps = cfg.mini_epochs * self.num_minibatches
+        dr = env.randomizer
         st = SimpleNamespace(
-            shape=shape, state=PM.tree_map(torch.clone, ts.env_state), obs=ts.last_obs.clone(),
+            shape=shape, env=env if dr is None else dr.static_env(env),
+            state=PM.tree_map(torch.clone, ts.env_state), obs=ts.last_obs.clone(),
             obs_norm=RN.RunningNormState.create(self.obs_dim, dev),
             val_norm=RN.RunningNormState.create(1, dev),
             # the step's draws, shaped by a throwaway generator's
@@ -644,19 +687,23 @@ class V2PPPO:
             lr=torch.zeros((), device=dev), count=torch.zeros((), dtype=torch.int32, device=dev),
             stats=torch.empty(steps, len(STAT_NAMES) + 1, device=dev),
             params=None, opt=None)
+        st.dr_act, st.dr_obs = ([], []) if dr is None else dr.step_noise_statics(
+            (N, A), (N, self.obs_dim), dev)
         st.step = graphs.StaticGraph(self._graphed_step, dev)
         st.update = graphs.StaticGraph(self._graphed_update, dev)
         self._st = st
         return st
 
-    def _step_key(self, params) -> tuple:
-        """The `step` graph's key: the addresses of what it reads in place
-        (the params; every lane's MVAE decoder and stats and frozen π_low;
-        the env's model, ball pool, init frames, body channel and per-env
-        hand, grip and two-hand arrays; the two-hand IK's rest pose; the dual
-        env's lane swap, lanes, mirror and serve box) and the env's constants
-        the capture bakes in (its config, ball and contact constants)."""
-        env = self.env
+    def _step_key(self, params, env=None) -> tuple:
+        """The `step` graph's key for stepping `env` (this learner's unless
+        given): the addresses of what it reads in place (the params; every
+        lane's MVAE decoder and stats and frozen π_low; the env's model,
+        ball pool, init frames, body channel and per-env hand, grip and
+        two-hand arrays; the two-hand IK's rest pose; the dual env's lane
+        swap, lanes, mirror and serve box; ball constants held as tensors)
+        and the env's constants the capture bakes in (its config, the ball
+        constants held as floats, the contact constants)."""
+        env = self.env if env is None else env
         held = list(params.values()) + [self.sigma, self._lane]
         for obj in env._lane_specs + (env.pi_low, env.pi_low_b):
             held += _held_tensors(obj)
@@ -669,29 +716,47 @@ class V2PPPO:
             held.append(env.rest_joints_smpl)
         if isinstance(env, DualTennisEnv):
             held += [env._swap, env._lane, env._mirror, env._serve_lo, env._serve_hi]
-        return (graphs.tensor_key(held), env.cfg, tuple(env.ball_params), env.contact_params,
+        ball = tuple(v for v in env.ball_params if not isinstance(v, torch.Tensor))
+        held += [v for v in env.ball_params if isinstance(v, torch.Tensor)] + [env._gvec]
+        return (graphs.tensor_key(held), env.cfg, ball, env.contact_params,
                 id(env), id(env.pi_low), id(env.pi_low_b))
 
     @torch.no_grad()
-    def _rollout_graphed(self, ts: V2PTrainState, draws: Optional[Dict] = None):
-        """The rollout with each step one call of the `step` graph; the draws
-        and the last value eager. Returns the static trajectory, env state
-        and last obs, which the next call overwrites."""
-        cfg, env, dev = self.cfg, self.env, self.device
+    def _rollout_graphed(self, ts: V2PTrainState, draws: Optional[Dict] = None,
+                         env: Optional[TennisEnv] = None):
+        """The rollout with each step one call of the `step` graph; the draws,
+        the randomization's scheduled noise and the last value eager. `env`
+        (this learner's unless given: an epoch's randomized copy) has its
+        randomized constants copied into the static env the graph steps.
+        Returns the static trajectory, env state and last obs, which the
+        next call overwrites."""
+        cfg, dev = self.cfg, self.device
+        env = self.env if env is None else env
         T = cfg.horizon
         st = self._statics(ts)
+        dr = self.env.randomizer
+        if st.env is not self.env:
+            dr.refresh_env(st.env, env)
         graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
                        PM.tree_leaves((ts.env_state, ts.last_obs, ts.obs_norm, ts.val_norm)))
         st.params = ts.params
         st.row.zero_()
-        key = self._step_key(ts.params)
+        key = self._step_key(ts.params, st.env)
+        dr_step = ts.epoch * cfg.horizon
         for t in range(T):
+            # the eager step's draws: the env's from its generator; from the
+            # train state's, the policy noise, then each action spec's and
+            # each obs spec's
             if draws is None:
                 _copy_draws(st.draws, env.step_draws())
                 torch.randn(st.noise.shape, generator=ts.generator, device=dev, out=st.noise)
             else:
                 _copy_draws(st.draws, draws["env"][t])
                 st.noise.copy_(as_draw(draws["noise"][t], torch.float32, dev))
+            if dr is not None:
+                dr.draw_step_noise(st.dr_act, st.dr_obs, dr_step, ts.generator,
+                                   *(None if draws is None or k not in draws else draws[k][t]
+                                     for k in ("dr_act", "dr_obs")))
             st.step(key)
         traj = dict(st.traj)
         _, vn_last = self._forward(ts.params, ts.obs_norm, st.obs)
@@ -701,13 +766,17 @@ class V2PPPO:
 
     def _graphed_step(self) -> None:
         """One env step on the static tensors: the policy on the static obs,
-        the static noise, `env.step` on the static draws, the trajectory's
-        row `row`, the new state and obs copied back."""
+        the static noise, the randomization's static action noise, the
+        static env's `step` on the static draws, its static obs noise, the
+        trajectory's row `row`, the new state and obs copied back."""
         st = self._st
+        dr = self.env.randomizer
         with torch.no_grad():
             mu, v_norm = self._forward(st.params, st.obs_norm, st.obs)
             action = mu + self.sigma[None] * st.noise
-            state, out = self.env.step(st.state, action, st.draws)
+            env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
+                                                                  st.dr_act)
+            state, out = st.env.step(st.state, env_action, st.draws)
             row = dict(obs=st.obs, action=action, mu=mu,
                        neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
                        value=self._value(st, v_norm),
@@ -723,7 +792,8 @@ class V2PPPO:
             for k, v in out.extras.items():
                 st.traj["extras"][k].index_copy_(0, st.row, v[None])
             st.row.add_(1)
-            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, out.obs)))
+            obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
+            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
 
     def _update_graphed(self, ts: V2PTrainState, batch_all, lr, draws):
         """The mini-epochs with each optimizer step one call of the `update`

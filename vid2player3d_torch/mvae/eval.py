@@ -20,7 +20,10 @@ there, or are fed as `draws=` (standard normals, scaled by `latent_scale`).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
+from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
@@ -40,7 +43,8 @@ def random_walk_rollout(spec: "P.MVAEPlayerSpec", init_feature_raw,
     frames (N, F). `draws` (num_steps, N, latent) feeds the normals.
     Returns numpy (T, N, 3) root_pos, (T, N, 23, 3) joint_pos, (T, N)
     phase. On the card each step is one replay of a CUDA graph over
-    `P.step`, the normals drawn outside it, as JAX scans the rollout."""
+    `P.step`, the normals drawn outside it, as JAX scans the rollout; the
+    graph is kept for the next walk of the same shape."""
     roll = _random_walk_graphed if spec.avg.device.type == "cuda" else _random_walk_eager
     return roll(spec, init_feature_raw, num_steps, seed, latent_scale, draws)
 
@@ -74,37 +78,78 @@ def _random_walk_eager(spec, init_feature_raw, num_steps, seed, latent_scale, dr
             torch.stack(phases).cpu().numpy())
 
 
-@torch.no_grad()
-def _random_walk_graphed(spec, init_feature_raw, num_steps, seed, latent_scale, draws):
-    """`random_walk_rollout` with each step one replay of a `StaticGraph`
-    over the static state and latents, the rows written into static
-    (T, N, ...) buffers; the normals drawn (or copied in) outside it. The
-    graph lives for the call (a spec is a frozen snapshot, made anew for
-    each report)."""
-    state, gen, draws = _walk_start(spec, init_feature_raw, seed, draws)
-    N, dev = state.root_pos.shape[0], spec.avg.device
-    st = PM.tree_map(torch.clone, state)
-    z = torch.empty(N, spec.latent_size, device=dev)
-    row = torch.zeros(1, dtype=torch.long, device=dev)
-    out = tuple(torch.empty((num_steps,) + x.shape, dtype=x.dtype, device=dev)
-                for x in (state.root_pos, state.joint_pos_kin, state.phase_pred))
+# the graphed walk's statics and graph, one set per device (`_walk_statics`)
+_WALKS: Dict[str, SimpleNamespace] = {}
+
+
+def _spec_leaves(spec) -> list:
+    """The tensors a spec holds: its decoder's parameters and buffers and its
+    normalization stats."""
+    return list(spec.decoder.parameters()) + list(spec.decoder.buffers()) + [spec.avg, spec.std]
+
+
+def _walk_statics(spec, state, num_steps: int, latent_scale: float) -> SimpleNamespace:
+    """The graphed walk's static tensors and `StaticGraph` for this shape:
+    a spec of its own (`spec`, refreshed from the caller's with `copy_`
+    before each walk), the state, the latents, the row and the (T, N, ...)
+    record buffers. Kept per device across calls and made anew when the
+    shape (steps, the state's and the spec's shapes, its fields, the latent
+    scale) changes, so a second report of the same shape replays the graph
+    with no capture."""
+    dev = spec.avg.device
+    leaves = _spec_leaves(spec)
+    fields = tuple(getattr(spec, f.name) for f in dataclasses.fields(spec)
+                   if f.name not in ("decoder", "avg", "std"))
+    key = (num_steps, float(latent_scale), fields, type(spec.decoder),
+           tuple((tuple(t.shape), t.dtype) for t in leaves + PM.tree_leaves(state)))
+    w = _WALKS.get(str(dev))
+    if w is not None and w.key == key:
+        return w
+    _WALKS.pop(str(dev), None)                # the old graph's pool goes first
+    w = SimpleNamespace(
+        key=key, spec=dataclasses.replace(spec, decoder=copy.deepcopy(spec.decoder),
+                                          avg=spec.avg.clone(), std=spec.std.clone()),
+        state=PM.tree_map(torch.clone, state),
+        z=torch.empty(state.root_pos.shape[0], spec.latent_size, device=dev),
+        row=torch.zeros(1, dtype=torch.long, device=dev),
+        out=tuple(torch.empty((num_steps,) + x.shape, dtype=x.dtype, device=dev)
+                  for x in (state.root_pos, state.joint_pos_kin, state.phase_pred)))
 
     def body():
         with torch.no_grad():
-            s = P.step(spec, st, latent_scale * z, None)
-            for buf, x in zip(out, (s.root_pos, s.joint_pos_kin, s.phase_pred)):
-                buf.index_copy_(0, row, x[None])
-            row.add_(1)
-            graphs.refresh(PM.tree_leaves(st), PM.tree_leaves(s))
+            s = P.step(w.spec, w.state, latent_scale * w.z, None)
+            for buf, x in zip(w.out, (s.root_pos, s.joint_pos_kin, s.phase_pred)):
+                buf.index_copy_(0, w.row, x[None])
+            w.row.add_(1)
+            graphs.refresh(PM.tree_leaves(w.state), PM.tree_leaves(s))
 
-    step = graphs.StaticGraph(body, dev)
+    w.step = graphs.StaticGraph(body, dev)
+    _WALKS[str(dev)] = w
+    return w
+
+
+@torch.no_grad()
+def _random_walk_graphed(spec, init_feature_raw, num_steps, seed, latent_scale, draws):
+    """`random_walk_rollout` with each step one replay of a `StaticGraph`
+    over the static spec, state and latents, the rows written into static
+    (T, N, ...) buffers; the normals drawn (or copied in) outside it. The
+    statics and the graph outlive the call (`_walk_statics`): a spec is a
+    frozen snapshot made anew for each report, so its leaves are copied
+    into the statics' own spec."""
+    state, gen, draws = _walk_start(spec, init_feature_raw, seed, draws)
+    N, dev = state.root_pos.shape[0], spec.avg.device
+    w = _walk_statics(spec, state, num_steps, latent_scale)
+    graphs.refresh(_spec_leaves(w.spec) + PM.tree_leaves(w.state),
+                   _spec_leaves(spec) + PM.tree_leaves(state))
+    w.row.zero_()
     for t in range(num_steps):
         if draws is None:
-            torch.randn((N, spec.latent_size), generator=gen, device=dev, out=z)
+            torch.randn((N, spec.latent_size), generator=gen, device=dev, out=w.z)
         else:
-            z.copy_(draws[t])
-        step()
-    return tuple(x.cpu().numpy() for x in out)
+            w.z.copy_(draws[t])
+        w.step()
+    # copies: the next walk of this shape overwrites the buffers
+    return tuple(x.to("cpu", copy=True).numpy() for x in w.out)
 
 
 def _bone_lengths(root, joints):

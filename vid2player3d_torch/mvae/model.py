@@ -128,10 +128,15 @@ class PoseMixtureVAE(nn.Module):
 
     def first_frame(self, z, c, num_future_predictions: int, predict_phase: bool):
         """(normalized features (N, F), phase sin/cos (N, 2)) of the first of
-        the `num_future_predictions` decoded frames; the phase pair is each
-        frame's last two outputs when predicted, else zeros."""
-        out = self.sample(z, c)
-        out = out.reshape(out.shape[0], num_future_predictions, -1)[:, 0]
-        if predict_phase:
-            return out[:, :-2], out[:, -2:]
-        return out, out.new_zeros((out.shape[0], 2))
+        the `num_future_predictions` decoded frames (`first_frame`)."""
+        return first_frame(self.sample(z, c), num_future_predictions, predict_phase)
+
+
+def first_frame(out, num_future_predictions: int, predict_phase: bool):
+    """The first of the decoder output's `num_future_predictions` frames as
+    (normalized features (N, F), phase sin/cos (N, 2)); the phase pair is
+    each frame's last two outputs when predicted, else zeros."""
+    out = out.reshape(out.shape[0], num_future_predictions, -1)[:, 0]
+    if predict_phase:
+        return out[:, :-2], out[:, -2:]
+    return out, out.new_zeros((out.shape[0], 2))

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..learn.optim import AdamState, adam_apply, init_adam
 from ..utils import checkpoint as CK
@@ -44,7 +45,7 @@ from ..utils import graphs
 from ..utils.runtime import as_draw, resolve_device
 from .config import MVAEOption
 from .dataset import PoseSequenceDataset
-from .model import PoseMixtureVAE
+from .model import PoseMixtureVAE, first_frame
 
 LOSS_NAMES = ("recon", "kl", "recon_phase")
 
@@ -288,11 +289,20 @@ class MVAETrainer:
     # -- inference + IO -------------------------------------------------------
 
     @torch.no_grad()
-    def decode(self, z, cond):
-        """Batched decode of a latent given the flattened condition; returns
+    def decode(self, params, z, cond):
+        """Batched decode of a latent given the flattened condition under
+        `params` (the JAX trainer's argument order): the trainer's `params`
+        list (the model's parameters in order) or a dict by parameter name,
+        either the trainer's own or another set of the same shapes. Returns
         (next frame's normalized features, phase (sin, cos))."""
-        return self.model.first_frame(z, cond, self.opt.num_future_predictions,
-                                      self.opt.predict_phase)
+        names = [k for k, _ in self.model.named_parameters()]
+        named = dict(params) if isinstance(params, dict) else dict(zip(names, params))
+        if sorted(named) != sorted(names):
+            raise ValueError(f"params {sorted(set(named) ^ set(names))[:4]} do not match the "
+                             "model's")
+        dec = {k[len("decoder."):]: v for k, v in named.items() if k.startswith("decoder.")}
+        out = functional_call(self.model.decoder, dec, (z, cond))
+        return first_frame(out, self.opt.num_future_predictions, self.opt.predict_phase)
 
     def checkpoint_dir(self) -> str:
         return os.path.join(self.opt.checkpoint_dir, self.opt.model_ver)

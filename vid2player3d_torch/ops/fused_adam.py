@@ -288,13 +288,35 @@ def global_norm_scalars(grads: Sequence[torch.Tensor], count, lr, max_norm: floa
 global_norm_scalars.launches = 0
 
 
+def _check_layout(params, mu, nu, grads, count) -> None:
+    """`fused_clip_adam_apply`'s arguments in the port's layout: params, mu,
+    nu and grads lists (or tuples) of as many tensors, the count a tensor."""
+    n = len(params)
+    for name, leaves in (("params", params), ("mu", mu), ("nu", nu), ("grads", grads)):
+        if not (isinstance(leaves, (list, tuple)) and len(leaves) == n
+                and all(isinstance(x, torch.Tensor) for x in leaves)):
+            raise TypeError(f"fused_clip_adam_apply(params, mu, nu, grads, count, lr, max_norm, "
+                            f"...): {name} must be a list of {n} tensors, one per leaf, not "
+                            f"{type(leaves).__name__}")
+    if not isinstance(count, torch.Tensor):
+        raise TypeError(f"fused_clip_adam_apply: count must be the step count as a tensor, "
+                        f"not {type(count).__name__}")
+
+
 @torch.no_grad()
 def fused_clip_adam_apply(params, mu, nu, grads, count, lr, max_norm: float,
                           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """One fused optimizer step over lists of leaves, in place on params, mu,
     nu; a drop-in for clip_by_global_norm(max_norm) -> Adam -> p -= lr*step.
     On the card: the norm kernel, then the update kernel. Returns the new
-    step count."""
+    step count.
+
+    The layout departs from the JAX package's `(params, opt_state, grads,
+    lr, max_norm, b1, b2, eps, use_pallas, interpret)`: the port has no
+    optax state, so the moments and the count come apart and are updated in
+    place. A call in the JAX layout raises `TypeError` (`_check_layout`)
+    rather than binding the gradients to `nu`."""
+    _check_layout(params, mu, nu, grads, count)
     dev = params[0].device
     _check_device(dev)
     if dev.type == "cpu":

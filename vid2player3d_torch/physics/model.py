@@ -14,6 +14,7 @@ All per-env quantities carry a leading env axis N.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -89,6 +90,15 @@ class Topology:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _topology(parents, contact_body, collision_pairs, device) -> Topology:
+    """A tree's `Topology` on `device`, built once: a model made anew (a
+    per-epoch randomized copy, a `tree_map` of one) shares its index tensors
+    instead of copying them from the host again, which on the card is a
+    copy that syncs."""
+    return Topology.build(parents, contact_body, collision_pairs, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class ArticulationModel:
     """Reduced-coordinate articulated body: free root + (J-1) spherical joints.
@@ -123,8 +133,9 @@ class ArticulationModel:
     topo: Topology = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        object.__setattr__(self, "topo", Topology.build(
-            self.parents, self.contact_body, self.collision_pairs, self.joint_pos.device))
+        object.__setattr__(self, "topo", _topology(
+            tuple(int(p) for p in self.parents), tuple(int(c) for c in self.contact_body),
+            tuple((int(i), int(j)) for i, j in self.collision_pairs), self.joint_pos.device))
 
     @property
     def num_bodies(self) -> int:
