@@ -213,10 +213,10 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               run beside it
   25. dp main two gloo ranks on the card at full widths: amass_im at
               2 x 2048 envs in both sync modes (global minibatch 512 with K1,
-              2 mini-epochs, cut from 6; per-rank minibatches of 512 with
-              local SGD, 6 mini-epochs), federer_train_stage_1 at 2 x 2048
-              and nadal_federer at 2 x 256 (per-rank minibatches of 1024,
-              horizon cut to 8): per rank and path the epoch, the rollout's
+              1 mini-epoch, cut from 6; per-rank minibatches of 512 with
+              local SGD, 2 mini-epochs, cut from 6), federer_train_stage_1
+              at 2 x 2048 (horizon cut to 32) and nadal_federer at 2 x 256
+              (per-rank minibatches of 1024, horizon cut to 8): per rank and path the epoch, the rollout's
               env-steps/s, the gradient all-reduce's ms per optimizer step
               and share of the update, the local-SGD sync's ms per
               mini-epoch, each kernel's launches against one process's count,
@@ -242,6 +242,26 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               FBX chain written as ASCII and as binary, both imported and
               equal, retargeted onto the humanoid tree into a library on the
               card with finite states; each step's seconds
+  26b. learn the JAX package's learning checks through the graphed trainers
+              at full width, each failing the script when it is not met: L1
+              amass_im as `cli/run.py` `_build_im` builds it at 2048 envs
+              with fused_optimizer="on", 100 epochs (the amass_im_500ep
+              artifact's command cut from 500): every metric finite,
+              alive_ratio over epochs 91-100 at least 0.08 above epochs
+              1-10's, c_loss over epochs 6-10 at most half of epoch 1's, K1 2
+              launches per optimizer step through the replays, no capture
+              after epoch 1, epochs 1, 10, 50 and 100 printed beside the JAX
+              package's committed TPU run; L2 `eval_imitation` (graphed) of
+              the trained params against the initial ones (pure-PD parity)
+              on the same fed reset times: success_rate higher; L3
+              tests/test_pi_low.py's tracking curve at its 64 envs (25
+              graphed epochs with K1): the error falls, ends below pure PD's;
+              L4 mvae_federer, 6 epochs of 500 windows on the data phase's
+              generated dataset: recon at epoch 6 at most a quarter of epoch
+              1's, K2 3 + 3 per optimizer step through the window replays; L5
+              L1's policy as the frozen pi_low of federer_train_stage_1 at
+              10,240 envs, 2 graphed epochs: finite, grad_skip 0, K2 192 +
+              192 and K3 128 per epoch
   27. physics the engine's public API: `substep` on the card against the CPU on
               the 6-env humanoid case (self-collision on; a free base with
               root wrenches, a fixed base, extra wrenches; 1 and 4 substeps)
@@ -1225,9 +1245,9 @@ def _init_frames(seed: int = 0):
     return ft
 
 
-def _tennis_env(dev, env_cfg, hidden, experts, gen=None):
-    """Random MVAE spec + random full-width pi_low (seed 0) -> TennisEnv on
-    `dev`."""
+def _tennis_env(dev, env_cfg, hidden, experts, gen=None, pi_low=None):
+    """Random MVAE spec + random full-width pi_low (seed 0; or `pi_low`) ->
+    TennisEnv on `dev`."""
     import torch
 
     from vid2player3d_torch.envs import TennisEnv
@@ -1238,8 +1258,9 @@ def _tennis_env(dev, env_cfg, hidden, experts, gen=None):
     from vid2player3d_torch.tennis.ball import TennisBallGenerator
 
     spec = P.make_random_spec(0, hidden=hidden, experts=experts, device=dev)
-    net = ImitatorNet(num_actions=75, generator=torch.Generator().manual_seed(0)).to(dev)
-    pi_low = FrozenImitator(net=net, obs_norm=RN.RunningNormState.create(734, dev))
+    if pi_low is None:
+        net = ImitatorNet(num_actions=75, generator=torch.Generator().manual_seed(0)).to(dev)
+        pi_low = FrozenImitator(net=net, obs_norm=RN.RunningNormState.create(734, dev))
     if gen is None:
         gen = TennisBallGenerator(num_candidates=4096, seed=0, device=dev)
     return TennisEnv(env_cfg, spec, _init_frames(), ball_generator=gen, pi_low=pi_low,
@@ -1379,10 +1400,10 @@ def _snapshot(agent, ts):
 
 
 def _stage1_agent(dev, n, gen=None, horizon=None, minibatch=None, mini_epochs=None,
-                  episode=600, reaction=70, candidates=256):
+                  episode=600, reaction=70, candidates=256, pi_low=None):
     """federer_train_stage_1's learner at `n` envs (its sizes unless given):
-    random full-width MVAE and pi_low from seed 0, reach reward, discrete
-    targets."""
+    random full-width MVAE and pi_low from seed 0 (or `pi_low`), reach
+    reward, discrete targets."""
     from vid2player3d_torch.envs import TennisConfig
     from vid2player3d_torch.learn import V2PConfig, V2PPPO
 
@@ -1393,7 +1414,8 @@ def _stage1_agent(dev, n, gen=None, horizon=None, minibatch=None, mini_epochs=No
     env_cfg = TennisConfig(num_envs=n, substeps=2, max_episode_length=episode,
                            reward_type="reach", use_random_ball_target="discrete",
                            reset_reaction_nframes=reaction, reset_candidates=candidates)
-    return V2PPPO(_tennis_env(dev, env_cfg, hidden=256, experts=6, gen=gen), V2PConfig(
+    env = _tennis_env(dev, env_cfg, hidden=256, experts=6, gen=gen, pi_low=pi_low)
+    return V2PPPO(env, V2PConfig(
         horizon=horizon, minibatch_size=minibatch, mini_epochs=mini_epochs, learning_rate=1e-4,
         sigma_init=-0.69, bounds_loss_coef=10.0, critic_coef=5.0, grad_norm=50.0), seed=7,
         device=dev)
@@ -3428,7 +3450,9 @@ def cli_phase(dev, card: str):
 # ---------------------------------------------------------------------------
 
 EVAL_SMALL_ENVS = CLI_EVAL_ENVS      # the command line's evaluations
-EVAL_STAGE1_STEPS, EVAL_DUAL_STEPS = 16, 8
+# at 64 envs, cut from 16 and 8 steps to keep the script inside its time
+# limit (each runs eagerly twice: the dual step ~1.8 s)
+EVAL_STAGE1_STEPS, EVAL_DUAL_STEPS = 8, 4
 EVAL_FULL_STAGE1_STEPS, EVAL_FULL_DUAL_STEPS = 64, 16
 WALK_ENVS, WALK_STEPS = 8, 120       # the MotionVAE report's envs; mvae_main's walk
 # K2 (prep, GEMM) and K3 per evaluation step, as the training steps launch them
@@ -3760,7 +3784,7 @@ def _walk_case(dev, card):
 def eval_graphs_phase(dev, card: str, stage1_agent, stage1_ts, dual_agent, dual_ts, gen):
     """The evaluation rollouts replayed from CUDA graphs (`eval.py`,
     `mvae/eval.py`), each against its eager body. At the command line's 64
-    envs: stage 1 (16 steps) and the nadal_federer dual rally (8 steps),
+    envs: stage 1 (8 steps) and the nadal_federer dual rally (4 steps),
     graphed (capture, then replays only) and eager, timed, K2/K3 launches
     per step through the replays, bit for bit under deterministic
     algorithms; K2 (B = 64, 32 per dual lane) and K3 (N = 64) on those
@@ -3829,13 +3853,14 @@ def eval_graphs_phase(dev, card: str, stage1_agent, stage1_ts, dual_agent, dual_
 DP_RANKS = 2
 DP_TIMEOUT_S = 300.0
 # dp_main: amass_im at 2 x 2048 envs (both sync modes; the per-minibatch
-# epoch cut from 6 mini-epochs to 2: its 1,536 gradient all-reduces took
-# 43 s of a 58.6 s epoch), federer_train_stage_1 at 2 x 2048, nadal_federer
-# at 2 x 256 with per-rank minibatches of 1024 and the horizon cut from 32
-# to 8
+# epoch cut from 6 mini-epochs to 1: each of its gradient all-reduces takes
+# ~23 ms through the host; local SGD cut from 6 mini-epochs to 2),
+# federer_train_stage_1 at 2 x 2048 with the horizon cut from 64 to 32,
+# nadal_federer at 2 x 256 with per-rank minibatches of 1024 and the horizon
+# cut from 32 to 8
 DP_IM_ENVS, DP_TENNIS_ENVS, DP_DUAL_ENVS, DP_DUAL_HORIZON, DP_DUAL_MINIBATCH = \
     4096, 4096, 512, 8, 1024
-DP_PER_MINIBATCH_MINI_EPOCHS = 2
+DP_PER_MINIBATCH_MINI_EPOCHS, DP_LOCAL_SGD_MINI_EPOCHS, DP_TENNIS_HORIZON = 1, 2, 32
 DP_KERNELS = ("k1_update", "k1_norm", "k2_prep", "k2_gemm", "k3")
 
 
@@ -4250,7 +4275,7 @@ def _dp_main_builds(dev, mesh, pool):
                                reset_reaction_nframes=70, reset_candidates=256)
         env = _tennis_env(dev, env_cfg, hidden=256, experts=6,
                           gen=TennisBallGenerator.from_arrays(*pool, device=dev)).shard(mesh)
-        return V2PPPO(env, V2PConfig(horizon=TENNIS_HORIZON, minibatch_size=TENNIS_MINIBATCH,
+        return V2PPPO(env, V2PConfig(horizon=DP_TENNIS_HORIZON, minibatch_size=TENNIS_MINIBATCH,
                                      mini_epochs=TENNIS_MINI_EPOCHS, learning_rate=1e-4,
                                      sigma_init=-0.69, bounds_loss_coef=10.0), seed=7, mesh=mesh)
 
@@ -4271,7 +4296,7 @@ def _dp_main_builds(dev, mesh, pool):
              imitation(minibatch_size=MINIBATCH, mini_epochs=DP_PER_MINIBATCH_MINI_EPOCHS,
                        fused_optimizer="on")),
             ("amass_im_local_sgd", "im",
-             imitation(minibatch_size=MINIBATCH, mini_epochs=MINI_EPOCHS,
+             imitation(minibatch_size=MINIBATCH, mini_epochs=DP_LOCAL_SGD_MINI_EPOCHS,
                        minibatch_per_chip=True, dp_sync="per_mini_epoch")),
             ("federer_train_stage_1", "tennis", stage1),
             ("nadal_federer", "dual", dual))
@@ -4373,7 +4398,7 @@ def dp_main_phase(dev, card: str):
                      f"{row['grad_skip']}")
             if row["count"] != row["optimizer_steps"]:
                 fail(f"dp_main {name} rank {r}: optimizer count {row['count']}")
-            syncs = MINI_EPOCHS if name.endswith("local_sgd") else 0
+            syncs = DP_LOCAL_SGD_MINI_EPOCHS if name.endswith("local_sgd") else 0
             if row["local_sgd_syncs"] != syncs or \
                     row["grad_all_reduces"] != (0 if syncs else row["optimizer_steps"]):
                 fail(f"dp_main {name} rank {r}: {row['grad_all_reduces']} gradient all-reduces "
@@ -4673,7 +4698,7 @@ def _states_close(what, lib, ref, seed=0, atol=1e-5):
     return errs
 
 
-def data_phase(dev, card: str):
+def data_phase(dev, card: str, keep_dataset=None):
     """The host-side data tools at the sizes users run them, and their
     outputs through the card paths, in a directory under build/:
     1. an AMASS-layout directory (32 SMPLH clips of 1200 frames at 120 Hz,
@@ -4694,7 +4719,9 @@ def data_phase(dev, card: str):
        --motion_file` on it at 4096 envs for one epoch;
     4. a 24-joint FBX chain written as ASCII and as binary (zlib arrays),
        both imported and equal, retargeted onto the humanoid tree and built
-       into a library on the card whose states are finite."""
+       into a library on the card whose states are finite.
+    With `keep_dataset` the generated tennis dataset is moved there (for
+    the `learn` phase's MotionVAE), the rest removed."""
     import json
     import math
     import shutil
@@ -4800,6 +4827,8 @@ def data_phase(dev, card: str):
             fail("data mvae: no latest.npz")
         if "dataset: " + ds_dir not in text or _json_block(text).get("finite") is not True:
             fail("data mvae: not trained on the generated dataset, or a non-finite report")
+        if keep_dataset is not None:
+            shutil.move(ds_dir, keep_dataset)
         out.update(mvae_optimizer_steps=n, mvae_epoch_k2=dict(prep=3 * n, gemm=3 * n),
                    mvae_rest_k2=dict(prep=rest[0], gemm=rest[1]), mvae_epoch_s=epoch_s[0],
                    mvae_ms_per_optimizer_step=epoch_s[0] / n * 1e3, mvae_losses=losses,
@@ -4869,6 +4898,353 @@ def data_phase(dev, card: str):
     return {"k1": out["amass_im_k1_launches"],
             "k2": {"moe_split_w": out["mvae_epoch_k2"]["prep"] + out["mvae_rest_k2"]["prep"],
                    "moe_linear": out["mvae_epoch_k2"]["gemm"] + out["mvae_rest_k2"]["gemm"]}}
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the port learns on the card (the JAX package's learning checks)
+# ---------------------------------------------------------------------------
+
+# L1: the amass_im artifact's command (artifacts/amass_im_500ep) cut from 500
+# epochs to 100, fused K1; its checks: alive_ratio over epochs 91-100 at least
+# LEARN_ALIVE_GAIN above epochs 1-10's (the JAX v5e run: +0.142), c_loss over
+# epochs 6-10 at most LEARN_CLOSS_FRAC of epoch 1's (JAX: 0.150)
+LEARN_ENVS, LEARN_EPOCHS = 2048, 100
+LEARN_ALIVE_GAIN, LEARN_CLOSS_FRAC = 0.08, 0.5
+LEARN_JAX_EPOCHS = (1, 10, 50, 100)
+LEARN_ROW_KEYS = ("reward_mean", "alive_ratio", "body_pos_reward", "c_loss", "kl",
+                  "success_rate")
+# L2: eval_imitation's full episodes, 2 resets of every env (cut from its
+# default 5 to keep the script inside its time limit)
+LEARN_EVAL_ROLLOUTS = 2
+# L3: tests/test_pi_low.py's tracking curve at its own size
+TRACK_ENVS, TRACK_BLOCKS, TRACK_EPOCHS_PER_BLOCK, TRACK_STEPS = 64, 5, 5, 16
+# L4: mvae_federer, 6 epochs of the config's 500 windows; recon at epoch 6 at
+# most LEARN_MVAE_FRAC of epoch 1's (the JAX v5e run: 0.080)
+LEARN_MVAE_EPOCHS, LEARN_MVAE_FRAC = 6, 0.25
+# L5: the trained pi_low in federer_train_stage_1 at its 10,240 envs
+LEARN_STAGE1_EPOCHS = 2
+JAX_AMASS_METRICS = os.path.join(REPO, "artifacts", "amass_im_500ep", "metrics.jsonl")
+JAX_MVAE_METRICS = os.path.join(REPO, "artifacts", "tennis_hit", "mvae_metrics.jsonl")
+
+
+def _jax_rows(path, epochs, keys):
+    """The JAX package's committed TPU run's rows at `epochs` (a JSON line
+    per epoch), for printing beside the port's."""
+    rows = {r["epoch"]: r for r in map(json.loads, open(path))}
+    return {e: {k: rows[e][k] for k in keys if k in rows[e]} for e in epochs}
+
+
+def _all_finite(what, rows) -> None:
+    import math
+
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"{what}: epoch {i + 1}: non-finite {bad}")
+
+
+def _learn_amass_im(dev, card: str):
+    """L1: amass_im as `cli/run.py` `_build_im` builds it at 2048 envs, with
+    `fused_optimizer="on"`, for LEARN_EPOCHS graphed epochs; K1 counted over
+    all of them. Returns (agent, state, K1 launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.cli import run as R
+    from vid2player3d_torch.cli.configs import CONFIGS
+
+    t0 = time.perf_counter()
+    run_cfg = CONFIGS["amass_im"]
+    run_cfg = dataclasses.replace(run_cfg, ppo=dataclasses.replace(run_cfg.ppo,
+                                                                   fused_optimizer="on"))
+    args = R.build_parser().parse_args(["--cfg", "amass_im", "--num_envs", str(LEARN_ENVS)])
+    agent = R._build_im(run_cfg, args, dev)
+    if not agent.graphed:
+        fail("learn L1: the learner does not take the graphs")
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = agent.num_minibatches * agent.cfg.mini_epochs
+
+    _zero_kernel_counts()
+    rows, epoch_s, captures = [], [], []
+    for _ in range(LEARN_EPOCHS):
+        before = _captures(agent)
+        ts, m, s = _timed_epoch(agent.train_epoch, ts)
+        captures.append(_captures(agent) - before)
+        epoch_s.append(s)
+        rows.append({k: float(v) for k, v in m.items()})
+    c = _kernel_counts()
+    launches = {"update": c["k1_update"], "norm": c["k1_norm"]}
+
+    _all_finite("learn L1", rows)
+    alive = np.array([r["alive_ratio"] for r in rows])
+    c_loss = np.array([r["c_loss"] for r in rows])
+    gain = float(alive[-10:].mean() - alive[:10].mean())
+    c_frac = float(c_loss[5:10].mean() / c_loss[0])
+    want = LEARN_EPOCHS * steps
+    graphs = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
+    rest = epoch_s[1:]
+    say("learn_L1", card=card, nvidia_smi=nvidia_smi(), cfg="amass_im (cli/run.py _build_im)",
+        envs=LEARN_ENVS, epochs=LEARN_EPOCHS, cut="500 -> 100 epochs",
+        fused_optimizer="on", compute_dtype=str(agent.compute_dtype),
+        optimizer_steps_per_epoch=steps, setup_s=setup_s, first_epoch_s=epoch_s[0],
+        epoch_s_after_first={"mean": sum(rest) / len(rest), "min": min(rest), "max": max(rest)},
+        total_s=sum(epoch_s), k1_launches=launches,
+        captures_per_epoch={"first": captures[0], "later": sum(captures[1:])},
+        graphs=graphs,
+        alive_gain=gain, alive_gain_min=LEARN_ALIVE_GAIN,
+        alive_first10=float(alive[:10].mean()), alive_last10=float(alive[-10:].mean()),
+        c_loss_frac=c_frac, c_loss_frac_max=LEARN_CLOSS_FRAC,
+        port_rows={e: {k: rows[e - 1][k] for k in LEARN_ROW_KEYS} for e in LEARN_JAX_EPOCHS
+                   if e <= LEARN_EPOCHS},
+        jax_v5e_rows=_jax_rows(JAX_AMASS_METRICS, LEARN_JAX_EPOCHS, LEARN_ROW_KEYS),
+        alive_every_10=[float(alive[i:i + 10].mean()) for i in range(0, LEARN_EPOCHS, 10)])
+    if launches != {"update": want, "norm": want}:
+        fail(f"learn L1: K1 launched {launches}, expected {want} each (2 per optimizer step)")
+    if int(ts.opt_state.count) != want:
+        fail(f"learn L1: optimizer count {int(ts.opt_state.count)}, expected {want}")
+    if any(graphs[g]["captures"] != 1 for g in ("step", "update")) or any(captures[1:]):
+        fail(f"learn L1: captures per epoch {captures}")
+    if not gain >= LEARN_ALIVE_GAIN:
+        fail(f"learn L1: alive_ratio rose by {gain} (epochs 1-10 to 91-100), "
+             f"not {LEARN_ALIVE_GAIN}")
+    if not c_frac <= LEARN_CLOSS_FRAC:
+        fail(f"learn L1: c_loss over epochs 6-10 is {c_frac} of epoch 1's")
+    return agent, ts, launches
+
+
+def _learn_eval(dev, card: str, agent, ts) -> None:
+    """L2: `eval_imitation` (graphed) of the trained parameters against the
+    initial ones (pure-PD parity: the small-init residual heads) at 2048
+    envs, both on the same fed reset times."""
+    import math
+
+    import torch
+
+    from vid2player3d_torch.data import motion_lib as ML
+    from vid2player3d_torch.eval import eval_imitation
+
+    env = agent.env
+    gen = torch.Generator(dev).manual_seed(1234)
+    trunc = env.cfg.context_length * env.cfg.control_dt
+    draws = {"motion_times": torch.stack([
+        ML.sample_time(env.lib, env.motion_ids, truncate_time=trunc, generator=gen)
+        for _ in range(LEARN_EVAL_ROLLOUTS)])}
+    reports, secs = {}, {}
+    for name, state in (("trained", ts), ("initial", agent.init_state())):
+        t0 = time.perf_counter()
+        reports[name] = eval_imitation(agent, num_rollouts=LEARN_EVAL_ROLLOUTS, ts=state,
+                                       draws=draws)
+        secs[name] = time.perf_counter() - t0
+    say("learn_L2", card=card, envs=env.cfg.num_envs, rollouts=LEARN_EVAL_ROLLOUTS,
+        graphed=agent.graphed, eval_s=secs, trained=reports["trained"],
+        initial=reports["initial"])
+    for name, rep in reports.items():
+        if not all(math.isfinite(v) for v in rep.values()):
+            fail(f"learn L2: the {name} evaluation is not finite: {rep}")
+    if not reports["trained"]["success_rate"] > reports["initial"]["success_rate"]:
+        fail(f"learn L2: trained success_rate {reports['trained']['success_rate']} not above "
+             f"the initial {reports['initial']['success_rate']}")
+
+
+def _learn_stage1(dev, card: str, pi_low, gen):
+    """L5: the trained pi_low embedded in federer_train_stage_1 at its 10,240
+    envs, two graphed epochs: finite, grad_skip 0, K2 3 + 3 and K3 2 per env
+    step through the replays. Returns the launches of both epochs."""
+    import torch
+
+    t0 = time.perf_counter()
+    agent = _stage1_agent(dev, TENNIS_ENVS, gen=gen, pi_low=pi_low)
+    ts = agent.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = {"moe_linear": 3 * TENNIS_HORIZON, "moe_split_w": 3 * TENNIS_HORIZON,
+            "fk_chain": 2 * TENNIS_HORIZON}
+    ts, epoch_s, rollout_s, rows, launches, graphs, peak_gib = _graphed_epochs(
+        "learn L5", agent, ts, LEARN_STAGE1_EPOCHS, want)
+    keep = ("reward_mean", "contact_rate", "racket_ball_dist", "done_rate", "c_loss", "kl",
+            "grad_skip")
+    say("learn_L5", card=card, envs=TENNIS_ENVS, epochs=LEARN_STAGE1_EPOCHS,
+        pi_low="learn_L1's trained amass_im checkpoint", setup_s=setup_s, epoch_s=epoch_s,
+        rollout_s=rollout_s, launches_per_epoch=launches, peak_mem_gib=peak_gib,
+        captures_per_epoch=graphs["captures_per_epoch"],
+        metrics=[{k: r[k] for k in keep} for r in rows])
+    return {k: sum(x[k] for x in launches) for k in want}
+
+
+def _tracking_error(agent, ts, policy: bool, seed: int = 7, steps: int = TRACK_STEPS) -> float:
+    """tests/test_pi_low.py's tracking error: the mean body-position error
+    (m) over the alive envs of `steps` deterministic steps from one fixed
+    reset, of the policy's mean action or of pure PD of the reference dofs
+    with zero residuals (the tennis env's `pi_low=None` fallback)."""
+    import numpy as np
+    import torch
+
+    from vid2player3d_torch.data import motion_lib as ML
+    from vid2player3d_torch.physics import engine
+
+    env = agent.env
+    n = env.cfg.num_envs
+    state, raw_obs, ctx = env.reset_all(generator=torch.Generator(env.device).manual_seed(seed))
+    errs = []
+    with torch.no_grad():
+        for t in range(steps):
+            if policy:
+                act = agent._forward(ts.params, ts.obs_norm, raw_obs, ctx["feat"], t)[2]
+            else:
+                c_dof = agent._ctx_frame(ctx["feat"], t)[2]
+                act = torch.cat([c_dof, torch.zeros(n, 6, device=env.device)], dim=-1)
+            state, out = env.step(state, act)
+            raw_obs = out.obs
+            tar = ML.get_motion_state(env.lib, env.motion_ids, state.motion_times,
+                                      adjust_height=True)
+            bp = engine.fk_world(env.model, state.sim)[0]
+            err = torch.linalg.norm(tar["rb_pos"] - bp, dim=-1).mean(-1)
+            errs.append(torch.where(state.reset_buf == 0, err, torch.nan))
+    return float(np.nanmean(torch.stack(errs).cpu().numpy()))
+
+
+def _learn_tracking(dev, card: str, d: str):
+    """L3: tests/test_pi_low.py::test_trained_pi_low_beats_pure_pd_tracking
+    at its own size on the card (64 envs, 4 motions x 90 frames, horizon 16,
+    minibatch 256, 4 mini-epochs, constant lr 1e-4, 5 x 5 graphed epochs,
+    with K1): the error every 5 epochs must fall by 0.005, end at or below
+    the first two points and below pure PD's; the checkpoint through
+    `FrozenImitator` gives the learner's mean action. Returns K1's
+    launches."""
+    import math
+
+    import torch
+
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
+    from vid2player3d_torch.learn import FrozenImitator, ImitationPPO, PPOConfig
+
+    t0 = time.perf_counter()
+    lib = make_synthetic_motion_lib(num_motions=4, T=90, fps=30.0, seed=0, device=dev)
+    env = HumanoidImEnv(HumanoidImConfig(num_envs=TRACK_ENVS, substeps=2), lib, rng=0, device=dev)
+    agent = ImitationPPO(env, PPOConfig(horizon=16, minibatch_size=256, mini_epochs=4,
+                                        learning_rate=1e-4, lr_schedule="constant",
+                                        fused_optimizer="on"), seed=3, device=dev)
+    if not agent.graphed:
+        fail("learn L3: the learner does not take the graphs")
+    ts = agent.init_state()
+    _zero_kernel_counts()
+    curve = [_tracking_error(agent, ts, True)]
+    for _ in range(TRACK_BLOCKS):
+        for _ in range(TRACK_EPOCHS_PER_BLOCK):
+            ts, _ = agent.train_epoch(ts)
+        curve.append(_tracking_error(agent, ts, True))
+    err_pd = _tracking_error(agent, ts, False)
+    c = _kernel_counts()
+    launches = {"update": c["k1_update"], "norm": c["k1_norm"]}
+    path = os.path.join(d, "track.npz")
+    agent.save_checkpoint(path, ts)
+    frozen = FrozenImitator.from_checkpoint(path, device=dev)
+    _, raw_obs, ctx = env.reset_all(generator=torch.Generator(dev).manual_seed(7))
+    with torch.no_grad():
+        io, _, mu, _, c_dof = agent._forward(ts.params, ts.obs_norm, raw_obs, ctx["feat"], 0)
+        mu_f = frozen(io)
+    mu_f = torch.cat([mu_f[:, :69] + c_dof, mu_f[:, 69:]], dim=-1)
+    frozen_err = float((mu_f - mu).abs().max())
+    epochs = TRACK_BLOCKS * TRACK_EPOCHS_PER_BLOCK
+    want = epochs * agent.num_minibatches * agent.cfg.mini_epochs
+    say("learn_L3", card=card, envs=TRACK_ENVS, epochs=epochs, curve=curve, err_pd=err_pd,
+        k1_launches=launches, frozen_mu_max_abs_err=frozen_err,
+        frozen_note="the learner's trunk in bf16, the frozen net in f32",
+        captures={g: getattr(agent._st, g).captures for g in ("step", "update")},
+        phase_s=time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in curve + [err_pd, frozen_err]):
+        fail(f"learn L3: non-finite curve {curve}, pure PD {err_pd}")
+    if not curve[-1] < curve[0] - 0.005:
+        fail(f"learn L3: no learning: {curve}")
+    if not curve[-1] <= min(curve[:2]):
+        fail(f"learn L3: curve not improving: {curve}")
+    if not curve[-1] < err_pd:
+        fail(f"learn L3: the trained policy {curve[-1]} does not beat pure PD {err_pd}")
+    if launches != {"update": want, "norm": want}:
+        fail(f"learn L3: K1 launched {launches}, expected {want} each")
+    if not frozen_err <= 2e-3:
+        fail(f"learn L3: FrozenImitator's mean action differs by {frozen_err}")
+    if (agent._st.step.captures, agent._st.update.captures) != (1, 1):
+        fail("learn L3: the graphs were captured more than once")
+    return launches
+
+
+def _learn_mvae(dev, card: str, ds_dir: str):
+    """L4: mvae_federer on the `data` phase's generated dataset for 6 epochs
+    of the config's windows, each window replayed from its graph: recon at
+    epoch 6 at most LEARN_MVAE_FRAC of epoch 1's; K2 3 prep + 3 GEMM per
+    optimizer step. Returns K2's launches."""
+    import math
+
+    import torch
+
+    from vid2player3d_torch.mvae import MVAEOption, MVAETrainer
+    from vid2player3d_torch.mvae.dataset import load_video_dataset
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+
+    t0 = time.perf_counter()
+    opt = MVAEOption.load("federer")
+    trainer = MVAETrainer(opt, load_video_dataset(opt, ds_dir), device=dev)
+    setup_s = time.perf_counter() - t0
+    MOE.moe_linear.launches = MOE.split_weights.launches = 0
+    rows, epoch_s = [], []
+    for _ in range(LEARN_MVAE_EPOCHS):
+        t0 = time.perf_counter()
+        rows.append(trainer.train_epoch())
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    launches = {"moe_split_w": MOE.split_weights.launches, "moe_linear": MOE.moe_linear.launches}
+    steps = int(trainer.opt_state.count)
+    nb = opt.nseqs // opt.batch_size
+    frac = rows[-1]["recon"] / rows[0]["recon"]
+    say("learn_L4", card=card, cfg="mvae_federer", dataset=os.path.basename(ds_dir),
+        windows_per_epoch=nb, epochs=LEARN_MVAE_EPOCHS, optimizer_steps=steps,
+        setup_s=setup_s, epoch_s=epoch_s, ms_per_optimizer_step=sum(epoch_s) / steps * 1e3,
+        k2_launches=launches, recon_frac=frac, recon_frac_max=LEARN_MVAE_FRAC, port_rows=rows,
+        jax_v5e_rows=_jax_rows(JAX_MVAE_METRICS, (1, LEARN_MVAE_EPOCHS),
+                               ("recon", "kl", "recon_phase")))
+    _all_finite("learn L4", rows)
+    want = LEARN_MVAE_EPOCHS * nb * _mvae_steps_per_window()
+    if steps != want or launches != {"moe_split_w": 3 * steps, "moe_linear": 3 * steps}:
+        fail(f"learn L4: {steps} optimizer steps (expected {want}) launched K2 {launches}")
+    if not math.isfinite(frac) or not frac <= LEARN_MVAE_FRAC:
+        fail(f"learn L4: recon at epoch {LEARN_MVAE_EPOCHS} is {frac} of epoch 1's")
+    return launches
+
+
+def learn_phase(dev, card: str, ds_dir: str, gen):
+    """The JAX package's learning checks, through the graphed trainers at
+    full width (L1-L5 above; each fails the script when it is not met), in
+    a directory under build/. `ds_dir` (the `data` phase's generated tennis
+    dataset) is removed after. Returns the kernels' launches per check."""
+    import shutil
+
+    from vid2player3d_torch.learn import FrozenImitator
+
+    d = os.path.join(REPO, "build", f"learn_smoke_{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    try:
+        agent, ts, k1_l1 = _learn_amass_im(dev, card)
+        _learn_eval(dev, card, agent, ts)
+        path = os.path.join(d, "amass_im.npz")
+        agent.save_checkpoint(path, ts)
+        del agent, ts
+        k2k3_l5 = _learn_stage1(dev, card, FrozenImitator.from_checkpoint(path, device=dev), gen)
+        k1_l3 = _learn_tracking(dev, card, d)
+        k2_l4 = _learn_mvae(dev, card, ds_dir)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(ds_dir, ignore_errors=True)
+    say("learn", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t0,
+        checks="L1-L5 met")
+    return {"k1_amass_im": k1_l1, "k1_tracking": k1_l3, "k2_mvae": k2_l4, "stage1": k2k3_l5}
 
 
 # ---------------------------------------------------------------------------
@@ -5106,7 +5482,9 @@ def main() -> None:
     _beside(started, dp_parity_phase, dev, card)
     dp_cli_phase(dev, card, started)
     dp_launches = dp_main_phase(dev, card)
-    data_launches = data_phase(dev, card)
+    learn_ds = os.path.join(REPO, "build", f"learn_ds_{os.getpid()}")
+    data_launches = data_phase(dev, card, keep_dataset=learn_ds)
+    learn_launches = learn_phase(dev, card, learn_ds, agent.env.gen)
     physics_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
@@ -5124,9 +5502,11 @@ def main() -> None:
     # two-hand epoch and federer_train_stage_1_dr's; the first three counted
     # through graph replays), K2 also on the MotionVAE trainer's (on the
     # synthetic pose dataset and, through the command line, on the generated
-    # tennis dataset) and K3 on the warm-started stage-2 steps. `launches` is K1's
-    # on the imitation path and K2's and K3's on the dual path, each path's
-    # count beside it
+    # tennis dataset) and K3 on the warm-started stage-2 steps; the `learn`
+    # phase runs K1 over 100 amass_im epochs and the 25 of the tracking curve,
+    # K2 over 6 MotionVAE epochs, K2 and K3 over 2 stage-1 epochs with the
+    # trained pi_low. `launches` is K1's on the imitation path and K2's and
+    # K3's on the dual path, each path's count beside it
     # under data parallelism every rank launches the one-process count for
     # its share: `dp_*` is one rank's count of a two-rank epoch
     def dp_paths(key, names):
@@ -5136,6 +5516,8 @@ def main() -> None:
         return {"launches_per_path": {
             "imitation": k1_launches[kind], "im_dr": k1_dr[kind], "im_ctx": k1_ctx[kind],
             "data_amass_im": data_launches["k1"][kind],
+            "learn_amass_im_100_epochs": learn_launches["k1_amass_im"][kind],
+            "learn_tracking_25_epochs": learn_launches["k1_tracking"][kind],
             **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
@@ -5148,6 +5530,8 @@ def main() -> None:
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
             paths["data_mvae"] = data_launches["k2"][name]
+            paths["learn_mvae_6_epochs"] = learn_launches["k2_mvae"][name]
+        paths["learn_stage1_trained_pi_low_2_epochs"] = learn_launches["stage1"][name]
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
         paths.update(dp_paths(key, ("federer_train_stage_1", "nadal_federer")))
