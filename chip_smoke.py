@@ -81,7 +81,7 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               envs what differs between two eager epochs and a graphed one
               (the contact sums' atomics); under deterministic algorithms
               graphed and eager bit for bit (8 envs, two epochs; 10,240 envs,
-              one of horizon 16) and two eager epochs equal; one graphed stage-2 epoch at
+              one of horizon 8) and two eager epochs equal; one graphed stage-2 epoch at
               15,360 envs (horizon 32, 180 optimizer steps) with its times,
               graphs and K2/K3 launches, finite with grad_skip 0; the
               device's idle share over one more graphed stage-1 epoch
@@ -212,11 +212,12 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               non-zero with both counts; both start before dp parity and
               run beside it
   25. dp main two gloo ranks on the card at full widths: amass_im at
-              2 x 2048 envs in both sync modes (global minibatch 512 with K1,
-              1 mini-epoch, cut from 6; per-rank minibatches of 512 with
-              local SGD, 2 mini-epochs, cut from 6), federer_train_stage_1
-              at 2 x 2048 (horizon cut to 32) and nadal_federer at 2 x 256
-              (per-rank minibatches of 1024, horizon cut to 8): per rank and path the epoch, the rollout's
+              2 x 2048 envs in both sync modes (horizon cut to 16; global
+              minibatch 512 with K1, 1 mini-epoch, cut from 6; per-rank
+              minibatches of 512 with local SGD, 2 mini-epochs, cut from 6),
+              federer_train_stage_1 at 2 x 2048 (horizon cut to 16) and
+              nadal_federer at 2 x 256 (per-rank minibatches of 1024,
+              horizon cut to 4): per rank and path the epoch, the rollout's
               env-steps/s, the gradient all-reduce's ms per optimizer step
               and share of the update, the local-SGD sync's ms per
               mini-epoch, each kernel's launches against one process's count,
@@ -245,23 +246,36 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
   26b. learn the JAX package's learning checks through the graphed trainers
               at full width, each failing the script when it is not met: L1
               amass_im as `cli/run.py` `_build_im` builds it at 2048 envs
-              with fused_optimizer="on", 100 epochs (the amass_im_500ep
+              with fused_optimizer="on", 80 epochs (the amass_im_500ep
               artifact's command cut from 500): every metric finite,
-              alive_ratio over epochs 91-100 at least 0.08 above epochs
+              alive_ratio over the last 10 epochs at least 0.08 above epochs
               1-10's, c_loss over epochs 6-10 at most half of epoch 1's, K1 2
               launches per optimizer step through the replays, no capture
-              after epoch 1, epochs 1, 10, 50 and 100 printed beside the JAX
+              after epoch 1, epochs 1, 10, 50 and 80 printed beside the JAX
               package's committed TPU run; L2 `eval_imitation` (graphed) of
               the trained params against the initial ones (pure-PD parity)
               on the same fed reset times: success_rate higher; L3
               tests/test_pi_low.py's tracking curve at its 64 envs (25
               graphed epochs with K1): the error falls, ends below pure PD's;
-              L4 mvae_federer, 6 epochs of 500 windows on the data phase's
-              generated dataset: recon at epoch 6 at most a quarter of epoch
+              L4 mvae_federer, 4 epochs of 500 windows on the data phase's
+              generated dataset: recon at epoch 4 at most a quarter of epoch
               1's, K2 3 + 3 per optimizer step through the window replays; L5
               L1's policy as the frozen pi_low of federer_train_stage_1 at
               10,240 envs, 2 graphed epochs: finite, grad_skip 0, K2 192 +
               192 and K3 128 per epoch
+  26c. scripts the system's own scripts (``vid2player3d_torch/scripts``):
+              `swing_quality` at its defaults (8 sequences, seed 3) on the
+              card against the same call on the CPU (the contacts equal,
+              the speeds to 1e-4 relative, the net-clear and bounce-in rates
+              within one ball); `e2e_curriculum` in a directory under build/
+              at a cut depth (10 imitation epochs at its 64 envs, horizon
+              16; the MotionVAE's pre-run of 5 epochs x 2 windows; stage 1
+              at its 16 envs for 2 epochs; both evaluations and the render
+              at the script's sizes): every leg exits 0, the report has the
+              keys of artifacts/e2e/e2e_report.json with finite numbers,
+              rollout.html written; the K1, K2 (prep and GEMM) and K3
+              counters set to 0 just before the curriculum and read just
+              after, K2 and K3 launched
   27. physics the engine's public API: `substep` on the card against the CPU on
               the 6-env humanoid case (self-collision on; a free base with
               root wrenches, a fixed base, extra wrenches; 1 and 4 substeps)
@@ -1467,8 +1481,9 @@ def tennis_main_phase(dev, card: str):
 
 GRAPH_TENNIS_SMALL = 8                # envs of the bit-for-bit case
 # the deterministic comparison at 10,240 envs: horizon cut from 64 (60
-# optimizer steps), as its eager epoch takes ~2x the default mode's time
-DET_HORIZON = 16
+# optimizer steps) to 16, then to 8 to keep the script inside its time
+# limit, as its eager epoch takes ~2x the default mode's time
+DET_HORIZON = 8
 STAGE2_HORIZON, STAGE2_MINIBATCH = 32, 16384   # federer_train_stage_2's learner
 
 
@@ -3450,9 +3465,10 @@ def cli_phase(dev, card: str):
 # ---------------------------------------------------------------------------
 
 EVAL_SMALL_ENVS = CLI_EVAL_ENVS      # the command line's evaluations
-# at 64 envs, cut from 16 and 8 steps to keep the script inside its time
-# limit (each runs eagerly twice: the dual step ~1.8 s)
-EVAL_STAGE1_STEPS, EVAL_DUAL_STEPS = 8, 4
+# at 64 envs, cut from 16 and 8 steps, then from 8 and 4, to keep the
+# script inside its time limit (each runs eagerly twice: the dual step
+# ~1.8-2.6 s)
+EVAL_STAGE1_STEPS, EVAL_DUAL_STEPS = 4, 2
 EVAL_FULL_STAGE1_STEPS, EVAL_FULL_DUAL_STEPS = 64, 16
 WALK_ENVS, WALK_STEPS = 8, 120       # the MotionVAE report's envs; mvae_main's walk
 # K2 (prep, GEMM) and K3 per evaluation step, as the training steps launch them
@@ -3852,15 +3868,17 @@ def eval_graphs_phase(dev, card: str, stage1_agent, stage1_ts, dual_agent, dual_
 
 DP_RANKS = 2
 DP_TIMEOUT_S = 300.0
-# dp_main: amass_im at 2 x 2048 envs (both sync modes; the per-minibatch
-# epoch cut from 6 mini-epochs to 1: each of its gradient all-reduces takes
-# ~23 ms through the host; local SGD cut from 6 mini-epochs to 2),
-# federer_train_stage_1 at 2 x 2048 with the horizon cut from 64 to 32,
-# nadal_federer at 2 x 256 with per-rank minibatches of 1024 and the horizon
-# cut from 32 to 8
+# dp_main: amass_im at 2 x 2048 envs (both sync modes, the horizon cut from
+# 32 to 16; the per-minibatch epoch cut from 6 mini-epochs to 1: each of its
+# gradient all-reduces takes ~23-34 ms through the host; local SGD cut from 6
+# mini-epochs to 2), federer_train_stage_1 at 2 x 2048 with the horizon cut
+# from 64 to 16, nadal_federer at 2 x 256 with per-rank minibatches of 1024
+# and the horizon cut from 32 to 4: the cuts keep the script inside its time
+# limit (every path runs eagerly)
 DP_IM_ENVS, DP_TENNIS_ENVS, DP_DUAL_ENVS, DP_DUAL_HORIZON, DP_DUAL_MINIBATCH = \
-    4096, 4096, 512, 8, 1024
-DP_PER_MINIBATCH_MINI_EPOCHS, DP_LOCAL_SGD_MINI_EPOCHS, DP_TENNIS_HORIZON = 1, 2, 32
+    4096, 4096, 512, 4, 1024
+DP_PER_MINIBATCH_MINI_EPOCHS, DP_LOCAL_SGD_MINI_EPOCHS, DP_TENNIS_HORIZON = 1, 2, 16
+DP_IM_HORIZON = 16
 DP_KERNELS = ("k1_update", "k1_norm", "k2_prep", "k2_gemm", "k3")
 
 
@@ -4266,7 +4284,7 @@ def _dp_main_builds(dev, mesh, pool):
             lib = make_synthetic_motion_lib(num_motions=8, T=300, fps=30.0, seed=0, device=dev)
             env = HumanoidImEnv(HumanoidImConfig(num_envs=DP_IM_ENVS, substeps=SUBSTEPS), lib,
                                 rng=0, device=dev).shard(mesh)
-            return ImitationPPO(env, PPOConfig(horizon=HORIZON, **kw), seed=7, mesh=mesh)
+            return ImitationPPO(env, PPOConfig(horizon=DP_IM_HORIZON, **kw), seed=7, mesh=mesh)
         return build
 
     def stage1():
@@ -4905,12 +4923,14 @@ def data_phase(dev, card: str, keep_dataset=None):
 # ---------------------------------------------------------------------------
 
 # L1: the amass_im artifact's command (artifacts/amass_im_500ep) cut from 500
-# epochs to 100, fused K1; its checks: alive_ratio over epochs 91-100 at least
-# LEARN_ALIVE_GAIN above epochs 1-10's (the JAX v5e run: +0.142), c_loss over
-# epochs 6-10 at most LEARN_CLOSS_FRAC of epoch 1's (JAX: 0.150)
-LEARN_ENVS, LEARN_EPOCHS = 2048, 100
+# epochs to 100, then to 80 to keep the script inside its time limit, fused
+# K1; its checks: alive_ratio over the last 10 epochs at least
+# LEARN_ALIVE_GAIN above epochs 1-10's (the JAX v5e run: +0.142 at 100
+# epochs; the port +0.115 at 80), c_loss over epochs 6-10 at most
+# LEARN_CLOSS_FRAC of epoch 1's (JAX: 0.150)
+LEARN_ENVS, LEARN_EPOCHS = 2048, 80
 LEARN_ALIVE_GAIN, LEARN_CLOSS_FRAC = 0.08, 0.5
-LEARN_JAX_EPOCHS = (1, 10, 50, 100)
+LEARN_JAX_EPOCHS = (1, 10, 50, 80)
 LEARN_ROW_KEYS = ("reward_mean", "alive_ratio", "body_pos_reward", "c_loss", "kl",
                   "success_rate")
 # L2: eval_imitation's full episodes, 2 resets of every env (cut from its
@@ -4918,9 +4938,10 @@ LEARN_ROW_KEYS = ("reward_mean", "alive_ratio", "body_pos_reward", "c_loss", "kl
 LEARN_EVAL_ROLLOUTS = 2
 # L3: tests/test_pi_low.py's tracking curve at its own size
 TRACK_ENVS, TRACK_BLOCKS, TRACK_EPOCHS_PER_BLOCK, TRACK_STEPS = 64, 5, 5, 16
-# L4: mvae_federer, 6 epochs of the config's 500 windows; recon at epoch 6 at
-# most LEARN_MVAE_FRAC of epoch 1's (the JAX v5e run: 0.080)
-LEARN_MVAE_EPOCHS, LEARN_MVAE_FRAC = 6, 0.25
+# L4: mvae_federer, 4 epochs of the config's 500 windows (cut from 6 to keep
+# the script inside its time limit); recon at epoch 4 at most
+# LEARN_MVAE_FRAC of epoch 1's (the JAX v5e run: 0.119; the port 0.121)
+LEARN_MVAE_EPOCHS, LEARN_MVAE_FRAC = 4, 0.25
 # L5: the trained pi_low in federer_train_stage_1 at its 10,240 envs
 LEARN_STAGE1_EPOCHS = 2
 JAX_AMASS_METRICS = os.path.join(REPO, "artifacts", "amass_im_500ep", "metrics.jsonl")
@@ -4988,7 +5009,7 @@ def _learn_amass_im(dev, card: str):
     graphs = {g: _graph_stats(getattr(agent._st, g)) for g in ("step", "update")}
     rest = epoch_s[1:]
     say("learn_L1", card=card, nvidia_smi=nvidia_smi(), cfg="amass_im (cli/run.py _build_im)",
-        envs=LEARN_ENVS, epochs=LEARN_EPOCHS, cut="500 -> 100 epochs",
+        envs=LEARN_ENVS, epochs=LEARN_EPOCHS, cut=f"500 -> {LEARN_EPOCHS} epochs",
         fused_optimizer="on", compute_dtype=str(agent.compute_dtype),
         optimizer_steps_per_epoch=steps, setup_s=setup_s, first_epoch_s=epoch_s[0],
         epoch_s_after_first={"mean": sum(rest) / len(rest), "min": min(rest), "max": max(rest)},
@@ -5009,7 +5030,7 @@ def _learn_amass_im(dev, card: str):
     if any(graphs[g]["captures"] != 1 for g in ("step", "update")) or any(captures[1:]):
         fail(f"learn L1: captures per epoch {captures}")
     if not gain >= LEARN_ALIVE_GAIN:
-        fail(f"learn L1: alive_ratio rose by {gain} (epochs 1-10 to 91-100), "
+        fail(f"learn L1: alive_ratio rose by {gain} (epochs 1-10 to the last 10), "
              f"not {LEARN_ALIVE_GAIN}")
     if not c_frac <= LEARN_CLOSS_FRAC:
         fail(f"learn L1: c_loss over epochs 6-10 is {c_frac} of epoch 1's")
@@ -5175,9 +5196,10 @@ def _learn_tracking(dev, card: str, d: str):
 
 
 def _learn_mvae(dev, card: str, ds_dir: str):
-    """L4: mvae_federer on the `data` phase's generated dataset for 6 epochs
-    of the config's windows, each window replayed from its graph: recon at
-    epoch 6 at most LEARN_MVAE_FRAC of epoch 1's; K2 3 prep + 3 GEMM per
+    """L4: mvae_federer on the `data` phase's generated dataset for
+    LEARN_MVAE_EPOCHS epochs of the config's windows, each window replayed
+    from its graph: recon at the last epoch at most LEARN_MVAE_FRAC of epoch
+    1's; K2 3 prep + 3 GEMM per
     optimizer step. Returns K2's launches."""
     import math
 
@@ -5245,6 +5267,103 @@ def learn_phase(dev, card: str, ds_dir: str, gen):
     say("learn", card=card, nvidia_smi=nvidia_smi(), phase_s=time.perf_counter() - t0,
         checks="L1-L5 met")
     return {"k1_amass_im": k1_l1, "k1_tracking": k1_l3, "k2_mvae": k2_l4, "stage1": k2k3_l5}
+
+
+# ---------------------------------------------------------------------------
+# phase 26c: the system's own scripts (vid2player3d_torch/scripts)
+# ---------------------------------------------------------------------------
+
+# the curriculum cut to a smoke: 10 imitation epochs (its learning checks
+# apply from 300), the MotionVAE's 5 pre-run epochs of 2 windows, stage 1
+# for 2 epochs; the evaluations at the script's own sizes
+SCRIPTS_E2E = {"im_epochs": 10, "mvae_batches": 2, "stage1_epochs": 2}
+SWING_N, SWING_SEED = 8, 3          # swing_quality's defaults
+JAX_E2E_REPORT = os.path.join(REPO, "artifacts", "e2e", "e2e_report.json")
+
+
+def _scripts_swing(dev) -> dict:
+    """swing_quality at its defaults on the card, held to the same call on
+    the CPU: the contacts equal, the speeds to 1e-4 relative, the rates
+    within one ball (each side flies the balls in float32)."""
+    from vid2player3d_torch.scripts import swing_quality as SQ
+
+    t0 = time.perf_counter()
+    got = SQ.swing_quality(SWING_N, seed=SWING_SEED, device=dev)
+    secs = time.perf_counter() - t0
+    ref = SQ.swing_quality(SWING_N, seed=SWING_SEED, device="cpu")
+    if got["contacts"] != ref["contacts"] or not got["contacts"]:
+        fail(f"scripts swing_quality: contacts {got['contacts']} on the card, "
+             f"{ref['contacts']} on the CPU")
+    for k in ("head_speed_mean", "out_speed_mean", "out_vz_p50"):
+        if abs(got[k] - ref[k]) > 1e-4 * abs(ref[k]):
+            fail(f"scripts swing_quality: {k} {got[k]} on the card, {ref[k]} on the CPU")
+    for k in ("net_clear", "bounce_in"):
+        if abs(got[k] - ref[k]) > 1.0 / ref["contacts"] + 1e-12:
+            fail(f"scripts swing_quality: {k} {got[k]} on the card, {ref[k]} on the CPU")
+    return {"card": got, "cpu": ref, "card_s": secs, "report": SQ.format_report(got)}
+
+
+def _check_e2e_report(rep: dict) -> None:
+    import math
+
+    with open(JAX_E2E_REPORT) as f:
+        ref = json.load(f)
+    if set(rep) != set(ref):
+        fail(f"scripts e2e: report keys {sorted(rep)}, the JAX artifact's {sorted(ref)}")
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            if set(rep[k]) != set(v):
+                fail(f"scripts e2e: {k} keys {sorted(rep[k])}, the JAX artifact's {sorted(v)}")
+            bad = {n: x for n, x in rep[k].items() if not math.isfinite(x)}
+            if bad:
+                fail(f"scripts e2e: {k} not finite: {bad}")
+
+
+def scripts_phase(dev, card: str) -> dict:
+    """`swing_quality` on the card against the CPU, then the curriculum
+    script `e2e_curriculum` at a cut depth in a directory under build/
+    (removed after): every leg exits 0, the report has the JAX artifact's
+    keys and finite numbers, the HTML is written. The kernels' counters are
+    set to 0 just before the curriculum and read just after; K2 and K3 must
+    have launched."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from vid2player3d_torch.scripts import e2e_curriculum as E2E
+
+    t0 = time.perf_counter()
+    swing = _scripts_swing(dev)
+    d = os.path.join(REPO, "build", f"scripts_e2e_{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    buf = io.StringIO()
+    try:
+        _zero_kernel_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rep = E2E.main(d, device=dev, **SCRIPTS_E2E)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t1
+        counts = _kernel_counts()
+        _check_e2e_report(rep)
+        html = os.path.join(d, rep["render"])
+        if not os.path.exists(html) or os.path.getsize(html) == 0:
+            fail(f"scripts e2e: no {html}")
+        html_bytes = os.path.getsize(html)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for k in ("k2_prep", "k2_gemm", "k3"):
+        if counts[k] == 0:
+            fail(f"scripts e2e: {k} never launched ({counts})")
+    say("scripts", card=card, nvidia_smi=nvidia_smi(), swing_quality=swing,
+        e2e_depth=SCRIPTS_E2E, e2e_s=e2e_s,
+        e2e_legs=[ln for ln in buf.getvalue().splitlines() if ln.startswith("[")],
+        e2e_report=rep, html_bytes=html_bytes, launches=counts,
+        phase_s=time.perf_counter() - t0)
+    return {"moe_split_w": counts["k2_prep"], "moe_linear": counts["k2_gemm"],
+            "fk_chain": counts["k3"], "norm": counts["k1_norm"], "update": counts["k1_update"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5485,6 +5604,7 @@ def main() -> None:
     learn_ds = os.path.join(REPO, "build", f"learn_ds_{os.getpid()}")
     data_launches = data_phase(dev, card, keep_dataset=learn_ds)
     learn_launches = learn_phase(dev, card, learn_ds, agent.env.gen)
+    scripts_launches = scripts_phase(dev, card)
     physics_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
@@ -5503,10 +5623,13 @@ def main() -> None:
     # through graph replays), K2 also on the MotionVAE trainer's (on the
     # synthetic pose dataset and, through the command line, on the generated
     # tennis dataset) and K3 on the warm-started stage-2 steps; the `learn`
-    # phase runs K1 over 100 amass_im epochs and the 25 of the tracking curve,
-    # K2 over 6 MotionVAE epochs, K2 and K3 over 2 stage-1 epochs with the
-    # trained pi_low. `launches` is K1's on the imitation path and K2's and
-    # K3's on the dual path, each path's count beside it
+    # phase runs K1 over LEARN_EPOCHS amass_im epochs and the 25 of the
+    # tracking curve, K2 over LEARN_MVAE_EPOCHS MotionVAE epochs, K2 and K3 over 2 stage-1 epochs with the
+    # trained pi_low; the `scripts` phase's curriculum K2 (the MotionVAE's
+    # pre-run and random walk, the stage-1 decodes) and K3, and no K1 (its
+    # imitation leg runs the optax chain). `launches` is K1's on the
+    # imitation path and K2's and K3's on the dual path, each path's count
+    # beside it
     # under data parallelism every rank launches the one-process count for
     # its share: `dp_*` is one rank's count of a two-rank epoch
     def dp_paths(key, names):
@@ -5516,8 +5639,9 @@ def main() -> None:
         return {"launches_per_path": {
             "imitation": k1_launches[kind], "im_dr": k1_dr[kind], "im_ctx": k1_ctx[kind],
             "data_amass_im": data_launches["k1"][kind],
-            "learn_amass_im_100_epochs": learn_launches["k1_amass_im"][kind],
+            f"learn_amass_im_{LEARN_EPOCHS}_epochs": learn_launches["k1_amass_im"][kind],
             "learn_tracking_25_epochs": learn_launches["k1_tracking"][kind],
+            "scripts_e2e": scripts_launches[kind],
             **dp_paths("k1_" + kind, ("amass_im_per_minibatch", "amass_im_local_sgd"))}}
 
     def per_path(name):
@@ -5530,8 +5654,9 @@ def main() -> None:
         if name in mvae_launches:
             paths["mvae_train"] = mvae_launches[name]
             paths["data_mvae"] = data_launches["k2"][name]
-            paths["learn_mvae_6_epochs"] = learn_launches["k2_mvae"][name]
+            paths[f"learn_mvae_{LEARN_MVAE_EPOCHS}_epochs"] = learn_launches["k2_mvae"][name]
         paths["learn_stage1_trained_pi_low_2_epochs"] = learn_launches["stage1"][name]
+        paths["scripts_e2e"] = scripts_launches[name]
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
         paths.update(dp_paths(key, ("federer_train_stage_1", "nadal_federer")))

@@ -63,7 +63,11 @@ new = {"vid2player3d_torch.envs.domain_rand", "vid2player3d_torch.envs.corrupt",
        "vid2player3d_torch.physics.spatial", "vid2player3d_torch.core.fbx",
        "vid2player3d_torch.data.tennis_motion", "vid2player3d_torch.data.amass",
        # slice 9: the engine's golden-physics probes
-       "vid2player3d_torch.physics.probes"}
+       "vid2player3d_torch.physics.probes",
+       # slice 16: the system's own scripts
+       "vid2player3d_torch.scripts", "vid2player3d_torch.scripts.probe_e2e_im",
+       "vid2player3d_torch.scripts.e2e_curriculum", "vid2player3d_torch.scripts.swing_quality",
+       "vid2player3d_torch.scripts.local_sgd_convergence"}
 assert new <= set(names), new - set(names)
 """
 
