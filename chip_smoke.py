@@ -212,10 +212,10 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               non-zero with both counts; both start before dp parity and
               run beside it
   25. dp main two gloo ranks on the card at full widths: amass_im at
-              2 x 2048 envs in both sync modes (horizon cut to 16; global
+              2 x 2048 envs in both sync modes (horizon cut to 8; global
               minibatch 512 with K1, 1 mini-epoch, cut from 6; per-rank
               minibatches of 512 with local SGD, 2 mini-epochs, cut from 6),
-              federer_train_stage_1 at 2 x 2048 (horizon cut to 16) and
+              federer_train_stage_1 at 2 x 2048 (horizon cut to 8) and
               nadal_federer at 2 x 256 (per-rank minibatches of 1024,
               horizon cut to 4): per rank and path the epoch, the rollout's
               env-steps/s, the gradient all-reduce's ms per optimizer step
@@ -246,7 +246,7 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
   26b. learn the JAX package's learning checks through the graphed trainers
               at full width, each failing the script when it is not met: L1
               amass_im as `cli/run.py` `_build_im` builds it at 2048 envs
-              with fused_optimizer="on", 80 epochs (the amass_im_500ep
+              with fused_optimizer="on", 60 epochs (the amass_im_500ep
               artifact's command cut from 500): every metric finite,
               alive_ratio over the last 10 epochs at least 0.08 above epochs
               1-10's, c_loss over epochs 6-10 at most half of epoch 1's, K1 2
@@ -276,6 +276,23 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               rollout.html written; the K1, K2 (prep and GEMM) and K3
               counters set to 0 just before the curriculum and read just
               after, K2 and K3 launched
+  26d. hit    the hitting curriculum (artifacts/torch_tennis_hit/) through
+              `cli.run.main` in a directory under build/, on the `learn`
+              phase's amass_im policy (L1) and MotionVAE (L4, trained on the
+              `data` phase's generated rig dataset): federer_train_stage_1a
+              at 2048 envs for 3 epochs, federer_train_stage_1 for 1 from
+              its checkpoint, federer_train_stage_2a and federer_train_serve
+              (4096 envs) for 1 each by their configs' warm start, `--test`
+              of the 2a checkpoint at 1024 envs for 64 steps; each call's
+              K2 and K3 counters set to 0 just before and read just after
+              (3 + 3 and 2 per env step, 1 K3 per reset); every metric
+              finite and grad_skip 0 (H6), the report's JAX keys (H5); every
+              ball of the stage-1a and 2a pools bounces within 1 m in x of
+              the player's start; the serve toss starts above the free hand;
+              K2 at B = 2048, 4096 and 1024 and K3 at N = 2048 (cold) held
+              to their plain versions and timed beside their bounds and
+              cuBLAS. `hit_checks` and `serve_checks` score the full-length
+              runs (tests/test_torch_hit.py)
   27. physics the engine's public API: `substep` on the card against the CPU on
               the 6-env humanoid case (self-collision on; a free base with
               root wrenches, a fixed base, extra wrenches; 1 and 4 substeps)
@@ -3869,16 +3886,16 @@ def eval_graphs_phase(dev, card: str, stage1_agent, stage1_ts, dual_agent, dual_
 DP_RANKS = 2
 DP_TIMEOUT_S = 300.0
 # dp_main: amass_im at 2 x 2048 envs (both sync modes, the horizon cut from
-# 32 to 16; the per-minibatch epoch cut from 6 mini-epochs to 1: each of its
+# 32 to 8; the per-minibatch epoch cut from 6 mini-epochs to 1: each of its
 # gradient all-reduces takes ~23-34 ms through the host; local SGD cut from 6
 # mini-epochs to 2), federer_train_stage_1 at 2 x 2048 with the horizon cut
-# from 64 to 16, nadal_federer at 2 x 256 with per-rank minibatches of 1024
+# from 64 to 8, nadal_federer at 2 x 256 with per-rank minibatches of 1024
 # and the horizon cut from 32 to 4: the cuts keep the script inside its time
 # limit (every path runs eagerly)
 DP_IM_ENVS, DP_TENNIS_ENVS, DP_DUAL_ENVS, DP_DUAL_HORIZON, DP_DUAL_MINIBATCH = \
     4096, 4096, 512, 4, 1024
-DP_PER_MINIBATCH_MINI_EPOCHS, DP_LOCAL_SGD_MINI_EPOCHS, DP_TENNIS_HORIZON = 1, 2, 16
-DP_IM_HORIZON = 16
+DP_PER_MINIBATCH_MINI_EPOCHS, DP_LOCAL_SGD_MINI_EPOCHS, DP_TENNIS_HORIZON = 1, 2, 8
+DP_IM_HORIZON = 8
 DP_KERNELS = ("k1_update", "k1_norm", "k2_prep", "k2_gemm", "k3")
 
 
@@ -4923,14 +4940,15 @@ def data_phase(dev, card: str, keep_dataset=None):
 # ---------------------------------------------------------------------------
 
 # L1: the amass_im artifact's command (artifacts/amass_im_500ep) cut from 500
-# epochs to 100, then to 80 to keep the script inside its time limit, fused
-# K1; its checks: alive_ratio over the last 10 epochs at least
+# epochs to 100, then to 80 and to 60 to keep the script inside its time
+# limit, fused K1; its checks: alive_ratio over the last 10 epochs at least
 # LEARN_ALIVE_GAIN above epochs 1-10's (the JAX v5e run: +0.142 at 100
-# epochs; the port +0.115 at 80), c_loss over epochs 6-10 at most
+# epochs; the port +0.115 at 80, +0.098-0.101 at 60 in three 500-epoch runs
+# of the command line), c_loss over epochs 6-10 at most
 # LEARN_CLOSS_FRAC of epoch 1's (JAX: 0.150)
-LEARN_ENVS, LEARN_EPOCHS = 2048, 80
+LEARN_ENVS, LEARN_EPOCHS = 2048, 60
 LEARN_ALIVE_GAIN, LEARN_CLOSS_FRAC = 0.08, 0.5
-LEARN_JAX_EPOCHS = (1, 10, 50, 80)
+LEARN_JAX_EPOCHS = (1, 10, 50, 60)
 LEARN_ROW_KEYS = ("reward_mean", "alive_ratio", "body_pos_reward", "c_loss", "kl",
                   "success_rate")
 # L2: eval_imitation's full episodes, 2 resets of every env (cut from its
@@ -5195,12 +5213,14 @@ def _learn_tracking(dev, card: str, d: str):
     return launches
 
 
-def _learn_mvae(dev, card: str, ds_dir: str):
+def _learn_mvae(dev, card: str, ds_dir: str, keep: str):
     """L4: mvae_federer on the `data` phase's generated dataset for
     LEARN_MVAE_EPOCHS epochs of the config's windows, each window replayed
     from its graph: recon at the last epoch at most LEARN_MVAE_FRAC of epoch
     1's; K2 3 prep + 3 GEMM per
-    optimizer step. Returns K2's launches."""
+    optimizer step. The trained MotionVAE is saved where the command line's
+    tennis configs look for it under `keep` (`keep/mvae_federer`). Returns
+    K2's launches."""
     import math
 
     import torch
@@ -5211,6 +5231,7 @@ def _learn_mvae(dev, card: str, ds_dir: str):
 
     t0 = time.perf_counter()
     opt = MVAEOption.load("federer")
+    opt.checkpoint_dir, opt.model_ver = keep, "mvae_federer"
     trainer = MVAETrainer(opt, load_video_dataset(opt, ds_dir), device=dev)
     setup_s = time.perf_counter() - t0
     MOE.moe_linear.launches = MOE.split_weights.launches = 0
@@ -5236,14 +5257,17 @@ def _learn_mvae(dev, card: str, ds_dir: str):
         fail(f"learn L4: {steps} optimizer steps (expected {want}) launched K2 {launches}")
     if not math.isfinite(frac) or not frac <= LEARN_MVAE_FRAC:
         fail(f"learn L4: recon at epoch {LEARN_MVAE_EPOCHS} is {frac} of epoch 1's")
+    trainer.save_checkpoint("latest")
     return launches
 
 
-def learn_phase(dev, card: str, ds_dir: str, gen):
+def learn_phase(dev, card: str, ds_dir: str, gen, keep: str):
     """The JAX package's learning checks, through the graphed trainers at
     full width (L1-L5 above; each fails the script when it is not met), in
     a directory under build/. `ds_dir` (the `data` phase's generated tennis
-    dataset) is removed after. Returns the kernels' launches per check."""
+    dataset) is removed after. L1's policy (`keep/amass_im.npz`) and L4's
+    MotionVAE (`keep/mvae_federer/`) are kept for the `hit` phase. Returns
+    the kernels' launches per check."""
     import shutil
 
     from vid2player3d_torch.learn import FrozenImitator
@@ -5260,7 +5284,8 @@ def learn_phase(dev, card: str, ds_dir: str, gen):
         del agent, ts
         k2k3_l5 = _learn_stage1(dev, card, FrozenImitator.from_checkpoint(path, device=dev), gen)
         k1_l3 = _learn_tracking(dev, card, d)
-        k2_l4 = _learn_mvae(dev, card, ds_dir)
+        k2_l4 = _learn_mvae(dev, card, ds_dir, keep)
+        shutil.copy(path, os.path.join(keep, "amass_im.npz"))
     finally:
         shutil.rmtree(d, ignore_errors=True)
         shutil.rmtree(ds_dir, ignore_errors=True)
@@ -5364,6 +5389,347 @@ def scripts_phase(dev, card: str) -> dict:
         phase_s=time.perf_counter() - t0)
     return {"moe_split_w": counts["k2_prep"], "moe_linear": counts["k2_gemm"],
             "fk_chain": counts["k3"], "norm": counts["k1_norm"], "update": counts["k1_update"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 26d: the hitting curriculum through the command line, and its checks
+# ---------------------------------------------------------------------------
+
+# the keys of the JAX package's tennis evaluation reports
+HIT_EVAL_KEYS = ("cycles", "hit_rate", "bounce_in_rate", "bounce_pos_error", "fh_ratio",
+                 "reward_mean")
+# H1-H4's thresholds (artifacts/torch_tennis_hit/README.md): half of the JAX
+# package's committed TPU runs' figures
+HIT_LAST = 50
+HIT_FIRST = 10
+HIT_LEG_MIN = {"stage1a": 0.021, "stage1": 0.010, "stage2a": 0.029}
+HIT_EVAL_MIN = {"stage1_full": 0.010, "stage2a_narrow": 0.026, "stage2a_full": 0.011}
+HIT_EVAL_CYCLES = 1500
+HIT_OVER_BASELINE = 3.0
+SERVE_LAST, SERVE_MIN = 20, 0.015
+
+
+def _mean_of(rows, key, part) -> float:
+    vals = [float(r[key]) for r in rows[part]]
+    return sum(vals) / len(vals)
+
+
+def _report_ok(rep: dict) -> bool:
+    """H5 on one evaluation report: exactly the JAX report's keys, and
+    `bounce_pos_error` null exactly when nothing bounced in."""
+    return (set(rep) == set(HIT_EVAL_KEYS)
+            and (rep["bounce_pos_error"] is None) == (rep["bounce_in_rate"] == 0))
+
+
+def _rows_ok(rows) -> list:
+    """H6 on one leg's metric rows: the (epoch, key) of every non-finite
+    value and of every row that logs a skipped update."""
+    import math
+
+    bad = []
+    for r in rows:
+        for k, v in r.items():
+            if not isinstance(v, (int, float)) or not math.isfinite(v):
+                bad.append((r.get("epoch"), k))
+        if r.get("grad_skip", 0.0) != 0.0:
+            bad.append((r.get("epoch"), "grad_skip"))
+    return bad
+
+
+def hit_checks(legs: dict, evals: dict, baseline=None) -> dict:
+    """H1-H6 of artifacts/torch_tennis_hit/README.md on the curriculum's
+    metric rows (`legs`: "stage1a", "stage1", "stage2a", and any other leg
+    for H6) and evaluation reports (`evals`: "stage1_full",
+    "stage2a_narrow", "stage2a_full"; `baseline`: the untrained stage-1a
+    policy's on the narrow spread, or None, which leaves H4's 3x clause
+    out). Returns {check: {"met": bool, "value": ..., ...}}."""
+    res = {}
+    s1a = legs["stage1a"]
+    first, last = (_mean_of(s1a, "hit_rate", slice(0, HIT_FIRST)),
+                   _mean_of(s1a, "hit_rate", slice(-HIT_LAST, None)))
+    res["H1"] = dict(met=last >= HIT_LEG_MIN["stage1a"] and last > first, value=last,
+                     first10=first, min=HIT_LEG_MIN["stage1a"])
+    last = _mean_of(legs["stage1"], "hit_rate", slice(-HIT_LAST, None))
+    res["H2"] = dict(met=last >= HIT_LEG_MIN["stage1"], value=last, min=HIT_LEG_MIN["stage1"])
+    s2a = legs["stage2a"]
+    last = _mean_of(s2a, "hit_rate", slice(-HIT_LAST, None))
+    q_first, q_last = (_mean_of(s2a, "quality_reward", slice(0, HIT_FIRST)),
+                       _mean_of(s2a, "quality_reward", slice(-HIT_LAST, None)))
+    res["H3"] = dict(met=last >= HIT_LEG_MIN["stage2a"] and q_last > q_first, value=last,
+                     min=HIT_LEG_MIN["stage2a"], quality_first10=q_first, quality_last50=q_last)
+    per = {}
+    for name, lo in HIT_EVAL_MIN.items():
+        rep = evals[name]
+        ok = rep["hit_rate"] >= lo and rep["cycles"] >= HIT_EVAL_CYCLES
+        if baseline is not None:
+            ok = ok and rep["hit_rate"] >= HIT_OVER_BASELINE * baseline["hit_rate"]
+        per[name] = dict(met=ok, hit_rate=rep["hit_rate"], cycles=rep["cycles"], min=lo)
+    res["H4"] = dict(met=all(p["met"] for p in per.values()), value=per,
+                     baseline=None if baseline is None else baseline["hit_rate"])
+    reports = dict(evals, **({} if baseline is None else {"baseline": baseline}))
+    bad = sorted(n for n, rep in reports.items() if not _report_ok(rep))
+    res["H5"] = dict(met=not bad, value=bad)
+    bad = {n: _rows_ok(rows)[:5] for n, rows in legs.items() if _rows_ok(rows)}
+    res["H6"] = dict(met=not bad, value=bad)
+    return res
+
+
+def serve_checks(rows, report: dict) -> dict:
+    """S1-S3 of serve practice (artifacts/torch_serve_practice/README.md):
+    the mean hit_rate over the last 20 epochs, H5 on its evaluation, H6 on
+    its rows."""
+    last = _mean_of(rows, "hit_rate", slice(-SERVE_LAST, None))
+    return {"S1": dict(met=last >= SERVE_MIN, value=last, min=SERVE_MIN),
+            "S2": dict(met=_report_ok(report), value=report),
+            "S3": dict(met=not _rows_ok(rows), value=_rows_ok(rows)[:5])}
+
+
+def _jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def score_hit_artifacts(hit_dir: str, serve_dir: str) -> dict:
+    """H1-H6 and S1-S3 on the files of artifacts/torch_tennis_hit/ and
+    artifacts/torch_serve_practice/ (the names their READMEs give):
+
+        python3 -c "import chip_smoke as C, json; print(json.dumps(
+            C.score_hit_artifacts('artifacts/torch_tennis_hit',
+                                  'artifacts/torch_serve_practice'), indent=1))"
+    """
+    def rep(d, name):
+        with open(os.path.join(d, name)) as f:
+            return json.load(f)
+
+    legs = {k: _jsonl(os.path.join(hit_dir, f"{k}_metrics.jsonl"))
+            for k in ("mvae", "amass_im", "im", "stage1a", "stage1", "stage2a")}
+    evals = {"stage1_full": rep(hit_dir, "stage1_eval_report.json"),
+             "stage2a_narrow": rep(hit_dir, "stage2a_eval_report.json"),
+             "stage2a_full": rep(hit_dir, "stage2a_eval_report_full_spread.json")}
+    out = hit_checks(legs, evals, baseline=rep(hit_dir, "untrained_eval_report.json"))
+    out.update(serve_checks(_jsonl(os.path.join(serve_dir, "metrics.jsonl")),
+                            rep(serve_dir, "eval_report.json")))
+    return out
+
+
+def reward_blocks(rows, block: int = 50) -> dict:
+    """A stage-1 run's `reward_mean` as artifacts/torch_tennis_chain/README.md
+    reads it: the means over epochs 1-100 and 151-250, their ratio, the
+    50-epoch blocks, and the same of `hit_rate`."""
+    def mean(key, lo, hi):
+        vals = [float(r[key]) for r in rows[lo:hi]]
+        return sum(vals) / len(vals)
+
+    out = {}
+    for key in (k for k in ("reward_mean", "hit_rate") if k in rows[0]):
+        a, b = mean(key, 0, 100), mean(key, 150, 250)
+        out[key] = dict(first100=a, last100=b, ratio=b / a,
+                        blocks=[mean(key, i, i + block) for i in range(0, len(rows), block)])
+    return out
+
+
+# the curriculum cut to a smoke: stage 1a at its artifact's 2048 envs for 3
+# epochs, stage 1 for 1 from its checkpoint, stage 2a and serve practice
+# (at its artifact's 4096 envs) for 1 each by their configs' warm start, the
+# evaluation of the 2a checkpoint at 1024 envs for 64 steps
+HIT_ENVS, HIT_SERVE_ENVS, HIT_EVAL_ENVS = 2048, 4096, 1024
+HIT_LEGS = (("stage1a", "federer_train_stage_1a", HIT_ENVS, 3, False),
+            ("stage1", "federer_train_stage_1", HIT_ENVS, 1, False),
+            ("stage2a", "federer_train_stage_2a", HIT_ENVS, 1, False),
+            ("serve", "federer_train_serve", HIT_SERVE_ENVS, 1, False),
+            ("eval_stage2a", "federer_train_stage_2a", HIT_EVAL_ENVS, 1, True))
+# the narrow spread's bounce box around the player's start
+HIT_NARROW_X = 1.0
+
+
+def _hit_bounce_x(what, agent) -> dict:
+    """Every ball the env can launch (its pool; reaction balls are pool rows)
+    bounces within HIT_NARROW_X of the player's start box centre in x, its
+    flight simulated again from the launch state."""
+    import torch
+
+    from vid2player3d_torch.tennis import ball as B
+
+    env = agent.env
+    gen = env.gen
+    with torch.no_grad():
+        res = B.simulate_flight(gen.launch_pos, gen.launch_vel, gen.launch_vspin,
+                                num_frames=gen.traj_length, p=env.ball_params)
+    dx = res.bounce_pos[:, 0] - env._root_xy_center[0]
+    worst = float(dx.abs().max())
+    if not bool(res.has_bounce.all()) or not worst <= HIT_NARROW_X:
+        fail(f"hit {what}: a pool ball bounces {worst} m from the player's start x "
+             f"(bounced: {int(res.has_bounce.sum())} of {gen.pool_size})")
+    return dict(pool=gen.pool_size, max_abs_dx=worst)
+
+
+def _hit_serve_toss(agent) -> dict:
+    """The serve-toss reset: every env's ball starts 0.1 m above its free
+    hand (the hand of the humanoid snapped to the reset pose)."""
+    import torch
+
+    from vid2player3d_torch.physics import engine
+
+    env = agent.env
+    with torch.no_grad():
+        state, _ = env.reset_all()
+        bp, _, _, _ = engine.fk_world(env.model, state.sim)
+    hand = bp[torch.arange(env.cfg.num_envs, device=bp.device), env.free_hand_id]
+    d = state.ball_pos - hand
+    xy, dz = float(d[:, :2].abs().max()), d[:, 2]
+    if not xy <= 1e-5 or not bool((dz > 0.05).all()):
+        fail(f"hit serve: the tossed ball is not above the free hand (xy {xy}, "
+             f"dz {float(dz.min())}..{float(dz.max())})")
+    return dict(envs=env.cfg.num_envs, max_xy=xy, dz_min=float(dz.min()), dz_max=float(dz.max()))
+
+
+def _hit_k3_cold(args, warm: dict) -> dict:
+    """K3 at the path's N on copies of one step's inputs taken in turn
+    (together over 4x the L2, so every call reads and writes device
+    memory), eager and as a graph, beside the bound of `warm` (`_k3_small`
+    on the same inputs)."""
+    import math
+
+    from vid2player3d_torch.ops import fk as FK
+
+    sets = max(4, math.ceil(K3_COLD_BYTES / warm["bytes"]))
+    ins = [tuple(a.clone() for a in args[:3]) + (args[3],) for _ in range(sets)]
+    turn = [0]
+
+    def cold():
+        k = turn[0] % sets
+        turn[0] += 1
+        FK.fk_chain(*ins[k])
+
+    graph_ms = _graph_ms(lambda: [FK.fk_chain(*a) for a in ins],
+                         math.ceil(K3_TIMED / sets)) / sets
+    return dict(cold_sets=sets, ms=cuda_ms(cold, sets * math.ceil(K3_TIMED / sets)),
+                graph_ms=graph_ms, share_of_bound=warm["bound_ms"] / graph_ms)
+
+
+def _hit_kernels(what, card, agent, k3_cold=False) -> dict:
+    """K2 (and K3 when `k3_cold`) on one eager step of the agent's env from a
+    fresh reset, held to their plain versions and timed at the env's size;
+    the launches are not the path's."""
+    import torch
+
+    from vid2player3d_torch.ops import fk as FK
+
+    before = _kernel_counts()
+    n = agent.env.cfg.num_envs
+    ts = agent.init_state()
+    with torch.no_grad():
+        mu, _ = agent._forward(ts.params, ts.obs_norm, ts.last_obs)
+    out = _hold_k2_k3_eval(f"hit {what}", card, agent.env, ts.env_state, mu, (n,),
+                           (n,) if k3_cold else ())
+    if k3_cold:
+        warm = out[f"k3_N{n}"]
+        warm["cold"] = _hit_k3_cold(_record_k2_k3(agent.env, ts.env_state, mu)[f"k3/{n}"], warm)
+    MOE = importlib.import_module("vid2player3d_torch.ops.moe_linear")
+    FK.fk_chain.launches, MOE.moe_linear.launches, MOE.split_weights.launches = (
+        before["k3"], before["k2_gemm"], before["k2_prep"])
+    return out
+
+
+def hit_phase(dev, card: str, pi_low_path: str, mvae_dir: str) -> dict:
+    """The hitting curriculum cut to a smoke (HIT_LEGS), each leg one
+    `cli.run.main` call in a directory under build/ (removed after), on the
+    `learn` phase's amass_im policy (`pi_low_path`) and MotionVAE
+    (`mvae_dir`, found by every leg as the curriculum's `mvae_federer`):
+    each leg's counters set to 0 just before its call and read just after,
+    K2 3 + 3 per env step and K3 2 per env step plus one per reset (the
+    learner's; the evaluation's own too); H6 on every training leg's rows,
+    H5 on the evaluation's report; every stage-1a and 2a pool ball within
+    1 m in x of the player's start; the serve toss above the free hand; K2
+    at B = 2048, 4096 and 1024 and K3 at N = 2048 (cold) held to their
+    plain versions and timed. Returns the kernels' launches per leg."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    import vid2player3d_torch.cli.run as RUN
+
+    d = os.path.join(REPO, "build", f"hit_smoke_{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copytree(mvae_dir, os.path.join(d, "mvae_federer"))
+    built, build = [], RUN._build_tennis
+
+    def keep(*a, **kw):
+        agent = build(*a, **kw)
+        built.append(agent)
+        return agent
+
+    t0 = time.perf_counter()
+    legs, launches, kernels, checks = {}, {}, {}, {}
+    RUN._build_tennis = keep
+    try:
+        for name, cfg, envs, epochs, test in HIT_LEGS:
+            argv = ["--cfg", cfg, "--num_envs", str(envs), "--epochs", str(epochs),
+                    "--pi_low_checkpoint", pi_low_path, "--out", d]
+            if name == "stage1":
+                argv += ["--checkpoint", os.path.join(d, "federer_train_stage_1a", "best.npz")]
+            if test:
+                argv += ["--test", "--checkpoint",
+                         os.path.join(d, "federer_train_stage_2a", "best.npz")]
+            buf = io.StringIO()
+            built.clear()
+            _zero_kernel_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = RUN.main(argv)
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t1
+            counts = _kernel_counts()
+            text = buf.getvalue()
+            if rc != 0 or "no trained MVAE" in text or "no low-level imitation" in text:
+                fail(f"hit {name}: rc {rc}, output {text[-2000:]}")
+            agent = built[-1]
+            horizon = agent.cfg.horizon
+            steps, resets = (64 * epochs, 2) if test else (horizon * epochs, 1)
+            want = {"k2_prep": 3 * steps, "k2_gemm": 3 * steps, "k3": 2 * steps + resets}
+            got = {k: counts[k] for k in want}
+            if got != want or counts["k1_update"] or counts["k1_norm"]:
+                fail(f"hit {name}: launches {counts}, expected {want} and no K1")
+            launches[name] = got
+            row = dict(call_s=call_s, envs=envs, epochs=epochs, horizon=horizon, launches=got)
+            if test:
+                rep, _ = json.JSONDecoder().raw_decode(text[text.index("{\n"):])
+                if not _report_ok(rep):
+                    fail(f"hit {name}: report {rep} lacks the JAX keys or its "
+                         "bounce_pos_error disagrees with bounce_in_rate")
+                row["report"] = rep
+            else:
+                path = os.path.join(d, "metrics.jsonl")
+                rows = _jsonl(path)
+                os.remove(path)
+                bad = _rows_ok(rows)
+                if len(rows) != epochs or bad:
+                    fail(f"hit {name}: {len(rows)} rows, non-finite or skipped: {bad}")
+                legs[name] = rows
+                row["last_row"] = rows[-1]
+                # the next leg's warm start finds the checkpoints under the config's name
+                os.makedirs(os.path.join(d, cfg), exist_ok=True)
+                for f in ("best.npz", "latest.npz"):
+                    os.replace(os.path.join(d, f), os.path.join(d, cfg, f))
+            if name in ("stage1a", "stage2a"):
+                checks[f"{name}_bounce_x"] = _hit_bounce_x(name, agent)
+            if name == "serve":
+                checks["serve_toss"] = _hit_serve_toss(agent)
+            if name in ("stage1a", "serve", "eval_stage2a"):
+                kernels[f"B{envs}"] = _hit_kernels(name, card, agent, k3_cold=name == "stage1a")
+            checks[name] = row
+            built.clear()
+            del agent
+    finally:
+        RUN._build_tennis = build
+        shutil.rmtree(d, ignore_errors=True)
+    say("hit", card=card, nvidia_smi=nvidia_smi(), legs=checks, kernels=kernels,
+        checks="H5 H6, the narrow spread's bounce x, the serve toss, K2/K3 launches met",
+        phase_s=time.perf_counter() - t0)
+    return {"launches": launches, "kernels": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -5603,8 +5969,17 @@ def main() -> None:
     dp_launches = dp_main_phase(dev, card)
     learn_ds = os.path.join(REPO, "build", f"learn_ds_{os.getpid()}")
     data_launches = data_phase(dev, card, keep_dataset=learn_ds)
-    learn_launches = learn_phase(dev, card, learn_ds, agent.env.gen)
-    scripts_launches = scripts_phase(dev, card)
+    hit_keep = os.path.join(REPO, "build", f"hit_keep_{os.getpid()}")
+    os.makedirs(hit_keep, exist_ok=True)
+    try:
+        learn_launches = learn_phase(dev, card, learn_ds, agent.env.gen, hit_keep)
+        scripts_launches = scripts_phase(dev, card)
+        hit = hit_phase(dev, card, os.path.join(hit_keep, "amass_im.npz"),
+                        os.path.join(hit_keep, "mvae_federer"))
+    finally:
+        import shutil
+
+        shutil.rmtree(hit_keep, ignore_errors=True)
     physics_phase(dev, card)
     profile_phase(dev, card)
     rollout_profile_phase("tennis_profile", card, agent, ts)
@@ -5657,6 +6032,7 @@ def main() -> None:
             paths[f"learn_mvae_{LEARN_MVAE_EPOCHS}_epochs"] = learn_launches["k2_mvae"][name]
         paths["learn_stage1_trained_pi_low_2_epochs"] = learn_launches["stage1"][name]
         paths["scripts_e2e"] = scripts_launches[name]
+        paths.update({f"hit_{leg}": n[key] for leg, n in hit["launches"].items()})
         if name in warm_launches:
             paths["stage2_warm_start"] = warm_launches[name]
         paths.update(dp_paths(key, ("federer_train_stage_1", "nadal_federer")))
@@ -5703,6 +6079,7 @@ def main() -> None:
          "per_lane_B7680": k2["per_lane_B7680"], "stage2_B15360": k2["stage2_B15360"],
          "two_hand_B30720": k2_b30720,
          "mvae_B100": k2_b100,
+         **{f"hit_{b}": row[f"k2_{b}"] for b, row in hit["kernels"].items()},
          "graph_ms": k2["graph_ms"], "plain_graph_ms": k2["plain_graph_ms"],
          "library_graph_ms": k2["library_graph_ms"], "f32_simt_bound_ms": k2["f32_simt_bound_ms"],
          "backward_max_abs_err": k2["backward_max_abs_err"]},
@@ -5715,6 +6092,7 @@ def main() -> None:
                  "nadal's and djokovic's); ms and graph_ms with cold inputs (sets over 4x the "
                  "L2 in turn), warm_ms and warm_graph_ms one set again and again",
          "N15360": k3["N15360"], "N30720": k3["N30720"],
+         "hit_N2048": hit["kernels"][f"B{HIT_ENVS}"][f"k3_N{HIT_ENVS}"],
          "graph_ms": k3["graph_ms"], "warm_ms": k3["warm_ms"],
          "warm_graph_ms": k3["warm_graph_ms"], "plain_graph_ms": k3["plain_graph_ms"],
          "host_ms_per_call": k3["host_ms_per_call"], "share_of_bound": k3["share_of_bound"]},
