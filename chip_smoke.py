@@ -309,8 +309,9 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               rollout and one dual step (both replayed from their graphs,
               captured first): device busy and idle share,
               device events per step, the costliest device kernels, K2's and
-              K3's device share and the shares of the spans (masked_reset,
-              estimate_out, two_hand, and the dual env's serve and handoff)
+              K3's device share and, from the port's tracer, the device
+              share of the step's parts (masked_reset, estimate_out,
+              two_hand, and the dual env's serve and handoff)
   29. kernels one JSON line over the ported kernels, each kernel's launches
               on every main path it runs on
 The last line is {"ok": true, "device": {...}}.
@@ -346,7 +347,7 @@ NUM_ENVS, HORIZON, SUBSTEPS, MINIBATCH, MINI_EPOCHS, EPOCHS = 4096, 32, 2, 512, 
 SLICE4_EPOCHS = 2
 CTX_MINI_EPOCHS = 2
 K1_CHECK_STEPS = 4
-# record_function spans on the main paths (the dual env's serve runs inside
+# the tennis step's parts (`utils/trace.py`; the dual env's serve runs inside
 # the masked reset)
 SPANS = ("masked_reset", "estimate_out", "two_hand", "serve", "handoff")
 K1_TIMED_STEPS = 200
@@ -925,14 +926,6 @@ def _device_events(prof):
 
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name not in SPANS]
-
-
-def _device_spans(prof, name):
-    """The device-side time ranges of the `record_function` span `name`."""
-    import torch
-
-    return [e.time_range for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.name == name]
 
 
 def profile_phase(dev, card: str):
@@ -3146,28 +3139,37 @@ def rollout_profile_phase(name: str, card: str, agent, ts, horizon: int = 2):
     """A rollout of `horizon` steps at a main path's sizes, profiled after
     that path's warm-up: device busy and idle share, device events per env
     step, the costliest kernels, K2's and K3's device share, and per span of
-    SPANS its host wall share and the device time of the kernels that ran
-    inside its device-side ranges."""
+    SPANS its device time in the step graph's replays and its share of the
+    device's busy time, from the port's tracer (on for this rollout, its
+    graph captured with the stamps)."""
     import dataclasses
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from vid2player3d_torch.utils import trace
+
     short = dataclasses.replace(agent.cfg, horizon=horizon)
     cfg0 = agent.cfg
     agent.cfg = short
     graphed = getattr(agent, "graphed", False)
+    trace.tracer.enable(True)
     try:
         if graphed:
             agent.rollout(ts)      # the short horizon's step graph, captured before the profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            agent.rollout(ts)
+            with trace.tracer.epoch(-1, agent.device):
+                agent.rollout(ts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         agent.cfg = cfg0
+        trace.tracer.enable(False)
+    rep = trace.tracer.report()[-1]
+    parts = rep.get("graphs", {}).get("step", {}).get("parts", {}) \
+        if rep["parts_clock"] == "device" else {}
     evs = _device_events(prof)
     busy = sum(e.time_range.elapsed_us() for e in evs) * 1e-6
     by_name = {}
@@ -3179,14 +3181,10 @@ def rollout_profile_phase(name: str, card: str, agent, ts, horizon: int = 2):
     k3_s = sum(v for k, v in by_name.items() if "fk_chain_kernel" in k)
     spans = {}
     for span in SPANS:
-        span_wall = sum(e.cpu_time_total for e in prof.events()
-                        if e.name == span and e.device_type != torch.autograd.DeviceType.CUDA
-                        ) * 1e-6
-        ranges = _device_spans(prof, span)
-        span_dev = sum(e.time_range.elapsed_us() for e in evs
-                       if any(r.start <= e.time_range.start < r.end for r in ranges)) * 1e-6
-        spans[span] = dict(wall_share=span_wall / wall,
-                           device_share=span_dev / busy if busy and ranges else "not measured")
+        p = parts.get(span)
+        spans[span] = dict(
+            device_ms_per_step=p["per_replay_ms"] if p else "not measured",
+            device_share=p["total_ms"] * 1e-3 / busy if p and busy else "not measured")
     say(name, card=card, envs=agent.env.cfg.num_envs, horizon=horizon, graphed=graphed,
         wall_s=wall,
         wall_s_per_env_step=wall / horizon,

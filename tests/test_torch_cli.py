@@ -76,13 +76,15 @@ def _options(parser):
 
 
 def test_parser_is_jax_plus_device():
-    """The option set is JAX's plus `--device`, with JAX's defaults,
-    choices, types and required flags."""
+    """The option set is JAX's plus `--device` and the port's tracer switch
+    `--trace` (off by default), with JAX's defaults, choices, types and
+    required flags."""
     got, want = _options(R.build_parser()), _options(JR.build_parser())
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device", "trace"}
     for k, v in want.items():
         assert got[k] == v, k
     assert got["device"][1] is None
+    assert got["trace"][1] is False
 
 
 def test_clamp_minibatch_matches_jax():

@@ -785,6 +785,87 @@ def test_capture_survives_graphs_left_to_the_collector(cuda):
     assert g.captures == 1 and torch.equal(z, torch.full((8,), 3.0, device=cuda))
 
 
+def _trace_alignment() -> dict:
+    """A small graphed imitation epoch with the tracer off, then on (the
+    graphs recaptured), then profiled: the graphs' node counts, the host
+    syncs, and per replay how far its stamps, mapped onto the host clock by
+    the epoch's anchors, lie outside the kineto interval of its kernels
+    (the device events of its graph launch; negative: inside). Beside them
+    how far kineto's own time of each anchor's stamp kernel lies outside
+    the host times that bracket it, which holds kineto's clock itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vid2player3d_torch.utils import trace
+
+    agent = _small_imitation(torch.device("cuda", 0), "amass_im")
+    ts, _ = agent.train_epoch(agent.init_state())
+    st = agent._st
+    out = {"nodes_off": [st.step.nodes, st.update.nodes]}
+    trace.tracer.enable(True)
+    try:
+        ts, _ = agent.train_epoch(ts)                 # captures anew, with the stamps
+        out["nodes_on"] = [st.step.nodes, st.update.nodes]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ts, _ = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+    finally:
+        trace.tracer.enable(False)
+    rec = trace.tracer.epochs[-1]
+    out["host_syncs"] = trace.epoch_report(rec)["host_syncs"]
+    replays = trace._replays(rec, trace._host_clock(rec))
+    order = replays["step"] + replays["update"]        # the rollout's replays come first
+    dev = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.device_type() != dev and e.name().startswith("cudaGraphLaunch"))
+    kernels, stamps = {}, []
+    for e in events:
+        if e.device_type() == dev and not e.is_user_annotation():
+            s, t = e.start_ns(), e.start_ns() + e.duration_ns()
+            lo, hi = kernels.get(e.correlation_id(), (s, t))
+            kernels[e.correlation_id()] = (min(lo, s), max(hi, t))
+            if "stamp_kernel" in e.name():
+                stamps.append((s, t))
+    out["replays"] = len(order)
+    out["launches"] = len(launches)
+    out["outside_ns"] = [max(max(kernels[corr][0] - s, e - kernels[corr][1]) for _, s, e, _ in row)
+                         for (_, corr), row in zip(launches, order)]
+    # each anchor's stamp kernel ran between the host reads around it
+    out["anchor_outside_ns"] = [min(max(h0 - s, t - h1) for s, t in stamps)
+                                for _, h0, h1 in rec["anchors"]]
+    return out
+
+
+def test_trace_stamps_lie_inside_their_replays_kernels(cuda):
+    """The tracer's device stamps (``utils/trace.py``) on a small graphed
+    imitation epoch (`_trace_alignment`, in a process of its own: in a
+    process that ran the rest of this file kineto's device times drift from
+    the host clock by ~0.1%, which its anchor stamps show): turning the
+    tracer on recaptures both graphs with two stamp nodes per part, the
+    traced epoch makes no host sync, and in one profiled traced epoch every
+    stamp of a replay lies inside the kineto interval of that replay's
+    kernels, widened by 20 µs."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import json, sys; sys.path[:0] = ['.', 'tests']; import test_torch_gpu as T; "
+            "print(json.dumps(T._trace_alignment()))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    print(out)
+    assert out["nodes_on"] == [n + 8 for n in out["nodes_off"]]
+    assert out["host_syncs"] == 0
+    assert out["launches"] == out["replays"] == 4 + 4          # horizon 4; 2 x 2 minibatches
+    assert max(out["anchor_outside_ns"]) <= 20_000
+    assert max(out["outside_ns"]) <= 20_000
+
+
 def test_mvae_fuse_on_the_card(cuda, tmp_path):
     """`train_epoch(fuse=16)` and `fuse=1` (graphed windows) and the eager
     windows on one trainer seed each, 2 epochs of 5 windows: losses, params

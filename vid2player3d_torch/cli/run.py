@@ -82,6 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of training epochs "
                         "2-4 into DIR/trace.json")
+    p.add_argument("--trace", action="store_true",
+                   help="turn the port's tracer on (utils/trace.py): each "
+                        "logged graphed epoch carries its phases, the device "
+                        "time of the replayed steps' parts, the time outside "
+                        "the graphs and the host syncs under trace/ keys; with "
+                        "--profile the tracer's events join DIR/trace.json")
     p.add_argument("--device", default=None,
                    help="device to run on (default: the card; 'cpu' runs on "
                         "the CPU)")
@@ -286,11 +292,15 @@ def _load_mvae_spec(mvae_dir: str, player: str, seed: int, device):
 def _train_loop(agent, run_cfg, args, logger, ts0=None):
     import torch
 
+    from vid2player3d_torch.utils import trace
+
     best = float("-inf")
     ts = ts0 if ts0 is not None else agent.init_state()
     env_steps = agent.num_envs_global * agent.cfg.horizon
     epochs = args.epochs or run_cfg.max_epochs
     prof = None
+    traced = trace.tracer.on
+    trace.tracer.enable(traced or args.trace)
     try:
         for e in range(1, epochs + 1):
             # trace epochs 2-4, after the first epoch's warm-up
@@ -309,8 +319,15 @@ def _train_loop(agent, run_cfg, args, logger, ts0=None):
                 path = os.path.join(args.profile, "trace.json")
                 prof.export_chrome_trace(path)
                 prof = None
+                if args.trace:
+                    # the profiled epochs, 2-4, on the profiler's clock
+                    trace.append_chrome_events(path, list(trace.tracer.epochs)[-3:])
                 print(f"profiler trace written to {path}")
             if logger is not None:
+                last = trace.tracer.epochs[-1] if trace.tracer.epochs else None
+                if args.trace and last is not None and last["epoch"] == ts.epoch - 1:
+                    # the epoch just run, when it was a graphed one
+                    metrics = {**metrics, **trace.flat(trace.epoch_report(last))}
                 logger.log(e, metrics, env_steps)
             # the metrics are global: every rank takes the same branches
             r = float(metrics.get("reward_mean", 0.0))
@@ -320,6 +337,7 @@ def _train_loop(agent, run_cfg, args, logger, ts0=None):
                 best = r
                 agent.save_checkpoint(os.path.join(args.out, "best.npz"), ts)
     finally:
+        trace.tracer.enable(traced)
         if prof is not None:
             prof.__exit__(None, None, None)
         if logger is not None:

@@ -40,6 +40,7 @@ from ..data import motion_lib as ML
 from ..physics import asset, engine
 from ..parallel import mesh as PM
 from ..physics.model import ArticulationState, ContactParams
+from ..utils import trace
 from ..utils.runtime import resolve_device
 from . import corrupt, domain_rand
 from .obs import compute_imitation_obs, dof_to_obs
@@ -325,10 +326,11 @@ class HumanoidImEnv:
         # reward target = target BEFORE advancing time
         tar_rew = self._target(state.motion_times)
 
-        sim = engine.control_step(
-            self.model, sim, pd_tar, root_force, root_torque,
-            substeps=cfg.substeps, control_dt=cfg.control_dt,
-            contact_params=self.contact_params)
+        with trace.part("physics"):
+            sim = engine.control_step(
+                self.model, sim, pd_tar, root_force, root_torque,
+                substeps=cfg.substeps, control_dt=cfg.control_dt,
+                contact_params=self.contact_params)
 
         progress = state.progress + 1
         motion_times = state.motion_times + cfg.control_dt

@@ -71,6 +71,7 @@ from ..tennis import court
 from ..tennis import player as P
 from ..tennis import twohand
 from ..tennis.racket import grip_arrays
+from ..utils import trace
 from ..utils.runtime import as_draw, resolve_device
 from . import domain_rand
 from .obs import compute_imitation_obs
@@ -1041,7 +1042,7 @@ class TennisEnv:
         rows = torch.arange(N, device=dev)
 
         # 1) masked reset of done envs (start of step)
-        with torch.autograd.profiler.record_function("masked_reset"):
+        with trace.part("masked_reset"):
             state = self._masked_env_reset(state, None if draws is None else draws.get("reset"))
 
         # 2) action split + recovery random-walk latents
@@ -1067,7 +1068,7 @@ class TennisEnv:
         if cfg.fix_head_orientation:
             mvae = self._fix_head_orientation(mvae, state.ball_pos)
         if self.any_two_hand:
-            with torch.autograd.profiler.record_function("two_hand"):
+            with trace.part("two_hand"):
                 mvae = self._apply_two_hand(mvae)
         dof_tar, tar_body_pos, tar_body_rot = self._kinematic_targets(mvae, res_root)
 
@@ -1101,10 +1102,12 @@ class TennisEnv:
             extra_t = torch.zeros((N, 24, 3), device=dev)
             extra_f[rows, self.wrist_id] = react
             extra_t[rows, self.wrist_id] = torch.linalg.cross(arm, react, dim=-1)
-        sim = engine.control_step(
-            self.model, state.sim, pd_tar, root_force, root_torque,
-            substeps=cfg.substeps, control_dt=cfg.control_dt,
-            contact_params=self.contact_params, extra_force_w=extra_f, extra_torque_w=extra_t)
+        with trace.part("physics"):
+            sim = engine.control_step(
+                self.model, state.sim, pd_tar, root_force, root_torque,
+                substeps=cfg.substeps, control_dt=cfg.control_dt,
+                contact_params=self.contact_params, extra_force_w=extra_f,
+                extra_torque_w=extra_t)
 
         # 6) racket from the new wrist pose; ball substeps + contacts
         fk_new = engine.fk_world(self.model, sim)
@@ -1133,7 +1136,7 @@ class TennisEnv:
             & (bpos[:, 0] > court.COURT_MIN[0]) & (bpos[:, 0] < court.COURT_MAX[0])
             & (bpos[:, 1] > court.COURT_MIN[1]) & (bpos[:, 1] < court.COURT_MAX[1]))
         ball_state13 = B.pack_state(ball_pos, ball_vel, ball_vspin)
-        with torch.autograd.profiler.record_function("estimate_out"):
+        with trace.part("estimate_out"):
             valid, ebp, ebt, emh = B.estimate_out(ball_state13, num_frames=90,
                                                   p=self.ball_params)
         upd = contact_now & valid

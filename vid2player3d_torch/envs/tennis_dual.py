@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..tennis import ball as B
+from ..utils import trace
 from .tennis import TennisEnv, TennisState, _rows_where
 
 _MIRROR = (-1.0, -1.0, 1.0)
@@ -77,7 +78,7 @@ class DualTennisEnv(TennisEnv):
         [5, 8] m/s and 40 rad/s topspin; the even (receiving) lane gets that
         serve mirrored into its frame, flown into its incoming trajectory."""
         N = self.cfg.num_envs
-        with torch.autograd.profiler.record_function("serve"):
+        with trace.part("serve"):
             u = self._rand(draws, "serve_u", (N, 3))
             lo, hi = self._serve_lo, self._serve_hi
             serve_vel = torch.maximum(lo, u * (hi - lo) + lo)
@@ -115,7 +116,7 @@ class DualTennisEnv(TennisEnv):
         flown into the full incoming trajectory, for every env (the caller
         masks it by the reaction transition). `ok` = the flight clears the
         net: a netted shot ends the rally under every reward configuration."""
-        with torch.autograd.profiler.record_function("handoff"):
+        with trace.part("handoff"):
             pos, vel, vspin = B._state_to_launch(ball_state13[self._swap])
             pos_in, vel_in = pos * self._mirror, vel * self._mirror
             res = B.simulate_flight(pos_in, vel_in, vspin, num_frames=state.ball_traj.shape[1],

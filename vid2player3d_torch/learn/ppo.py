@@ -85,6 +85,7 @@ from ..envs.humanoid_im import HumanoidImEnv
 from ..ops.fused_adam import fused_clip_adam_apply
 from ..parallel import mesh as PM
 from ..utils import graphs
+from ..utils import trace
 from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import ContextHeads, ImitatorNet
@@ -647,13 +648,19 @@ class ImitationPPO:
         each mini-epoch's permutation), so both epochs take the same. The
         epoch's randomized env (`epoch_env`) is made eager, kept as
         `last_env`, and its constants copied into the static env the
-        graphs step."""
-        env = self.epoch_env(ts, draws)
-        self.last_env = env
-        traj = self._rollout_graphed(ts, draws, env)
-        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
-        stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
-        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm)
+        graphs step. The phases are the tracer's spans
+        (``utils/trace.py``)."""
+        with trace.tracer.epoch(ts.epoch, self.device):
+            env = self.epoch_env(ts, draws)
+            self.last_env = env
+            with trace.span("rollout"):
+                traj = self._rollout_graphed(ts, draws, env)
+            with trace.span("prepare"):
+                batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+            with trace.span("update"):
+                stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
+            with trace.span("finish"):
+                return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm)
 
     def _prepare(self, ts: TrainState, traj):
         """GAE, the running norms and the epoch's samples: (the batch, env-
@@ -842,8 +849,8 @@ class ImitationPPO:
             params=None, opt=None)
         st.dr_act, st.dr_obs = ([], []) if dr is None else dr.step_noise_statics(
             (N, A), raw_obs.shape, dev)
-        st.step = graphs.StaticGraph(self._graphed_step, dev)
-        st.update = graphs.StaticGraph(self._graphed_update, dev)
+        st.step = graphs.StaticGraph(self._graphed_step, dev, "step")
+        st.update = graphs.StaticGraph(self._graphed_update, dev, "update")
         self._st = st
         return st
 
@@ -860,15 +867,17 @@ class ImitationPPO:
         cfg, dev = self.cfg, self.device
         env = self.env if env is None else env
         T, N, A = cfg.horizon, env.cfg.num_envs, self.num_actions
-        env_state, raw_obs, ctx = env.reset_all(
-            generator=ts.generator, motion_times=None if draws is None else draws["motion_times"],
-            corrupt_draws=None if draws is None else draws.get("corrupt"))
-        st = self._statics(env_state, raw_obs)
-        dr = self.env.randomizer
-        if st.env is not self.env:
-            dr.refresh_env(st.env, env)
-        graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
-                       PM.tree_leaves((env_state, raw_obs, ts.obs_norm, ts.val_norm)))
+        with trace.span("reset"):
+            env_state, raw_obs, ctx = env.reset_all(
+                generator=ts.generator,
+                motion_times=None if draws is None else draws["motion_times"],
+                corrupt_draws=None if draws is None else draws.get("corrupt"))
+            st = self._statics(env_state, raw_obs)
+            dr = self.env.randomizer
+            if st.env is not self.env:
+                dr.refresh_env(st.env, env)
+            graphs.refresh(PM.tree_leaves((st.state, st.obs, st.obs_norm, st.val_norm)),
+                           PM.tree_leaves((env_state, raw_obs, ts.obs_norm, ts.val_norm)))
         st.params = ts.params
         st.row.zero_()
         key = graphs.tensor_key(list(ts.params.values()))
@@ -907,27 +916,30 @@ class ImitationPPO:
         st, cfg = self._st, self.cfg
         dr = self.env.randomizer
         with torch.no_grad():
-            io, _, mu, v_norm, c_dof = self._forward_frame(st.params, st.obs_norm, st.obs,
-                                                           st.frame, st.conf)
-            action = mu + self.sigma[None] * st.noise
-            alive = (st.state.reset_buf == 0).float()
-            env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
-                                                                  st.dr_act)
-            state, out = st.env.step(st.state, env_action)
-            row = dict(obs=io, action=action, mu=mu,
-                       neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
-                       value=self._value(st.val_norm, v_norm), reward=out.reward,
-                       done=out.done.float(), terminate=out.terminate.float(),
-                       sub_rewards=out.sub_rewards, ctx_dof=c_dof, alive=alive)
-            if cfg.use_context_ik:
-                cb_pos, _, _, gt_pos, gt_dof = self._split_frame(st.frame)
-                row.update(raw_obs=st.obs, ctx_pos=cb_pos, ctx_conf=st.conf, gt_pos=gt_pos,
-                           gt_dof=gt_dof)
-            for k, v in row.items():
-                st.traj[k].index_copy_(0, st.row, v[None])
-            st.row.add_(1)
-            obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
-            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
+            with trace.part("policy"):
+                io, _, mu, v_norm, c_dof = self._forward_frame(st.params, st.obs_norm, st.obs,
+                                                               st.frame, st.conf)
+                action = mu + self.sigma[None] * st.noise
+                alive = (st.state.reset_buf == 0).float()
+                env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
+                                                                      st.dr_act)
+            with trace.part("env"):
+                state, out = st.env.step(st.state, env_action)
+            with trace.part("record"):
+                row = dict(obs=io, action=action, mu=mu,
+                           neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
+                           value=self._value(st.val_norm, v_norm), reward=out.reward,
+                           done=out.done.float(), terminate=out.terminate.float(),
+                           sub_rewards=out.sub_rewards, ctx_dof=c_dof, alive=alive)
+                if cfg.use_context_ik:
+                    cb_pos, _, _, gt_pos, gt_dof = self._split_frame(st.frame)
+                    row.update(raw_obs=st.obs, ctx_pos=cb_pos, ctx_conf=st.conf, gt_pos=gt_pos,
+                               gt_dof=gt_dof)
+                for k, v in row.items():
+                    st.traj[k].index_copy_(0, st.row, v[None])
+                st.row.add_(1)
+                obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
+                graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
 
     def _update_graphed(self, ts: TrainState, batch_all, lr, draws):
         """The mini-epochs with each optimizer step one call of the `update`
@@ -958,10 +970,13 @@ class ImitationPPO:
         Adam) on `count` and `lr`, the adaptive lr, the stats' row `row`."""
         st, cfg = self._st, self.cfg
         plist = list(st.params.values())
-        batch = {k: v[st.idx] for k, v in st.batch.items()}
-        loss, stats = self._loss(st.params, batch, st.obs_norm)
-        grads = torch.autograd.grad(loss, plist)
-        with torch.no_grad():
+        with trace.part("gather"):
+            batch = {k: v[st.idx] for k, v in st.batch.items()}
+        with trace.part("forward"):
+            loss, stats = self._loss(st.params, batch, st.obs_norm)
+        with trace.part("backward"):
+            grads = torch.autograd.grad(loss, plist)
+        with torch.no_grad(), trace.part("optimizer"):
             svals = torch.stack([v.detach() for v in stats.values()])
             mu, nu = st.opt.mu, st.opt.nu
             if self.use_fused:

@@ -67,6 +67,7 @@ from ..envs.tennis import TennisEnv
 from ..envs.tennis_dual import DualTennisEnv
 from ..parallel import mesh as PM
 from ..utils import graphs
+from ..utils import trace
 from ..utils.runtime import as_draw, resolve_device
 from . import running_norm as RN
 from .networks import V2PNet
@@ -525,14 +526,20 @@ class V2PPPO:
         the same. The returned env state and last obs are copies of the
         static ones. The epoch's randomized env (`epoch_env`) is made eager,
         kept as `last_env`, and its constants copied into the static env
-        the graphs step."""
-        env = self.epoch_env(ts, draws)
-        self.last_env = env
-        traj, env_state, last_obs = self._rollout_graphed(ts, draws, env)
-        batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
-        stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
-        return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm,
-                            PM.tree_map(torch.clone, env_state), last_obs.clone())
+        the graphs step. The phases are the tracer's spans
+        (``utils/trace.py``); the reset is the step's `masked_reset` part."""
+        with trace.tracer.epoch(ts.epoch, self.device):
+            env = self.epoch_env(ts, draws)
+            self.last_env = env
+            with trace.span("rollout"):
+                traj, env_state, last_obs = self._rollout_graphed(ts, draws, env)
+            with trace.span("prepare"):
+                batch_all, obs_norm_next, val_norm, lr = self._prepare(ts, traj)
+            with trace.span("update"):
+                stat_means, lr, opt = self._update_graphed(ts, batch_all, lr, draws)
+            with trace.span("finish"):
+                return self._finish(ts, traj, stat_means, lr, opt, obs_norm_next, val_norm,
+                                    PM.tree_map(torch.clone, env_state), last_obs.clone())
 
     def _prepare(self, ts: V2PTrainState, traj):
         """GAE, the running norms and the epoch's samples: (the batch, env-
@@ -689,8 +696,8 @@ class V2PPPO:
             params=None, opt=None)
         st.dr_act, st.dr_obs = ([], []) if dr is None else dr.step_noise_statics(
             (N, A), (N, self.obs_dim), dev)
-        st.step = graphs.StaticGraph(self._graphed_step, dev)
-        st.update = graphs.StaticGraph(self._graphed_update, dev)
+        st.step = graphs.StaticGraph(self._graphed_step, dev, "step")
+        st.update = graphs.StaticGraph(self._graphed_update, dev, "update")
         self._st = st
         return st
 
@@ -772,28 +779,31 @@ class V2PPPO:
         st = self._st
         dr = self.env.randomizer
         with torch.no_grad():
-            mu, v_norm = self._forward(st.params, st.obs_norm, st.obs)
-            action = mu + self.sigma[None] * st.noise
-            env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
-                                                                  st.dr_act)
-            state, out = st.env.step(st.state, env_action, st.draws)
-            row = dict(obs=st.obs, action=action, mu=mu,
-                       neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
-                       value=self._value(st, v_norm),
-                       # a diverged env's last reward can be non-finite
-                       reward=torch.where(torch.isfinite(out.reward), out.reward, 0.0),
-                       done=out.done.float(), terminate=out.terminate.float(),
-                       sub_rewards=out.sub_rewards)
-            for k, v in row.items():
-                st.traj[k].index_copy_(0, st.row, v[None])
-            if out.extras.keys() != st.traj["extras"].keys():
-                raise ValueError(f"the step's extras {sorted(out.extras)} are not the env's "
-                                 f"EXTRAS {sorted(st.traj['extras'])}")
-            for k, v in out.extras.items():
-                st.traj["extras"][k].index_copy_(0, st.row, v[None])
-            st.row.add_(1)
-            obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
-            graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
+            with trace.part("policy"):
+                mu, v_norm = self._forward(st.params, st.obs_norm, st.obs)
+                action = mu + self.sigma[None] * st.noise
+                env_action = action if dr is None else dr.apply_noise(action, dr.act_specs,
+                                                                      st.dr_act)
+            with trace.part("env"):
+                state, out = st.env.step(st.state, env_action, st.draws)
+            with trace.part("record"):
+                row = dict(obs=st.obs, action=action, mu=mu,
+                           neglogp=diag_gaussian_neglogp(action, mu, self.sigma[None]),
+                           value=self._value(st, v_norm),
+                           # a diverged env's last reward can be non-finite
+                           reward=torch.where(torch.isfinite(out.reward), out.reward, 0.0),
+                           done=out.done.float(), terminate=out.terminate.float(),
+                           sub_rewards=out.sub_rewards)
+                for k, v in row.items():
+                    st.traj[k].index_copy_(0, st.row, v[None])
+                if out.extras.keys() != st.traj["extras"].keys():
+                    raise ValueError(f"the step's extras {sorted(out.extras)} are not the env's "
+                                     f"EXTRAS {sorted(st.traj['extras'])}")
+                for k, v in out.extras.items():
+                    st.traj["extras"][k].index_copy_(0, st.row, v[None])
+                st.row.add_(1)
+                obs = out.obs if dr is None else dr.apply_noise(out.obs, dr.obs_specs, st.dr_obs)
+                graphs.refresh(PM.tree_leaves((st.state, st.obs)), PM.tree_leaves((state, obs)))
 
     def _update_graphed(self, ts: V2PTrainState, batch_all, lr, draws):
         """The mini-epochs with each optimizer step one call of the `update`
@@ -825,10 +835,13 @@ class V2PPPO:
         Adam on `count` and `lr`, the adaptive lr, the stats' row `row`."""
         st, cfg = self._st, self.cfg
         plist = list(st.params.values())
-        batch = {k: v[st.idx] for k, v in st.batch.items()}
-        loss, stats = self._loss(st.params, batch, st.obs_norm)
-        grads = torch.autograd.grad(loss, plist)
-        with torch.no_grad():
+        with trace.part("gather"):
+            batch = {k: v[st.idx] for k, v in st.batch.items()}
+        with trace.part("forward"):
+            loss, stats = self._loss(st.params, batch, st.obs_norm)
+        with trace.part("backward"):
+            grads = torch.autograd.grad(loss, plist)
+        with torch.no_grad(), trace.part("optimizer"):
             svals = torch.stack([v.detach() for v in stats.values()])
             opt, ok = _guarded_adam_step(plist, AdamState(st.count, st.opt.mu, st.opt.nu),
                                          grads, st.lr, cfg.grad_norm)

@@ -21,6 +21,10 @@ call, static outputs it writes with `copy_`, and tensors updated in place
   captures anew. The key is the caller's: the shapes, dtypes, static flags
   and the addresses of the tensors read in place (`tensor_key`).
 
+The tracer (``utils/trace.py``) is part of the key: with it on, a capture
+records its parts' device stamps, and turning it on or off captures anew.
+`replays` counts the calls a graph replayed.
+
 A failure while capturing or replaying raises; nothing is retried eagerly.
 A capture refuses the CUDA calls that are unsafe while it records only
 from its own thread: other threads (autograd's device threads, which run
@@ -44,6 +48,8 @@ import time
 from typing import Callable, Hashable, Sequence, Tuple
 
 import torch
+
+from .trace import tracer
 
 
 def counters() -> Tuple[Callable, ...]:
@@ -92,29 +98,38 @@ class StaticGraph:
     `pool_bytes` (device memory the graph's private pool holds) and
     `launches` (each counter's launches in one replay). `captures` counts
     the keys taken, on the CPU too (there each new key is what the card
-    would capture)."""
+    would capture, and its call is no replay); `replays` the other calls.
+    `name` names the graph in the tracer's report."""
 
-    def __init__(self, body: Callable[[], None], device):
+    def __init__(self, body: Callable[[], None], device, name: str = ""):
         self.body = body
+        self.name = name or getattr(body, "__name__", "graph").lstrip("_")
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.key = None
         self.graph = None
         self.stream = None
-        self.captures = 0
+        self.captures = self.replays = 0
         self.nodes = 0
         self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
         self.launches: Tuple[int, ...] = ()
+        tracer.register(self)
 
     def __call__(self, key: Hashable = ()) -> None:
+        key = tracer.key(key)
         if not self.cuda:
             if key != self.key:
                 self.key, self.captures = key, self.captures + 1
-            self.body()
+                self.body()
+                return
+            self.replays += 1
+            with tracer.running(self):
+                self.body()
             return
         if self.graph is not None and key == self.key:
             self.graph.replay()
+            self.replays += 1
             for fn, n in zip(counters(), self.launches):
                 fn.launches += n
             return
@@ -125,6 +140,7 @@ class StaticGraph:
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
         main = torch.cuda.current_stream(self.device)
+        tracer.prepare(self)                  # the stamps' ring, when the tracer is on
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
             self.body()                       # the step itself; its launches are eager ones
@@ -139,7 +155,8 @@ class StaticGraph:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"), \
+                    tracer.running(self):
                 self.body()                   # recorded, not run
         finally:
             if collecting:
