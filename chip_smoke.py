@@ -175,7 +175,8 @@ and the phase's own (`since_last_s`; any failed phase exits non-zero):
               mvae_federer --epochs 1 --mvae_batches 20` as a process of its
               own (the MotionVAE at full width) beside `--cfg federer_im
               --num_envs 4096 --epochs 1` in this one (best.npz,
-              metrics.jsonl; no K1: no named config fuses the optimizer);
+              metrics.jsonl; K1 one norm and one update per optimizer step:
+              `fused_optimizer="auto"` takes K1 on the card);
               then, alone, `--cfg federer_train_stage_1 --epochs 1`
               at its own 10,240 envs, which must embed federer_im/best.npz
               and the trained MotionVAE with its init frames, K2's and K3's
@@ -3298,6 +3299,7 @@ def cli_phase(dev, card: str):
     import numpy as np
     import torch
 
+    from vid2player3d_torch.cli.configs import get_config
     from vid2player3d_torch.learn import V2PPPO
     from vid2player3d_torch.ops import fk as FK
     from vid2player3d_torch.ops import fused_adam as FA
@@ -3331,10 +3333,14 @@ def cli_phase(dev, card: str):
                 fail(f"cli federer_im: no {f}")
         row = json.loads(open(os.path.join(im_dir, "metrics.jsonl")).readlines()[-1])
         out["federer_im_metrics"] = {k: row[k] for k in ("reward_mean", "alive_ratio", "kl")}
-        # no named config sets fused_optimizer="on": K1 stays off this path
-        out["federer_im_k1_launches"] = FA.leaf_update.launches + FA.global_norm_scalars.launches
-        if out["federer_im_k1_launches"]:
-            fail(f"cli federer_im: K1 launched {out['federer_im_k1_launches']} times")
+        # `fused_optimizer="auto"` takes K1 on the card: one norm and one
+        # update per optimizer step
+        ppo = get_config("federer_im").ppo
+        steps = ppo.mini_epochs * NUM_ENVS * ppo.horizon // ppo.minibatch_size
+        out["federer_im_k1_launches"] = [FA.leaf_update.launches, FA.global_norm_scalars.launches]
+        if out["federer_im_k1_launches"] != [steps, steps]:
+            fail(f"cli federer_im: K1 launched {out['federer_im_k1_launches']} times, "
+                 f"expected {steps} each")
 
         text, out["mvae_subprocess_s"] = _cli_wait("mvae_federer", mvae)
         mvae_rep = _json_block(text)

@@ -5,7 +5,8 @@ against the same on the CPU, with K2's and K3's launches per dual step; the
 epochs replayed from CUDA graphs (imitation, MotionVAE, tennis stage 1,
 the two-hand single-player env, the dual rally, the context-IK and
 domain-randomized configs) against their eager bodies, the launch counts
-through replays, a replay with no host sync, a capture that fails.
+through replays, a replay with no host sync, a capture that fails; K1 in the
+update graph under `fused_optimizer="auto"`.
 
 Marked `gpu`: each test needs a CUDA device and skips without one (the check
 is made inside the `cuda` fixture, never at import). This file imports no JAX,
@@ -682,6 +683,50 @@ def test_graphed_epoch_equals_eager_on_the_card(cuda, fused):
             assert torch.equal(getattr(a.val_norm, f), getattr(b.val_norm, f))
     assert agent._st.step.captures == agent._st.update.captures == 1
     assert agent._st.step.nodes > 1000 and agent._st.update.nodes > 100
+
+
+def test_auto_takes_k1_in_the_update_graph_on_the_card(cuda, deterministic):
+    """`fused_optimizer="auto"` on the card, at the card's compute dtype
+    (bf16 trunks, bf16 moments): the learner takes K1; its update graph's
+    capture records K1's norm and update once each, with fewer nodes than
+    the optax chain's capture ("off"); two graphed epochs under "auto"
+    equal the same epochs under "on" bit for bit (params, moments, count,
+    metrics), with K1's launches 4 + 4 per epoch."""
+    from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib
+    from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
+    from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+
+    lib = make_synthetic_motion_lib(num_motions=2, T=60, seed=0, device=cuda)
+    runs = {}
+    for fused in ("auto", "on", "off"):
+        env = HumanoidImEnv(HumanoidImConfig(num_envs=4, substeps=2), lib, device=cuda)
+        agent = ImitationPPO(env, PPOConfig(horizon=4, minibatch_size=8, mini_epochs=2,
+                                            fused_optimizer=fused), seed=7, device=cuda)
+        assert agent.graphed and agent.use_fused == (fused != "off")
+        ts, rows, k1 = agent.init_state(), [], []
+        for _ in range(2):
+            before = (FA.leaf_update.launches, FA.global_norm_scalars.launches)
+            ts, m = agent.train_epoch(ts)
+            torch.cuda.synchronize()
+            k1.append((FA.leaf_update.launches - before[0],
+                       FA.global_norm_scalars.launches - before[1]))
+            rows.append(m)
+        assert agent._st.update.captures == 1
+        runs[fused] = (agent, ts, rows, k1)
+    auto, on, off = (runs[f][0]._st.update for f in ("auto", "on", "off"))
+    assert auto.launches[:2] == on.launches[:2] == (1, 1) and off.launches[:2] == (0, 0)
+    assert auto.nodes == on.nodes < off.nodes
+    assert runs["auto"][3] == runs["on"][3] == [(4, 4)] * 2 and runs["off"][3] == [(0, 0)] * 2
+    (_, a, ma, _), (_, b, mb, _) = runs["auto"], runs["on"]
+    assert a.opt_state.mu[0].dtype == torch.bfloat16
+    for x, y in zip(ma, mb):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    for x, y in zip(a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu):
+        assert torch.equal(x, y)
+    assert int(a.opt_state.count) == int(b.opt_state.count) == 8
 
 
 def test_graph_counters_advance_once_per_replay(cuda):

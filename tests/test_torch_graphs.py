@@ -14,6 +14,8 @@ is (the path the card captures and replays).
   `test_torch_mvae_train.py`'s bounds, fed its normals grouped by k.
 - The signature of `train_epoch`, the configs that take the graphs, and the
   staged steps free of the ops a capture refuses (host syncs, host data).
+- Which optimizer step a learner takes (`fused_optimizer`): K1 on the card
+  under "auto", the optax chain on the CPU and under local SGD.
 """
 
 import dataclasses
@@ -39,8 +41,10 @@ from vid2player3d_torch.data.synthetic import make_synthetic_motion_lib as t_mak
 from vid2player3d_torch.envs import HumanoidImConfig, HumanoidImEnv
 from vid2player3d_torch.envs.presets import preset
 from vid2player3d_torch.learn import ImitationPPO, PPOConfig
+from vid2player3d_torch.learn import ppo as PPO
 from vid2player3d_torch.mvae import MVAEOption, MVAETrainer
 from vid2player3d_torch.mvae import dataset as TD
+from vid2player3d_torch.parallel import mesh as PM
 from vid2player3d_torch.utils import checkpoint as CK
 from vid2player3d_torch.utils import graphs
 
@@ -263,6 +267,84 @@ def test_a_mesh_stays_eager(name):
                                                               minibatch_size=MB), mesh=mesh)
     agent.device = torch.device("cuda", 0)
     assert not agent.graphed
+
+
+@pytest.mark.parametrize("case", ["auto_is_the_chain_on_the_cpu", "on_runs_k1_plain",
+                                  "local_sgd_never_k1"])
+def test_fused_optimizer_chooses_by_device(case, monkeypatch):
+    """`fused_optimizer="auto"` takes K1 on the card and the optax chain on
+    the CPU: on the CPU an epoch under "auto" is the epoch under "off" bit
+    for bit; "on" still steps K1's plain version in every optimizer step of
+    the staged epoch (no card kernel counted); local SGD over two ranks
+    never takes K1, where the per-minibatch sync on the same mesh does. The
+    device is set to the card's type without touching one."""
+    cuda = torch.device("cuda", 0)
+    if case == "auto_is_the_chain_on_the_cpu":
+        auto, off = _agent("auto"), _agent("off")
+        assert not auto.use_fused and not off.use_fused
+        a, ma = auto.train_epoch(auto.init_state())
+        b, mb = off.train_epoch(off.init_state())
+        _assert_same_metrics(ma, mb)
+        _assert_same_state(a, b)
+        auto.device = cuda
+        assert auto.use_fused and not off.use_fused
+    elif case == "on_runs_k1_plain":
+        calls = {"k1": 0, "chain": 0}
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                calls[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        monkeypatch.setattr(PPO, "fused_clip_adam_apply", counted("k1", PPO.fused_clip_adam_apply))
+        monkeypatch.setattr(PPO, "clip_adam_apply", counted("chain", PPO.clip_adam_apply))
+        agent = _agent("on")
+        assert agent.use_fused
+        launches = [f.launches for f in graphs.counters()]
+        ts, _ = agent._train_epoch_graphed(agent.init_state())
+        steps = agent.num_minibatches * agent.cfg.mini_epochs
+        assert calls == {"k1": steps, "chain": 0}
+        assert int(ts.opt_state.count) == steps
+        assert [f.launches for f in graphs.counters()] == launches
+    else:
+        env = HumanoidImEnv(HumanoidImConfig(num_envs=N, substeps=2),
+                            t_make_lib(num_motions=2, T=60, fps=30.0, seed=0, device="cpu"),
+                            device="cpu")
+        mesh = PM.DataParallelMesh(dp=2, rank=0, device=torch.device("cpu"))
+        for fused in ("auto", "on", "off"):
+            for sync, kw in (("per_mini_epoch", dict(minibatch_size=MB // 2,
+                                                     minibatch_per_chip=True)),
+                             ("per_minibatch", dict(minibatch_size=MB))):
+                agent = ImitationPPO(env.shard(mesh), PPOConfig(
+                    horizon=T, mini_epochs=MINI_EPOCHS, dp_sync=sync, fused_optimizer=fused,
+                    **kw), mesh=mesh)
+                assert agent.local_sgd == (sync == "per_mini_epoch")
+                agent.device = cuda
+                assert agent.use_fused == (fused != "off" and not agent.local_sgd), (fused, sync)
+
+
+@pytest.mark.parametrize("name,device,local_sgd,k1", [
+    ("auto", "cpu", False, False), ("auto", "cuda", False, True), ("on", "cpu", False, True),
+    ("on", "cuda", False, True), ("off", "cpu", False, False), ("off", "cuda", False, False),
+    ("auto", "cuda", True, False), ("on", "cuda", True, False)])
+def test_resolve_fused_optimizer(name, device, local_sgd, k1):
+    """K1 for "on", never for "off", for "auto" on a CUDA device only; the
+    optax chain under local SGD whatever the setting."""
+    assert PPO.resolve_fused_optimizer(name, torch.device(device), local_sgd) is k1
+
+
+@pytest.mark.parametrize("name", ["amass_im", "djokovic_im", "federer_im", "amass_im_dr",
+                                  "amass_im_corrupt"])
+def test_imitation_configs_take_k1_on_the_card(name):
+    """Every imitation config leaves the choice to the device: K1 on the
+    card, the optax chain on the CPU; an unknown setting raises."""
+    ppo_cfg = preset(name, num_envs=4)[1]
+    assert ppo_cfg.fused_optimizer == "auto"
+    assert PPO.resolve_fused_optimizer(ppo_cfg.fused_optimizer, torch.device("cuda", 0))
+    assert not PPO.resolve_fused_optimizer(ppo_cfg.fused_optimizer, torch.device("cpu"))
+    with pytest.raises(ValueError, match="fused_optimizer"):
+        PPO.resolve_fused_optimizer("yes", torch.device("cpu"))
 
 
 def test_staged_steps_hold_no_refused_op():

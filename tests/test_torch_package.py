@@ -148,6 +148,57 @@ def test_ops_binds_the_moe_linear_function():
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("names", [["fused_adam"], ["trace_stamp", "fk_chain"], None],
+                         ids=["one", "two", "every"])
+def test_build_kernels_compiles_the_stale_sources_asked_for(names, tmp_path, monkeypatch):
+    """`build_kernels(names)` starts one compiler per stale source among
+    `names` (every source for None), all before it waits for any; a current
+    library is reused and an unknown name raises; `start_build` compiles
+    on a thread of its own. `load_library(name)` compiles `name`'s source
+    alone. The compiler is stood in for, so this runs without a toolkit or
+    a card."""
+    from vid2player3d_torch.ops import build as B
+
+    started, waited = [], []
+
+    class Compiler:
+        def __init__(self, cmd, **kwargs):
+            assert not waited, "a compiler started after the build waited for another"
+            i = cmd.index("-o")
+            self.out, self.returncode = cmd[i + 1], 0
+            started.append(os.path.basename(cmd[i + 2])[:-len(".cu")])
+
+        def communicate(self):
+            waited.append(self.out)
+            with open(self.out, "w"):
+                pass
+            return "ptxas info", None
+
+    monkeypatch.setattr(B.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(B, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(B, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(B.subprocess, "Popen", Compiler)
+    every = sorted(p.stem for p in B.CSRC.glob("*.cu"))
+    assert {"fused_adam", "fk_chain", "trace_stamp", "moe_linear"} <= set(every)
+    want = every if names is None else sorted(names)
+    assert sorted(B.build_kernels(names)) == want and sorted(started) == want
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"lib{n}.so" for n in want)
+    started.clear()
+    waited.clear()
+    assert B.build_kernels(names) == {} and started == []
+    with pytest.raises(ValueError, match="no kernel source"):
+        B.build_kernels(["fused_adam", "nonesuch"])
+    os.remove(B.library_path(want[0]))
+    thread = B.start_build([want[0]])
+    thread.join(timeout=30)
+    assert not thread.is_alive() and started == [want[0]] and B.library_path(want[0]).exists()
+    asked = []
+    monkeypatch.setattr(B, "build_kernels", asked.append)
+    monkeypatch.setattr(B.ctypes, "CDLL", str)
+    assert B.load_library.__wrapped__("moe_linear") == str(tmp_path / "libmoe_linear.so")
+    assert asked == [["moe_linear"]]
+
+
 def test_build_humanoid_model_positional_gender():
     """A call written for JAX, `build_humanoid_model(body, betas, gender)`,
     builds the JAX model's arrays (1e-6, as the asset test) and ignores the

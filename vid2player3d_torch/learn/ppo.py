@@ -14,8 +14,9 @@ Semantics preserved from the JAX learner:
 - running obs norm (updated once per epoch, taking effect NEXT epoch) and
   value normalization
 - lr schedules: constant, adaptive (per-minibatch KL controller), linear
-- the optimizer step as the optax-chain path (``learn/optim.py``) or, with
-  `fused_optimizer="on"`, the fused K1 kernel (``ops/fused_adam.py``)
+- the optimizer step as the optax-chain path (``learn/optim.py``) or the
+  fused K1 kernel (``ops/fused_adam.py``): `fused_optimizer="auto"` takes
+  K1 on the card and the chain on the CPU (`resolve_fused_optimizer`)
 
 Domain randomization (the env's `rand_specs`): every epoch steps a copy of
 the env with a model perturbed from the env's own (never from the last
@@ -82,7 +83,7 @@ from ..core import quat as Q
 from ..core import rot as Rt
 from ..core import smpl as S
 from ..envs.humanoid_im import HumanoidImEnv
-from ..ops.fused_adam import fused_clip_adam_apply
+from ..ops.fused_adam import build_in_background, fused_clip_adam_apply
 from ..parallel import mesh as PM
 from ..utils import graphs
 from ..utils import trace
@@ -133,8 +134,15 @@ class PPOConfig:
     # MLP-trunk compute dtype: "auto" = bfloat16 on the card (with bf16 Adam
     # moments), float32 on the CPU
     compute_dtype: str = "auto"            # auto | f32 | bf16
-    # "on": the fused clip+Adam kernel K1; "auto"/"off": the optax-chain path
-    fused_optimizer: str = "auto"          # auto(=off) | on | off
+    # the clip+Adam+apply step: "on" the fused kernel K1, "off" the optax
+    # chain, "auto" K1 on the card and the chain on the CPU. On a v5e TPU
+    # XLA fuses the chain into a few passes and the JAX package's per-leaf
+    # Pallas kernel lost (0.611 against 0.464 s an epoch), so its "auto" is
+    # off. On an H100 the chain is ~390 kernels of at most one leaf each,
+    # 0.77 ms of amass_im's 1.29 ms optimizer step, and K1 two launches of
+    # ~0.05 ms. The arithmetic is the same; the two differ in rounding only.
+    # Local SGD always takes the chain, as the JAX learner's.
+    fused_optimizer: str = "auto"          # auto | on | off
 
 
 @dataclasses.dataclass
@@ -153,6 +161,16 @@ def resolve_compute_dtype(name: str, device: torch.device) -> torch.dtype:
     if name == "auto":
         return torch.float32 if device.type == "cpu" else torch.bfloat16
     return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def resolve_fused_optimizer(name: str, device: torch.device, local_sgd: bool = False) -> bool:
+    """Whether the optimizer step is K1: "on" yes, "off" no, "auto" on a
+    CUDA device (the chain on the CPU); never under local SGD."""
+    if name not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused_optimizer {name!r}")
+    if local_sgd:
+        return False
+    return name == "on" or (name == "auto" and device.type == "cuda")
 
 
 def diag_gaussian_neglogp(actions, mu, sigma):
@@ -254,7 +272,6 @@ class ImitationPPO:
             # params named `ac.*` and `ctx.*`; the heads compute in float32
             net = nn.ModuleDict({"ac": net, "ctx": ContextHeads(generator=gen)})
         self.net = net.to(self.device)
-        self.use_fused = cfg.fused_optimizer == "on"
         self.sigma = torch.full((self.num_actions,), float(np.exp(cfg.sigma_init)),
                                 device=self.device)
         # the env the last epoch stepped (a randomized copy under DR)
@@ -272,11 +289,19 @@ class ImitationPPO:
         # local SGD only means something across ranks; at dp 1 it is the
         # per-minibatch path (K1 included), as in the JAX learner
         self.local_sgd = cfg.dp_sync == "per_mini_epoch" and self.dp > 1
+        if self.use_fused and self.device.type == "cuda":
+            build_in_background()          # K1's library compiles beside the first rollout
         self.stat_names = STAT_NAMES + (AUX_STAT_NAMES if cfg.use_context_ik else ())
         # the graphed epoch's static tensors and graphs, made at its first call
         self._st = None
         # the graphed evaluation's, one per record set (`eval.py` `_eval_statics`)
         self._eval_st = {}
+
+    @property
+    def use_fused(self) -> bool:
+        """Whether the optimizer step is K1 (`resolve_fused_optimizer` of the
+        config, the device and local SGD)."""
+        return resolve_fused_optimizer(self.cfg.fused_optimizer, self.device, self.local_sgd)
 
     def _sum(self, t: torch.Tensor) -> torch.Tensor:
         """`t` summed over the ranks (itself without collectives)."""
@@ -736,7 +761,7 @@ class ImitationPPO:
         # SGD steps each rank on its own minibatches with the optax-chain Adam,
         # as the JAX learner's `mini_epoch_local`, and shares only the kl
         sync = collective and not self.local_sgd
-        fused = self.use_fused and not self.local_sgd
+        fused = self.use_fused
         stats_rows = []
         for e in range(cfg.mini_epochs):
             perm = _shard_perm(draws, e, B, ts.generator, self.dp, self.rank, dev)

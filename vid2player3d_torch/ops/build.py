@@ -2,9 +2,12 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, which the wrappers load with ``ctypes``.
-The sources compile in parallel (one ``nvcc`` per file, all started
-together) into ``build/kernels/`` beside the package, at first use; a library
-newer than its source is reused.
+`build_kernels()` compiles every stale source in parallel (one ``nvcc`` per
+file, all started together) into ``build/kernels/`` beside the package;
+`load_library(name)` compiles only `name`'s, at its first use, so a path
+that runs one kernel does not wait for the others; `start_build(names)`
+compiles on a thread of its own while the caller goes on. A library newer
+than its source is reused. One build runs at a time in a process.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module of the port on machines with no CUDA toolkit.
@@ -17,8 +20,9 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -48,18 +52,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+# a build started in the background and a `load_library` that needs its
+# library wait for each other; the later one finds the library current
+_BUILDING = threading.Lock()
+
+
 def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def build_kernels() -> Dict[str, str]:
-    """Compile every stale kernel source; returns {name: ptxas log}."""
+def build_kernels(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile the stale kernel sources among `names` (every source if
+    None), in parallel; returns {name: ptxas log}."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
+    with _BUILDING:
+        return _build(names)
+
+
+def _build(names: Optional[Sequence[str]]) -> Dict[str, str]:
+    sources = sorted(CSRC.glob("*.cu"))
+    if names is not None:
+        unknown = set(names) - {src.stem for src in sources}
+        if unknown:
+            raise ValueError(f"no kernel source for {sorted(unknown)}")
+        sources = [src for src in sources if src.stem in names]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sources:
         out = library_path(src.stem)
         if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
             continue
@@ -81,10 +102,26 @@ def build_kernels() -> Dict[str, str]:
     return logs
 
 
+def start_build(names: Sequence[str]) -> threading.Thread:
+    """Compile the stale sources among `names` on a daemon thread (the
+    compilers are processes of their own, so the caller's work goes on);
+    `load_library` waits for it. A failure there is not raised: the
+    `load_library` that needs the library compiles it again and raises."""
+    def build():
+        try:
+            build_kernels(names)
+        except (RuntimeError, OSError):
+            pass
+
+    thread = threading.Thread(target=build, name="kernel-build", daemon=True)
+    thread.start()
+    return thread
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The kernel library `name` (built first if stale), loaded once per
-    process."""
-    build_kernels()
+    """The kernel library `name` (its source compiled first if stale),
+    loaded once per process."""
+    build_kernels([name])
     return ctypes.CDLL(str(library_path(name)))
 

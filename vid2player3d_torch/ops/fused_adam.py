@@ -93,6 +93,16 @@ def _lib():
     return lib
 
 
+def build_in_background() -> None:
+    """Start compiling the kernel library on a thread of its own
+    (``build.start_build``): a learner that will step K1 on the card calls
+    this when it is made, so the compiler runs beside its first rollout
+    rather than in its first optimizer step."""
+    from .build import start_build
+
+    start_build(["fused_adam"])
+
+
 class _Leaves:
     """The host table of one list of leaves: int64 rows [p, m, v, g, n], the
     pointers of params and moments filled once, the grads' column filled per
